@@ -1,13 +1,20 @@
-"""Model and retrieval hyperparameters, plus shared shape arithmetic.
+"""Hyperparameters of the model, the trainer, the data and retrieval, plus
+shared shape arithmetic.
 
-Copies of ``hhrs_tpu/config.py::ModelConfig`` / ``RetrievalConfig`` and
-``hhrs_tpu/utils/shapes.py::round_up``: an artifact manifest's
-``model_config`` loads into :class:`ModelConfig` field for field.
+Copies of ``hhrs_tpu/config.py``'s ``ModelConfig``, ``TrainConfig``,
+``DataConfig`` and ``RetrievalConfig`` (same fields and defaults) and of
+the ``section.field=value`` overrides of ``Config.apply_overrides``, and of
+``hhrs_tpu/utils/shapes.py::round_up``. An artifact manifest's
+``model_config`` loads into :class:`ModelConfig` field for field. Trainer
+options whose paths are not ported yet are rejected by
+:func:`unported_train_options`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
 
 
 def round_up(x: int, m: int) -> int:
@@ -39,6 +46,87 @@ class ModelConfig:
 
 
 @dataclass
+class TrainConfig:
+    """Training-loop hyperparameters (same fields and defaults as the JAX
+    package; see that file for what each one does there)."""
+
+    lr: float = 1e-3
+    batch_size: int = 512
+    weight_decay: float = 1e-4
+    optimizer: str = "adamw"  # 'adamw' (decoupled) or 'adam' (L2-coupled)
+    n_epochs: int = 50
+    early_stop_patience: int = 5
+    lr_plateau_patience: int = 2
+    lr_plateau_factor: float = 0.5
+    seed: int = 42
+    drop_remainder: bool = True
+    eval_batch_size: int = 8192
+    lazy_table_updates: bool = False
+    rng_impl: str = "threefry2x32"
+    moment_dtype: str = "float32"
+    eval_every: int = 1
+    mesh_resident_data: bool = False
+    debug_nans: bool = False
+    fused_epoch: bool = False
+    stream_slab_steps: int = 0
+    eval_catalog_recall: bool = False
+
+
+# Trainer options whose paths are not ported yet: (field, value that is
+# ported, the ROADMAP item that brings the rest).
+_UNPORTED_TRAIN = (
+    ("lazy_table_updates", False, "ROADMAP A7 (lazy sparse-row table updates)"),
+    ("stream_slab_steps", 0, "ROADMAP A6c (out-of-core slab streaming)"),
+    ("fused_epoch", False, "ROADMAP A6c (one launch graph per epoch)"),
+    ("mesh_resident_data", False, "ROADMAP A11 (multi-device training)"),
+    ("moment_dtype", "float32", "ROADMAP A6c (bfloat16 Adam moments)"),
+    ("rng_impl", "threefry2x32", "ROADMAP A6c (rng_impl: the port draws dropout from a torch.Generator)"),
+    ("debug_nans", False, "ROADMAP A6c (NaN checks)"),
+    ("eval_catalog_recall", False, "ROADMAP A7 (train/eval_retrieval.py)"),
+)
+
+
+def unported_train_options(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for the first
+    option of ``cfg`` set to a value whose path is not ported."""
+    for name, ported, item in _UNPORTED_TRAIN:
+        value = getattr(cfg, name)
+        if value != ported:
+            raise NotImplementedError(f"train.{name}={value!r} is not ported yet: {item}")
+
+
+@dataclass
+class DataConfig:
+    """Column contract of the hackathon CSV and the preprocessing knobs."""
+
+    user_col: str = "user_id"
+    item_col: str = "item_id"
+    target_col: str = "was_booked"
+    raw_user_col: str = "guest_id"
+    raw_item_col: str = "hotel_id"
+    categorical_cols: tuple = ("city", "hotel_type")
+    numerical_cols: tuple = (
+        "price_rub",
+        "stars",
+        "user_reviews_count",
+        "rating_overall",
+        "rating_location",
+        "rating_cleanliness",
+        "rating_food",
+        "rating_service",
+        "price_per_star",
+        "cleanliness_vs_service",
+        "location_premium",
+    )
+    positive_rating: float = 8.0
+    negative_rating: float = 4.0
+    test_size: float = 0.2
+    split_seed: int = 42
+    # the reference's scaler-fit-before-split quirk, kept for metric parity
+    leakage_compat: bool = True
+
+
+@dataclass
 class RetrievalConfig:
     """Candidate-generation knobs."""
 
@@ -47,3 +135,40 @@ class RetrievalConfig:
     min_candidates: int = 20  # popularity-fallback trigger
     popular_pool: int = 100  # top-N city rows by review count
     mmr_top_k: int = 20  # MMR output size
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+
+    def apply_overrides(self, overrides: list) -> "Config":
+        """Apply ``section.field=value`` overrides in place."""
+        for ov in overrides:
+            key, eq, raw = ov.partition("=")
+            if not eq:
+                raise ValueError(f"override must be section.field=value, got {ov!r}")
+            section_name, _, field_name = key.partition(".")
+            sections = [f.name for f in dataclasses.fields(self)]
+            if section_name not in sections:
+                raise ValueError(f"unknown config section {section_name!r} in {ov!r}; "
+                                 f"the port has {sections}")
+            section = getattr(self, section_name)
+            if not hasattr(section, field_name):
+                raise ValueError(f"section {section_name!r} has no field {field_name!r}")
+            setattr(section, field_name, _coerce(raw, getattr(section, field_name)))
+        return self
+
+
+def _coerce(raw: str, like: Any) -> Any:
+    if isinstance(like, bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    if isinstance(like, int):
+        return int(raw)
+    if isinstance(like, float):
+        return float(raw)
+    if isinstance(like, tuple):
+        return tuple(x.strip() for x in raw.split(","))
+    return raw

@@ -46,6 +46,23 @@ class ModelDims:
             n_num_features=d["n_num_features"],
         )
 
+    @classmethod
+    def from_artifacts(cls, artifacts) -> "ModelDims":
+        return cls(
+            n_users=artifacts.n_users,
+            n_items=artifacts.n_items,
+            cat_dims=tuple(artifacts.cat_dims.items()),
+            n_num_features=len(artifacts.numerical_cols),
+        )
+
+    def to_dict(self) -> dict:
+        return {
+            "n_users": self.n_users,
+            "n_items": self.n_items,
+            "cat_dims": list(self.cat_dims),
+            "n_num_features": self.n_num_features,
+        }
+
 
 def input_dim_of(dims: ModelDims, cfg: ModelConfig) -> int:
     return cfg.emb_dim * 2 + sum(cfg.cat_emb_dim(n) for _, n in dims.cat_dims) + dims.n_num_features

@@ -32,6 +32,7 @@ from hhrs_tpu_torch.data.features import add_engineered_features
 from hhrs_tpu_torch.data.ingest import load_friendships_csv, load_reviews_csv
 from hhrs_tpu_torch.data.preprocess import encode_item_features
 from hhrs_tpu_torch.data.table import first_occurrence, isna, take
+from hhrs_tpu_torch.device import resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax
 from hhrs_tpu_torch.ops.mmr import NEG_INF, mmr_rerank
 from hhrs_tpu_torch.ops.tower import build_x0, fold_eval_params, tower_eval
@@ -59,16 +60,6 @@ def _reject_unported(options: dict) -> None:
             raise TypeError(f"unexpected option {name!r}")
         if value:
             raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
-
-
-def default_device() -> torch.device:
-    """``cuda`` when a card is present; otherwise raise — the port never
-    carries on quietly on the CPU. Pass ``device="cpu"`` to ask for it."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the engine on the CPU"
-        )
-    return torch.device("cuda")
 
 
 class RecommendationEngine:
@@ -284,7 +275,7 @@ class RecommendationEngine:
         (``hackathon_augmented_data.csv``, ``friendships.csv``) from
         ``data_dir``. ``device`` defaults to ``cuda`` and raises without one."""
         _reject_unported(options)
-        device = default_device() if device is None else torch.device(device)
+        device = resolve_device(device)
         bundle = load_artifact_bundle(artifacts_dir)
         main = add_engineered_features(
             load_reviews_csv(os.path.join(data_dir, "hackathon_augmented_data.csv"))

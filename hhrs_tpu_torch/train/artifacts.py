@@ -1,15 +1,18 @@
-"""Artifact loading — the train→serve contract, read without JAX.
+"""Artifact export and loading — the train→serve contract, without JAX.
 
-Counterpart of ``hhrs_tpu/train/artifacts.py::load_artifact_bundle``. An
-artifact directory holds ``manifest.json`` (format version, model config,
-model dims, metrics), ``params.msgpack`` (flax msgpack of
+Counterpart of ``hhrs_tpu/train/artifacts.py`` (``export_artifacts``,
+``load_artifact_bundle``). An artifact directory holds ``manifest.json``
+(format version, model config, model dims, metrics, file list, and the
+train config as provenance), ``params.msgpack`` (flax msgpack of
 ``{"params": …, "bn_state": …}``), ``preproc.json`` and
-``item_embeddings.npy``. The weight tree stays numpy here; the serve
-engine moves it into a module with ``models/convert.py``.
+``item_embeddings.npy``. The port writes the same files as the JAX
+package, so either package loads what the other exported. The weight tree
+stays numpy here; ``models/convert.py`` moves it into and out of a module.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from dataclasses import dataclass
@@ -19,7 +22,7 @@ import numpy as np
 from hhrs_tpu_torch.config import ModelConfig
 from hhrs_tpu_torch.data.preprocess import PreprocessArtifacts
 from hhrs_tpu_torch.models.dcn import ModelDims
-from hhrs_tpu_torch.train.serialization import msgpack_restore
+from hhrs_tpu_torch.train.serialization import msgpack_restore, msgpack_serialize
 
 MANIFEST = "manifest.json"
 PARAMS = "params.msgpack"
@@ -38,6 +41,37 @@ class ArtifactBundle:
     preproc: PreprocessArtifacts
     item_embeddings: np.ndarray
     metrics: dict
+
+
+def export_artifacts(
+    out_dir: str,
+    params: dict,
+    bn_state: dict,
+    model_cfg: ModelConfig,
+    dims: ModelDims,
+    preproc: PreprocessArtifacts,
+    metrics: dict | None = None,
+    train_cfg=None,
+) -> None:
+    """Write the four files of an artifact directory. ``params`` and
+    ``bn_state`` are JAX-layout numpy trees (``models/convert.py::
+    jax_from_dcnr``); ``train_cfg`` is recorded as provenance only."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, PARAMS), "wb") as f:
+        f.write(msgpack_serialize({"params": params, "bn_state": bn_state}))
+    preproc.save(os.path.join(out_dir, PREPROC))
+    np.save(os.path.join(out_dir, ITEM_EMB), np.asarray(params["item_embedding"], dtype=np.float32))
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "model_config": dataclasses.asdict(model_cfg),
+        "model_dims": dims.to_dict(),
+        "metrics": metrics or {},
+        "files": [PARAMS, PREPROC, ITEM_EMB],
+    }
+    if train_cfg is not None:
+        manifest["train_config"] = dataclasses.asdict(train_cfg)
+    with open(os.path.join(out_dir, MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=2)
 
 
 def load_artifact_bundle(out_dir: str) -> ArtifactBundle:

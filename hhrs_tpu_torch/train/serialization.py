@@ -1,12 +1,14 @@
-"""A msgpack decoder for flax's ``params.msgpack`` files, standard library only.
+"""A msgpack codec for flax's ``params.msgpack`` files, standard library only.
 
 flax (``flax.serialization.to_bytes``) writes a state dict as msgpack:
 nested maps with string keys (lists become maps keyed ``"0"``, ``"1"``, …),
 and every array leaf as extension type 1, whose payload is itself msgpack:
 the tuple ``(shape, dtype name, C-order bytes)``. :func:`msgpack_restore`
 decodes that into nested ``dict``s of numpy arrays, as
-``flax.serialization.msgpack_restore`` does. Leaves over 2 GiB, which flax
-stores in a chunked form, are refused.
+``flax.serialization.msgpack_restore`` does; :func:`msgpack_serialize`
+writes a tree of dicts, lists and numpy arrays as the JAX package's
+export writes it, in the same (smallest) msgpack forms. Leaves over 2 GiB, which flax
+stores in a chunked form, are refused both ways.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 
 _EXT_NDARRAY = 1
 _CHUNKED_KEY = "__msgpack_chunked_array__"
+_MAX_LEAF_BYTES = 2**31 - 1
 
 
 class _Reader:
@@ -114,3 +117,99 @@ def msgpack_restore(data: bytes):
     if r.pos != len(data):
         raise ValueError("trailing bytes after the msgpack document")
     return out
+
+
+def _pack_uint_len(out: bytearray, n: int, small: int, fix_base: int | None, codes: tuple) -> None:
+    """A length header: the fix form below ``small`` when there is one, else
+    the 8/16/32-bit form (``codes`` lists the type bytes, shortest first;
+    ``None`` where msgpack has no 8-bit form)."""
+    if fix_base is not None and n < small:
+        out.append(fix_base | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+             (0xCF, ">Q", 0, 2**64 - 1)) if v > 0 else (
+            (0xD0, ">b", -2**7, 0), (0xD1, ">h", -2**15, 0), (0xD2, ">i", -2**31, 0),
+            (0xD3, ">q", -2**63, 0))
+    for code, fmt, lo, hi in forms:
+        if lo <= v <= hi:
+            out.append(code)
+            out += struct.pack(fmt, v)
+            return
+    raise ValueError(f"integer {v} out of msgpack range")
+
+
+def _pack(out: bytearray, obj) -> None:
+    if isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_uint_len(out, len(data), 32, 0xA0, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, bytes):
+        _pack_uint_len(out, len(obj), 0, None, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, dict):
+        _pack_uint_len(out, len(obj), 16, 0x80, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, (list, tuple)):
+        _pack_uint_len(out, len(obj), 16, 0x90, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, np.ndarray):
+        _pack_ndarray(out, obj)
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def _pack_ndarray(out: bytearray, arr: np.ndarray) -> None:
+    """Extension type 1 around msgpack ``(shape, dtype name, raw bytes)``."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be serialized")
+    if arr.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError("array leaves over 2 GiB (flax's chunked form) are not supported")
+    payload = bytearray()
+    _pack(payload, (list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _pack_uint_len(out, n, 0, None, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", _EXT_NDARRAY)
+    out += payload
+
+
+def to_state_dict(tree):
+    """flax's state-dict form: lists become maps keyed ``"0"``, ``"1"``, …
+    in index order; dict keys are sorted, as ``jax.device_get`` leaves them
+    in the JAX package's export, so both packages write the same bytes."""
+    if isinstance(tree, dict):
+        return {str(k): to_state_dict(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): to_state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a tree of dicts, lists and numpy arrays as the JAX package's
+    ``export_artifacts`` does (``flax.serialization.to_bytes`` of the
+    ``jax.device_get``-ed tree)."""
+    out = bytearray()
+    _pack(out, to_state_dict(tree))
+    return bytes(out)

@@ -1,0 +1,107 @@
+"""Cross-stack parity: the port's plain forward and closed-form backward
+against the JAX Pallas kernel (interpret mode) and its ``jax.grad``, and
+the autograd wiring of :class:`CrossStackFn` on the CPU. The CUDA kernels
+themselves are held to these plain versions on a card
+(``tests/test_torch_port_cuda.py``, ``chip_smoke.py``).
+
+The bar is the JAX kernel's, rtol 1e-5 / atol 1e-6, with the rtol taken
+against the scale of the terms (``ops/cross.py::cross_stack_term_scale``):
+the two sides are float32 programs that add in different orders, so where
+terms cancel they differ by ulps of the terms, not of the result."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hhrs_tpu.ops.pallas.cross_kernel import cross_stack_pallas
+from hhrs_tpu_torch.config import ModelConfig
+from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
+from hhrs_tpu_torch.ops import cross
+from tests.test_torch_port_model import one_torch_thread  # noqa: F401 — module fixture
+
+TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX kernel's bar, tests/test_pallas_kernels.py
+SHAPES = [(64, 57, 3), (300, 128, 1), (32, 33, 2)]
+
+
+def _inputs(B: int, d: int, L: int, seed: int = 0):
+    """x0 ~ N(0, 1), w ~ U(±1/sqrt(d)) as the JAX init draws it, and a
+    non-zero b so the bias gradient path is exercised."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.standard_normal((B, d)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (L, d)) / np.sqrt(d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal((L, d))).astype(np.float32)
+    return x0, w, b
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B,d,L", SHAPES)
+def test_plain_forward_and_backward_match_pallas_kernel(variant, B, d, L):
+    x0, w, b = _inputs(B, d, L)
+
+    def loss(p, x):
+        return jnp.sum(cross_stack_pallas(p, x, variant, True) ** 2)
+
+    params = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+    out = cross_stack_pallas(params, jnp.asarray(x0), variant, True)
+    g_params, g_x0 = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x0))
+
+    tw, tb, tx0 = (torch.from_numpy(a) for a in (w, b, x0))
+    y = cross.cross_stack_apply(tw, tb, tx0, variant)
+    got = (y, *cross.cross_stack_backward_ref(tw, tb, tx0, 2 * y, variant))
+    want = [np.array(a) for a in (out, g_x0, g_params["w"], g_params["b"])]
+    scales = cross.cross_stack_term_scale(tw, tb, tx0, 2 * y, variant)
+    for name, g, ref, scale in zip(("y", "dx0", "dw", "db"), got, want, scales):
+        cross.assert_close_to_scale(g, torch.from_numpy(ref), scale, **TOL, what=name)
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+def test_cross_stack_fn_equals_autograd_on_cpu(variant):
+    x0, w, b = (torch.from_numpy(a) for a in _inputs(48, 41, 3, seed=1))
+    dy = torch.from_numpy(np.random.default_rng(2).standard_normal((48, 41)).astype(np.float32))
+
+    leaves = [t.clone().requires_grad_() for t in (w, b, x0)]
+    cross.cross_stack_apply(*leaves, variant).backward(dy)
+    want = [t.grad for t in leaves]
+
+    leaves = [t.clone().requires_grad_() for t in (w, b, x0)]
+    y = cross.CrossStackFn.apply(*leaves, variant)
+    torch.testing.assert_close(y, cross.cross_stack_apply(w, b, x0, variant), rtol=0, atol=0)
+    y.backward(dy)
+    for got, ref, name in zip((t.grad for t in leaves), want, ("w", "b", "x0")):
+        torch.testing.assert_close(got, ref, **TOL, msg=name)
+
+
+def test_cpu_tensors_never_launch_a_kernel():
+    x0, w, b = (torch.from_numpy(a) for a in _inputs(16, 33, 2))
+    before = (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
+    w.requires_grad_()
+    cross.cross_stack(w, b, x0, "code").sum().backward()
+    assert (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches) == before
+    with pytest.raises(ValueError, match="cuda"):
+        cross.cross_stack_forward(w.detach(), b, x0, "code")
+    with pytest.raises(ValueError, match="cuda"):
+        cross.cross_stack_backward(w.detach(), b, x0, x0, "code")
+    with pytest.raises(ValueError, match="variant"):
+        cross.cross_stack(w, b, x0, "diagonal")
+
+
+def test_model_cross_goes_through_the_wrapper(monkeypatch):
+    calls = []
+    real = cross.cross_stack
+
+    def spy(*args):
+        calls.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(cross, "cross_stack", spy)
+    dims = ModelDims(n_users=20, n_items=10, cat_dims=(("city", 6),), n_num_features=3)
+    model = DCNR(dims, ModelConfig(emb_dim=4, hidden_dim=8, dropout=0.0, cross_variant="canonical"),
+                 generator=torch.Generator().manual_seed(0))
+    u = torch.arange(4)
+    for mode in (model.train(), model.eval()):
+        mode(u, u, u[:, None] % 6, torch.ones(4, 3))
+    assert calls == ["canonical", "canonical"]

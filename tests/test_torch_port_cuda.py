@@ -1,4 +1,5 @@
-"""The CUDA tower kernel against its plain PyTorch version, on a card.
+"""The CUDA kernels (the fused tower, the cross stack forward and backward)
+against their plain PyTorch versions, and a few training steps, on a card.
 
 Marked ``cuda``; each test skips without a CUDA device. This file imports
 only torch and the port, so it also runs where JAX is absent::
@@ -8,12 +9,15 @@ only torch and the port, so it also runs where JAX is absent::
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
-from hhrs_tpu_torch.config import ModelConfig
+from hhrs_tpu_torch.config import ModelConfig, TrainConfig
 from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
-from hhrs_tpu_torch.ops import tower
+from hhrs_tpu_torch.ops import cross, tower
+from hhrs_tpu_torch.train.optimizers import make_optimizer
+from hhrs_tpu_torch.train.trainer import train_step
 
 DIMS = ModelDims(n_users=2000, n_items=600, cat_dims=(("city", 6), ("hotel_type", 5)),
                  n_num_features=11)
@@ -76,3 +80,91 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take():
         tower.tower_eval(f, x0[:, :-1].contiguous())
     with pytest.raises(ValueError, match="is on cpu"):
         tower.tower_eval(dict(f, b0=f["b0"].cpu()), x0)
+
+
+CROSS_TOL = dict(rtol=1e-5, atol=1e-6)  # against cross_stack_term_scale
+
+
+def _cross_inputs(B: int, d: int, L: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+    return (f32(rng.uniform(-1, 1, (L, d)) / np.sqrt(d)), f32(0.1 * rng.standard_normal((L, d))),
+            f32(rng.standard_normal((B, d))), f32(rng.standard_normal((B, d))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B,d,L", [(1, 113, 3), (512, 113, 3), (1000, 33, 1), (8192, 113, 3), (77, 256, 6)])
+def test_cuda_cross_kernels_match_plain_versions(variant, B, d, L):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _cross_inputs(B, d, L)
+    before = (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
+    y = cross.cross_stack_forward(w, b, x0, variant)
+    grads = cross.cross_stack_backward(w, b, x0, dy, variant)
+    again = cross.cross_stack_backward(w, b, x0, dy, variant)
+    torch.cuda.synchronize()
+    assert (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches) == (
+        before[0] + 1, before[1] + 2)
+    ref = (cross.cross_stack_apply(w, b, x0, variant), *cross.cross_stack_backward_ref(w, b, x0, dy, variant))
+    scale = cross.cross_stack_term_scale(w, b, x0, dy, variant)
+    for name, got, want, sc in zip(("y", "dx0", "dw", "db"), (y, *grads), ref, scale):
+        cross.assert_close_to_scale(got, want, sc, **CROSS_TOL, what=name)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))  # deterministic sums
+
+
+@pytest.mark.cuda
+def test_cuda_cross_fn_matches_autograd_of_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _cross_inputs(300, 113, 3, seed=1)
+    grads = []
+    for fn in (cross.CrossStackFn.apply, cross.cross_stack_apply):
+        leaves = [t.clone().requires_grad_() for t in (w, b, x0)]
+        fn(*leaves, "code").backward(dy)
+        grads.append([t.grad for t in leaves])
+    scale = cross.cross_stack_term_scale(w, b, x0, dy, "code")
+    for got, want, sc, name in zip(grads[0], grads[1], (scale[2], scale[3], scale[1]), ("w", "b", "x0")):
+        cross.assert_close_to_scale(got, want, sc, **CROSS_TOL, what=name)
+
+
+@pytest.mark.cuda
+def test_cuda_cross_wrapper_rejects_what_the_kernels_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _cross_inputs(16, 33, 2)
+    with pytest.raises(TypeError, match="float32"):
+        cross.cross_stack(w.double(), b.double(), x0.double(), "code")
+    with pytest.raises(ValueError, match="contiguous"):
+        cross.cross_stack_forward(w, b, x0.t().contiguous().t(), "code")
+    with pytest.raises(ValueError, match="contiguous"):
+        cross.cross_stack_backward(w, b, x0, dy.t().contiguous().t(), "code")
+    with pytest.raises(ValueError, match="is on cpu"):
+        cross.cross_stack(w.cpu(), b, x0, "code")
+    with pytest.raises(ValueError, match="d <= 256"):
+        cross.cross_stack_forward(*_cross_inputs(4, 257, 1)[:3], "code")
+
+
+@pytest.mark.cuda
+def test_cuda_training_steps_reduce_the_loss():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    g = torch.Generator().manual_seed(0)
+    cfg = ModelConfig(emb_dim=48, hidden_dim=320, n_cross_layers=3, n_res_blocks=3, dropout=0.0)
+    model = DCNR(DIMS, cfg, generator=g).cuda().train()
+    tcfg = TrainConfig(lr=3e-3)
+    opt = make_optimizer(tcfg.optimizer, model.parameters(), tcfg.lr, tcfg.weight_decay)
+    B = 512
+    batch = {
+        "user": torch.randint(0, DIMS.n_users, (B,), generator=g),
+        "item": torch.randint(0, DIMS.n_items, (B,), generator=g),
+        "cat": torch.stack([torch.randint(0, 6, (B,), generator=g),
+                            torch.randint(0, 5, (B,), generator=g)], dim=1),
+        "num": torch.rand(B, 11, generator=g),
+        "y": (torch.rand(B, generator=g) < 0.4).float(),
+    }
+    batch = {k: v.cuda() for k, v in batch.items()}
+    before = (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
+    losses = [float(train_step(model, opt, batch, None)) for _ in range(5)]
+    assert (cross.cross_stack_forward.launches - before[0], cross.cross_stack_backward.launches - before[1]) == (5, 5)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
