@@ -11,9 +11,16 @@ Phases (any failure exits non-zero and prints no result line):
    limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
 2. builds ``hhrs_tpu_torch/csrc/tower_eval.cu`` and ``cross_stack.cu`` with
    nvcc (sm_90a), one nvcc for each source, started together;
-3. holds the fused tower kernel against its plain PyTorch version on the
-   card with the hpo_r5 weights: B ∈ {128, 200, 8·128, 64·128}, both cross
-   variants, and a tower without residual blocks, at rtol = atol = 2e-5;
+3. prints the clusters the card holds at once and each launch plan's
+   wave time, which the tower kernel's wrapper measures at first use and
+   picks its plan from; holds the fused tower kernel against its plain
+   PyTorch version on the card with the hpo_r5 weights: B ∈ {1, 31, 33, 128, 200, 1000, 8·128,
+   64·128} (prefixes of one batch, each with the launch plan
+   ``tower_plan`` picks), both cross variants, and a tower without
+   residual blocks, at rtol = atol = 2e-5. Every launch runs twice and
+   must repeat bit for bit; a flipped batch must give the same logits; and
+   each B's logits must equal those of the same rows inside the largest
+   batch, bit for bit (plan invariance);
    then the cross-stack forward and backward kernels against
    ``cross_stack_apply`` and ``cross_stack_backward_ref``: B ∈ {1, 512,
    1000, 8192}, d ∈ {113, 33}, L ∈ {1, 3}, both variants, at rtol 1e-5 /
@@ -29,9 +36,13 @@ Phases (any failure exits non-zero and prints no result line):
    less than ``SWAP_TOL``. The kernel's launch count is reset just before
    this phase and must be > 0 after it;
 5. times the kernel, its plain version and the cuBLAS products of the same
-   tower at B = 128 and 64·128 (CUDA events), per-request p50 of
-   ``recommend`` and ``recommend_many`` (host clock, each ending in the
-   device→host copy), and profiles 20 requests' device time (torch.profiler);
+   tower at B = 128, 8·128 and 64·128: CUDA-event means, and beside them
+   the device time of one call from torch.profiler (the kernel's own, and
+   the sum of the products' GEMM kernels), so one request compares card
+   against card (a kernel the profiler does not show fails the phase);
+   then the per-request p50 of ``recommend`` and ``recommend_many`` (host clock,
+   each ending in the device→host copy), and a profile of 20 requests'
+   device time (torch.profiler);
 6. training, parity run: the port's ``Preprocessor`` on ``data/``, then
    ``train_dcn`` on cuda from the hpo_r5 weights with the hpo_r5 trial-139
    hyperparameters and dropout 0 for 2 epochs; the val loss must match
@@ -82,6 +93,10 @@ VAL_TOL = dict(rtol=2e-3, atol=2e-4)  # training trajectory vs the JAX trainer
 # holds the CPU run to the same two bars.
 LATER_EPOCH_TOL = dict(rtol=5e-3, atol=2e-4)
 SWAP_TOL = 1e-4  # golden logits of two hotels allowed to trade places
+# Tower parity sizes: one request, ragged tiles, the golden sweep's 200,
+# recommend_many (K = 8), 64 requests; each takes another launch plan.
+TOWER_PARITY_B = (1, 31, 33, 128, 200, 1000, 1024, 64 * 128)
+TOWER_TIMED_B = ((128, 500), (8 * 128, 200), (64 * 128, 50))  # (B, calls)
 # H100 SXM published peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -93,6 +108,27 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else "nvidia-smi unavailable"
+
+
+def ptxas_summary(log: str) -> list:
+    """(kernel, registers, spill bytes) of each entry point in a ptxas -v log."""
+    rows, name, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            demangled = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)ELi(\d+)E)?", name)
+            if demangled:
+                kernel, a, b = demangled.groups()
+                name = kernel + (f"<{a}, {b}>" if a else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spills))
+            name = None
+    return rows
 
 
 def fail(msg: str) -> int:
@@ -136,6 +172,27 @@ def device_events(avg) -> list:
     from torch.autograd import DeviceType
 
     return [e for e in avg if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def device_ms_per_call(fn, calls: int, name: str | None = None) -> float:
+    """Device time of one call (torch.profiler): the self time of the
+    kernels whose name holds ``name`` (every kernel and copy when None) over
+    ``calls`` calls after a warm-up. Raises where the profiler shows none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in device_events(prof.key_averages()) if name is None or name in e.key]
+    total = sum(e.self_device_time_total for e in events)
+    if total <= 0:
+        raise SmokeFailure(f"torch.profiler shows no device time for {name or 'any kernel'}")
+    return total / 1e3 / calls
 
 
 def compare_response(got: dict, want: dict, logits: list) -> int | None:
@@ -494,9 +551,17 @@ def main() -> int:
     print(f"[build] {', '.join(p.name for p in lib_paths)} in {time.perf_counter() - t0:.1f} s")
     for lib_path in lib_paths:
         log_file = lib_path.with_suffix(".log")
-        print(log_file.read_text().strip() if log_file.exists() else "[build] reused an existing library")
+        if not log_file.exists():
+            print(f"[build] {lib_path.name}: reused an existing library")
+            continue
+        (OUT_DIR / f"ptxas_{lib_path.stem}.log").write_text(log_file.read_text())
+        for kernel, regs, spills in ptxas_summary(log_file.read_text()):
+            print(f"[build] {kernel}: {regs} registers, {spills} bytes spilled")
 
     # ---- phase 3: kernel against its plain version ----------------------
+    limits = tower._device_limits(torch.cuda.current_device())
+    print(f"[build] {limits[0]} bytes of shared memory per block; clusters of blocks that each take "
+          f"an SM, resident at once, by size: {limits[1]}")
     bundle = load_artifact_bundle(str(REPO / ARTIFACT))
     model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, bundle.model_cfg, dev)
     folded = tower.fold_eval_params(model)
@@ -516,34 +581,54 @@ def main() -> int:
             ).contiguous()
 
     max_err = 0.0
-    launches_before = tower.tower_eval.launches
     n_checks = 0
-    for B in (128, 200, 8 * 128, 64 * 128):
-        x0 = features(B)
+    x0_all = features(max(TOWER_PARITY_B))
+    # The first call at given widths times one full wave of every plan;
+    # tower_plan picks from these times.
+    for label, f in (("dcnr", folded), ("n_res=0", no_res)):
+        d_in, H = f["w0"].shape
+        waves = tower._wave_ms(torch.cuda.current_device(), d_in, H, f["w1"].shape[0], f["cross_w"].shape[0])
+        print(f"[plan] {label}: ms of one full wave, by plan: "
+              + ", ".join(f"{p} {ms:.4f}" for p, ms in sorted(waves.items())))
+    launches_before = tower.tower_eval.launches
+    outs = {}
+    for B in TOWER_PARITY_B:  # prefixes of one batch: each B takes its own plan
+        x0 = x0_all[:B].contiguous()
         for label, f in (("dcnr", folded), ("n_res=0", no_res)):
             for variant in ("code", "canonical"):
                 with torch.no_grad():
                     out = tower.tower_eval(f, x0, variant)
+                    again = tower.tower_eval(f, x0, variant)
                     ref = tower.tower_eval_ref(f, x0, variant)
                 torch.cuda.synchronize()
-                n_checks += 1
+                n_checks += 2
+                outs[(B, label, variant)] = out
                 err = (out - ref).abs()
                 bad = int((err > TOL + TOL * ref.abs()).sum())
                 max_err = max(max_err, float(err.max()))
-                print(f"[parity] B={B} {label} {variant}: max|kernel-plain|={float(err.max()):.3e} "
-                      f"outside tol={bad}")
+                print(f"[parity] B={B} plan {tower.plan_of(f, x0)} "
+                      f"{label} {variant}: max|kernel-plain|={float(err.max()):.3e} outside tol={bad}")
                 if bad or not torch.isfinite(out).all():
                     return fail(f"kernel disagrees with its plain version at B={B} {label} {variant}")
+                if not torch.equal(again, out):
+                    return fail(f"a repeated launch is not bit-identical at B={B} {label} {variant}")
         # equal rows give equal logits wherever they sit in the batch
         with torch.no_grad():
-            flipped = tower.tower_eval(folded, x0.flip(0).contiguous(), "code").flip(0)
-            n_checks += 1
-            if not torch.equal(flipped, tower.tower_eval(folded, x0, "code")):
-                return fail(f"a row's logit depends on its position (B={B})")
-            n_checks += 1
+            for _ in range(2):
+                flipped = tower.tower_eval(folded, x0.flip(0).contiguous(), "code").flip(0)
+                n_checks += 1
+                if not torch.equal(flipped, outs[(B, "dcnr", "code")]):
+                    return fail(f"a row's logit depends on its position (B={B})")
+    # Every B scored a prefix of the largest batch with another plan: the
+    # logits must be those of the same rows inside it, bit for bit.
+    big = max(TOWER_PARITY_B)
+    for (B, label, variant), out in outs.items():
+        if not torch.equal(out, outs[(big, label, variant)][:B]):
+            return fail(f"the logits of B={B} {label} {variant} depend on the plan")
     if tower.tower_eval.launches - launches_before != n_checks:
         return fail("the launch counter did not count every parity launch")
-    print(f"[parity] {n_checks} launches held to rtol=atol={TOL}; max abs err {max_err:.3e}")
+    print(f"[parity] {n_checks} launches held to rtol=atol={TOL}; max abs err {max_err:.3e}; every launch "
+          f"repeated bit for bit; flip and plan invariance bit for bit (B in {TOWER_PARITY_B})")
     cross_err = cross_parity(cross, model, features, dev)
 
     # ---- phase 4: the serving path --------------------------------------
@@ -582,10 +667,11 @@ def main() -> int:
     # ---- phase 5: timings -------------------------------------------------
     kernels = []
     rows = {}
-    for B, iters in ((128, 500), (64 * 128, 50)):
+    for B, iters in TOWER_TIMED_B:
         x0 = features(B)
         with torch.no_grad():
-            ms = time_cuda(lambda: tower.tower_eval(folded, x0), iters)
+            kernel = lambda: tower.tower_eval(folded, x0)  # noqa: E731
+            ms = time_cuda(kernel, iters)
             plain_ms = time_cuda(lambda: tower.tower_eval_ref(folded, x0), iters)
 
             def products():  # the tower's 1 + 2R matrix products alone, in cuBLAS
@@ -596,14 +682,17 @@ def main() -> int:
                 return deep
 
             library_ms = time_cuda(products, iters)
+            device_ms = device_ms_per_call(kernel, 50, "tower_eval_kernel")
+            library_device_ms = device_ms_per_call(products, 50)
         flops, nbytes = tower_work(folded, B)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-        rows[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
-        print(f"[time] tower B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS products "
-              f"{library_ms:.4f} ms, bound {rows[B]['bound_ms']:.4f} ms ({rows[B]['bound_by']}; "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) on {card}")
+        bound_ms, bound_by = bound(flops, nbytes)
+        plan = tower.plan_of(folded, x0)
+        rows[B] = dict(B=B, plan=list(plan), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_device_ms=library_device_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[time] tower B={B} plan {plan}: kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, cuBLAS products {library_ms:.4f} ms (device {library_device_ms:.4f} ms), "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) on {card}")
 
     reqs = golden["requests"]
     lat = []
@@ -669,6 +758,8 @@ def main() -> int:
         "replaces": "hhrs_tpu/ops/pallas/tower_kernel.py:133", "launches": path_launches,
         "max_abs_err": max_err, "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
+        "by_batch": [rows[B] for B, _ in TOWER_TIMED_B if B != 128],
     })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
                            ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):

@@ -24,9 +24,9 @@ DIMS = ModelDims(n_users=2000, n_items=600, cat_dims=(("city", 6), ("hotel_type"
 TOL = dict(rtol=2e-5, atol=2e-5)  # the JAX kernel's own parity bar
 
 
-def _model_and_x0(n_res: int, variant: str, B: int, seed: int = 0):
+def _model_and_x0(n_res: int, variant: str, B: int, seed: int = 0, hidden: int = 320):
     g = torch.Generator().manual_seed(seed)
-    cfg = ModelConfig(emb_dim=48, hidden_dim=320, n_cross_layers=3, n_res_blocks=n_res,
+    cfg = ModelConfig(emb_dim=48, hidden_dim=hidden, n_cross_layers=3, n_res_blocks=n_res,
                       cross_variant=variant)
     model = DCNR(DIMS, cfg, generator=g).eval()
     with torch.no_grad():  # non-trivial running statistics
@@ -49,22 +49,42 @@ def _model_and_x0(n_res: int, variant: str, B: int, seed: int = 0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["code", "canonical"])
-@pytest.mark.parametrize("n_res,B", [(3, 128), (0, 200), (2, 1), (3, 8192)])
-def test_cuda_kernel_matches_plain_version(variant, n_res, B):
+@pytest.mark.parametrize("hidden", [96, 100, 320])
+@pytest.mark.parametrize("n_res,B", [(2, 1), (1, 33), (3, 128), (0, 200), (3, 1024), (3, 8192)])
+def test_cuda_kernel_matches_plain_version(variant, hidden, n_res, B):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
-    f, x0 = _model_and_x0(n_res, variant, B)
+    f, x0 = _model_and_x0(n_res, variant, B, hidden=hidden)
+    tower.plan_of(f, x0)  # the first call at these widths times every plan's wave
     before = tower.tower_eval.launches
     with torch.no_grad():
         out = tower.tower_eval(f, x0, variant)
+        again = tower.tower_eval(f, x0, variant)
         torch.cuda.synchronize()
-        assert tower.tower_eval.launches == before + 1
+        assert tower.tower_eval.launches == before + 2
+        assert torch.equal(again, out)  # a repeated launch repeats bit for bit
         ref = tower.tower_eval_ref(f, x0, variant)
         torch.testing.assert_close(out, ref, **TOL)
         # a row's logit does not depend on its position in the batch
-        again = tower.tower_eval(f, x0.flip(0).contiguous(), variant).flip(0)
-        assert torch.equal(again, out)
+        flipped = tower.tower_eval(f, x0.flip(0).contiguous(), variant).flip(0)
+        assert torch.equal(flipped, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [100, 320])
+def test_cuda_kernel_logits_do_not_depend_on_the_plan(hidden):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    f, x0 = _model_and_x0(3, "code", 8192, hidden=hidden)
+    with torch.no_grad():
+        full = tower.tower_eval(f, x0)
+        for n in (1, 33, 128, 200, 1024):  # each prefix takes another plan than B = 8192
+            assert torch.equal(tower.tower_eval(f, x0[:n].contiguous()), full[:n]), n
+        part = x0[:200].contiguous()
+        d, H = f["w0"].shape
+        for plan in tower.tower_plans(d, H, f["cross_w"].shape[0], tower._device_limits(0)[0]):
+            assert torch.equal(tower.launch(f, part, "code", plan), full[:200]), plan
 
 
 @pytest.mark.cuda
