@@ -22,11 +22,14 @@ Phases (any failure exits non-zero and prints no result line):
    each B's logits must equal those of the same rows inside the largest
    batch, bit for bit (plan invariance);
    then the cross-stack forward and backward kernels against
-   ``cross_stack_apply`` and ``cross_stack_backward_ref``: B ∈ {1, 512,
-   1000, 8192}, d ∈ {113, 33}, L ∈ {1, 3}, both variants, at rtol 1e-5 /
-   atol 1e-6 against the scale of the terms (``cross_stack_term_scale``);
-   a repeated backward must be bit-identical, and a row's output must not
-   depend on its position in the batch;
+   ``cross_stack_apply`` and ``cross_stack_backward_ref``: B ∈ {1, 3, 5,
+   512, 1000, 4487, 8192} (ragged last tiles of 1 to 3 rows that are not
+   bulk-copied, the training batch, the eval chunk), d ∈ {113, 33}, L ∈
+   {1, 3}, both variants, at rtol 1e-5 / atol 1e-6 against the scale of
+   the terms (``cross_stack_term_scale``); a repeated backward must be
+   bit-identical, a row's output must not depend on its position in the
+   batch, and forward and backward captured in a CUDA graph and replayed
+   twice must give the eager results bit for bit;
 4. builds ``RecommendationEngine.from_dirs("benchmarks/results/hpo_r5/best",
    "data")`` on cuda and serves the golden sweep (known, unknown and
    friendless users; every city and an unknown one; both modes; λ ∈
@@ -59,8 +62,13 @@ Phases (any failure exits non-zero and prints no result line):
    ``examples_per_s``, the p50 step time and a full-val eval's time,
    profiles 20 steps, exports the artifact to ``OUT_DIR``, loads it
    back and answers 5 golden requests from it;
-8. times the cross kernels and their plain versions at B = 512 and 8192
-   (d = 113, L = 3; CUDA events).
+8. times the cross kernels and their plain versions at B = 512, 4487 and
+   8192 (d = 113, L = 3): CUDA-event means, and each kernel's device time
+   per call from torch.profiler (a kernel the profiler does not show fails
+   the phase, and so does a call that launches another kernel than its
+   own, or more than one). The kernels' other output path (bulk stores
+   from shared memory, or coalesced stores, whichever the plan does not
+   take) is timed beside them.
 
 The last lines are one JSON object of kernel measurements, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -97,6 +105,10 @@ SWAP_TOL = 1e-4  # golden logits of two hotels allowed to trade places
 # recommend_many (K = 8), 64 requests; each takes another launch plan.
 TOWER_PARITY_B = (1, 31, 33, 128, 200, 1000, 1024, 64 * 128)
 TOWER_TIMED_B = ((128, 500), (8 * 128, 200), (64 * 128, 50))  # (B, calls)
+# Cross parity sizes: ragged last tiles of 1, 3 and 1 rows past a multiple
+# of 4 (B = 1, 3, 5), the training batch, the eval chunk (4487), 8192.
+CROSS_PARITY_B = (1, 3, 5, 512, 1000, 4487, 8192)
+CROSS_TIMED_B = ((512, 500), (4487, 300), (8192, 200))  # (B, calls), d = 113, L = 3
 # H100 SXM published peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -117,10 +129,10 @@ def ptxas_summary(log: str) -> list:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            demangled = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)ELi(\d+)E)?", name)
+            demangled = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?", name)
             if demangled:
                 kernel, a, b = demangled.groups()
-                name = kernel + (f"<{a}, {b}>" if a else "")
+                name = kernel + (f"<{a}, {b}>" if b else f"<{a}>" if a else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills = int(m.group(1)) + int(m.group(2))
@@ -149,20 +161,30 @@ def tower_work(folded: dict, B: int) -> tuple[float, float]:
     return flops, 4.0 * (weights + B * d + B)
 
 
+TIME_REPEATS = 5
+
+
 def time_cuda(fn, iters: int) -> float:
-    """Mean ms per call over ``iters`` calls, after warm-up (CUDA events)."""
+    """Mean ms per call (CUDA events) after a warm-up: the median over
+    ``TIME_REPEATS`` runs of ``iters / TIME_REPEATS`` calls each. Where the
+    host's launch path is longer than the kernel, this times the host,
+    whose clock on a shared machine drifts between runs."""
     import torch
 
-    for _ in range(3):
+    for _ in range(10):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    n = max(1, iters // TIME_REPEATS)
+    runs = []
+    for _ in range(TIME_REPEATS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / n)
+    return statistics.median(runs)
 
 
 def device_events(avg) -> list:
@@ -174,25 +196,53 @@ def device_events(avg) -> list:
     return [e for e in avg if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
-def device_ms_per_call(fn, calls: int, name: str | None = None) -> float:
-    """Device time of one call (torch.profiler): the self time of the
-    kernels whose name holds ``name`` (every kernel and copy when None) over
-    ``calls`` calls after a warm-up. Raises where the profiler shows none."""
+PROFILE_ATTEMPTS = 3
+
+
+def profile_kernels(fn, calls: int, name: str | None = None) -> list:
+    """The device events (kernels and copies) of ``calls`` calls of ``fn``
+    after a warm-up, from torch.profiler: each with its name (``key``),
+    count and self device time. Late in a long process the profiler on the
+    card now and then drops kernel events; where ``name`` is given and
+    fewer than ``calls`` launches of it show, the calls are profiled again,
+    up to ``PROFILE_ATTEMPTS`` times in all, and the fullest profile is
+    returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in device_events(prof.key_averages()) if name is None or name in e.key]
-    total = sum(e.self_device_time_total for e in events)
+    best, best_n = [], -1
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof.key_averages())
+        n = sum(e.count for e in events if name is None or name in e.key)
+        if n > best_n:
+            best, best_n = events, n
+        if name is None or n >= calls:
+            break
+    return best
+
+
+def device_ms_per_call(fn, calls: int, name: str | None = None) -> float:
+    """Device time of one call (torch.profiler) over ``calls`` calls after a
+    warm-up: with ``name``, the mean self time of one launch of each kernel
+    whose name holds it, added over those kernels (each launches once a
+    call; a mean does not move when the profiler drops a launch); without,
+    every kernel's and copy's self time over the calls. Raises where the
+    profiler shows none."""
+    events = [e for e in profile_kernels(fn, calls, name) if name is None or name in e.key]
+    if name is None:
+        total = sum(e.self_device_time_total for e in events) / calls
+    else:
+        total = sum(e.self_device_time_total / e.count for e in events if e.count)
     if total <= 0:
         raise SmokeFailure(f"torch.profiler shows no device time for {name or 'any kernel'}")
-    return total / 1e3 / calls
+    return total / 1e3
 
 
 def compare_response(got: dict, want: dict, logits: list) -> int | None:
@@ -244,7 +294,7 @@ def cross_parity(cross, model, features, dev) -> dict:
     shares = {"fwd": 0.0, "bwd": 0.0}
     before = (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
     n_fwd = n_bwd = 0
-    for B in (1, 512, 1000, 8192):
+    for B in CROSS_PARITY_B:
         for d in (d_model, 33):
             for L in (1, 3):
                 for variant in ("code", "canonical"):
@@ -285,6 +335,31 @@ def cross_parity(cross, model, features, dev) -> dict:
                     print(f"[parity] cross {where}: max|kernel-plain| (share of the allowance) "
                           + " ".join(f"{n} {x[0]:.3e} ({x[1]:.2f})" for n, x in zip(("y", "dx0", "dw", "db"), e))
                           + "; repeat bit-identical; flip bit-identical")
+    # The training step's call, captured in a CUDA graph and replayed: the
+    # backward's tickets must be back at 0 after every launch.
+    x0 = features(512)
+    w, b = model.cross.w.detach().contiguous(), model.cross.b.detach().contiguous()
+    dy = f32(gen.standard_normal(tuple(x0.shape)))
+    with torch.no_grad():
+        want = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # the capture stream's scratch exists before capture
+            cross.cross_stack_backward(w, b, x0, dy, "code")
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            outs = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
+        n_fwd, n_bwd = n_fwd + 2, n_bwd + 3
+        for _ in range(2):
+            for t in outs:
+                t.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            if not all(torch.equal(o, e) for o, e in zip(outs, want)):
+                raise SmokeFailure("the cross kernels replayed from a CUDA graph differ from the eager calls")
+    print("[parity] cross: forward + backward (B=512) captured in a CUDA graph and replayed twice: "
+          "bit-identical to the eager calls")
     after = (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
     if (after[0] - before[0], after[1] - before[1]) != (n_fwd, n_bwd):
         raise SmokeFailure("the cross launch counters did not count every parity launch")
@@ -467,7 +542,8 @@ def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card:
 
 
 def cross_timings(cross, dev, card: str) -> dict:
-    """CUDA-event means of the cross kernels and their plain versions."""
+    """The cross kernels against their plain versions and against their
+    other output path: CUDA-event means and device time per call."""
     import numpy as np
     import torch
 
@@ -475,39 +551,45 @@ def cross_timings(cross, dev, card: str) -> dict:
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
     d, L = 113, 3
     rows = {}
-    for B, iters in ((512, 500), (8192, 200)):
+    probe = torch.empty((1, d), device=dev)
+    print(f"[time] cross: the card runs {cross.capacity(probe, False)} forward blocks and "
+          f"{cross.capacity(probe, True)} backward blocks (clusters of {cross.CLUSTER}) at once at d={d}")
+    for B, iters in CROSS_TIMED_B:
         x0, dy = f32(gen.standard_normal((B, d))), f32(gen.standard_normal((B, d)))
         w, b = f32(gen.uniform(-1, 1, (L, d)) / np.sqrt(d)), f32(0.1 * gen.standard_normal((L, d)))
         with torch.no_grad():
             timed = {
-                "fwd": (lambda: cross.cross_stack_forward(w, b, x0, "code"),
+                "fwd": (lambda p=None: cross.cross_stack_forward(w, b, x0, "code", p),
                         lambda: cross.cross_stack_apply(w, b, x0, "code")),
-                "bwd": (lambda: cross.cross_stack_backward(w, b, x0, dy, "code"),
+                "bwd": (lambda p=None: cross.cross_stack_backward(w, b, x0, dy, "code", p),
                         lambda: cross.cross_stack_backward_ref(w, b, x0, dy, "code")),
             }
             for kind, (kernel, plain) in timed.items():
+                plan = cross.plan_of(x0, kind == "bwd")
+                other = plan._replace(bulk_store=not plan.bulk_store)
                 ms, plain_ms = time_cuda(kernel, iters), time_cuda(plain, iters)
+                other_ms = time_cuda(lambda: kernel(other), iters)
+                # One kernel a call: the profile shows no other cross kernel,
+                # and no more launches than calls (it may drop a few, never add).
+                events = [e for e in profile_kernels(kernel, 50, f"cross_{kind}_kernel") if "cross_" in e.key]
+                if (len(events) != 1 or f"cross_{kind}_kernel" not in events[0].key
+                        or not 45 <= events[0].count <= 50):
+                    raise SmokeFailure(f"50 cross {kind} calls at B={B} launched "
+                                       f"{[(e.key, e.count) for e in events]}, not one kernel each")
+                device_ms = events[0].self_device_time_total / 1e3 / events[0].count
+                other_device_ms = device_ms_per_call(lambda: kernel(other), 50, f"cross_{kind}_kernel")
                 flops, nbytes = cross_work(B, d, L, kind)
                 bound_ms, bound_by = bound(flops, nbytes)
-                rows[(kind, B)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-                print(f"[time] cross {kind} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                      f"{bound_ms:.5f} ms ({bound_by}; {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB); "
-                      f"no single PyTorch call computes it (library_ms null) on {card}")
-            try:  # the kernels' own device time, without the host's launch path
-                from torch.profiler import ProfilerActivity, profile
-
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for _ in range(50):
-                        timed["fwd"][0]()
-                        timed["bwd"][0]()
-                    torch.cuda.synchronize()
-                for e in device_events(prof.key_averages()):
-                    name = re.search(r"cross_\w+", e.key)
-                    if name:
-                        print(f"[time] cross B={B} device time of {name.group(0)}: "
-                              f"{e.self_device_time_total / e.count:.2f} us per launch ({e.count} launches)")
-            except Exception as e:  # noqa: BLE001 — a diagnostic, not a phase
-                print(f"[time] cross kernels' device time not measured: {type(e).__name__}: {e}")
+                rows[(kind, B)] = dict(B=B, plan=list(plan), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       other_output_path=dict(bulk_store=other.bulk_store, ms=other_ms,
+                                                              device_ms=other_device_ms))
+                print(f"[time] cross {kind} B={B} plan {tuple(plan)}: kernel {ms:.4f} ms (device "
+                      f"{device_ms * 1e3:.2f} us, one kernel a call), plain {plain_ms:.4f} ms, bound "
+                      f"{bound_ms * 1e3:.3f} us ({bound_by}; {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB); "
+                      f"{'bulk' if other.bulk_store else 'coalesced'} stores in place: {other_ms:.4f} ms "
+                      f"(device {other_device_ms * 1e3:.2f} us); no single PyTorch call computes it "
+                      f"(library_ms null) on {card}")
         leaves = [t.clone().requires_grad_() for t in (w, b, x0)]
         fns = {"kernels (CrossStackFn)": lambda: cross.CrossStackFn.apply(*leaves, "code").backward(dy),
                "plain (autograd)": lambda: cross.cross_stack_apply(*leaves, "code").backward(dy)}
@@ -768,7 +850,8 @@ def main() -> int:
             "name": f"cross_stack_{kind}", "route": "cuda", "source": "hhrs_tpu_torch/csrc/cross_stack.cu",
             "replaces": replaces, "launches": cross_launches[kind], "max_abs_err": cross_err[kind],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
+            "other_output_path": r["other_output_path"], "by_batch": [cross_rows[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,5 @@
-// Fused L-layer feature-cross stack, forward and backward: one launch for the
-// forward of all L layers, two for the backward (per-block sums, then one
-// ordered sum over the blocks).
+// Fused L-layer feature-cross stack, forward and backward, for Hopper: one
+// launch each way.
 //
 // Replaces the TPU kernel hhrs_tpu/ops/pallas/cross_kernel.py::
 // cross_stack_pallas (pallas_call at :56) and its custom_vjp backward (_bwd
@@ -18,40 +17,216 @@
 //   canonical: s = dy . x0;   dw_l += s x_l;  db_l += dy;  dx0 += dy g_l;
 //              dy = dy + s w_l;                   at the end dx0 += dy
 //
-// What bounds it on an H100: bytes, and in practice launch latency. At the
-// training shapes (B = 512, d = 113, L = 3) a forward moves 0.46 MB and does
-// 0.9 MFLOP: 0.14 us at 3.35 TB/s, far below the ~5 us a launch costs. The
-// plain PyTorch version issues ~5 launches a layer (~15 for the forward) and
-// autograd about twice that for the backward; this design issues 1 and 2.
+// What bounds it on an H100: bytes at large batches, and latency below. At
+// B = 8192, d = 113, L = 3 a forward moves 7.4 MB (2.2 us at 3.35 TB/s) and
+// does 14 MFLOP; at the training batch (B = 512) the bytes take 0.14 us, far
+// less than a launch, and a backward row is a chain of 2L dependent shuffle
+// reductions (about 1.3 us), after which the batch sums cross the blocks.
+// The first kernels waited on L2 for w and b in every layer, loaded one row
+// at a time per warp, and summed dw, db in a second launch. This design:
 //
-// Design (simple and correct first):
-//  * one warp per row; lane k owns columns k, k + 32, ... (NPL = ceil(d/32)
-//    of them, a template parameter), so the row, x0 and, in the backward,
-//    every x_l stay in registers across the layers; a gate is a warp-shuffle
-//    reduction;
-//  * the elementwise steps use __fmul_rn / __fadd_rn, never a contracted
-//    FMA, so they round exactly as the plain version's separate operations;
-//    only the order of the d-term gate sums differs;
-//  * dw and db are sums over the batch, made without float atomics so two
-//    runs give bit-identical gradients: each warp sums its rows in order in
-//    registers, each block sums its warps in order into a scratch
-//    [n_blocks, 2, L, d] (allocated by the caller), and a second kernel sums
-//    the blocks in order. The number of blocks depends on B alone;
-//  * a row's instruction sequence does not depend on where it sits in the
-//    batch, so y and dx0 of a row are the same at any position.
+//  * loads w and b once per block into shared memory, with plain coalesced
+//    loads issued while the first tile's copy is in flight;
+//  * brings rows in tiles of T consecutive rows (T a multiple of 4, so a
+//    tile is a multiple of 16 bytes and starts on a 16-byte boundary): one
+//    thread issues one bulk copy (cp.async.bulk, the copy engine of TMA)
+//    per tile and input into a ring of `stages` buffers, each completing on
+//    its stage's mbarrier. The last rows of the batch that do not fill a
+//    multiple of 4 are read from global memory by the warps that own them;
+//  * runs a persistent grid: block k walks tiles k, k + grid, ...; the plan
+//    (T, grid, stages) comes from ops/cross.py::cross_plan, which sizes T so
+//    that the batch fills the blocks the card runs at once, in one wave;
+//  * sends outputs either as coalesced stores from registers, or written
+//    back into the tile's buffer and sent by one bulk store per tile
+//    (`bulk_store`);
+//  * sums dw and db over the batch in the same launch, without float
+//    atomics, so two runs give bit-identical gradients: each warp sums its
+//    rows in order in registers; each block sums its warps in order 0..7 in
+//    shared memory; the backward runs in clusters of 8 blocks, and each
+//    block of a cluster adds one slice of the columns over the 8 blocks in
+//    rank order, through distributed shared memory, into the cluster's row
+//    of `partial`; the block that draws the last ticket of an integer
+//    counter adds the clusters' rows in order and writes dw, db. A round
+//    through global memory (writes, a ticket, reads) costs about a
+//    microsecond, so summing the cluster on chip saves one. The order
+//    depends on the plan alone, and the ticket counter is back at 0 when
+//    the launch ends, so a captured CUDA graph replays correctly.
+//
+// The row arithmetic is the first kernel's, instruction for instruction: a
+// warp per row, lane k owning columns k, k + 32, ... (NPL = ceil(d/32) of
+// them, a template parameter), the gate as one fmaf chain and a shuffle
+// tree, the updates with __fmul_rn / __fadd_rn (never a contracted FMA, so
+// they round as the plain version's separate operations). So y and dx0 are
+// bit for bit those of the earlier kernels, at any position in any tile and
+// under any plan.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kWarps = 8;             // warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxLayers = 6;         // the JAX search space's largest stack
 constexpr int kMaxPerLane = 8;        // d <= 256
-constexpr int kTargetBlocks = 256;    // backward: blocks of partial sums, about
-constexpr int kReduceRows = 8;        // reduce kernel: threads along the blocks
+constexpr int kMaxRows = 48;          // rows per tile
+constexpr int kMaxStages = 3;         // tiles in flight per block
+constexpr int kMaxRing = 96;          // stages x rows
+constexpr int kHeadBytes = 128;       // the stages' mbarriers, padded
+constexpr int kCluster = 8;           // backward: blocks that sum through shared memory
+
+__host__ __device__ constexpr size_t round_up(size_t x, size_t m) { return (x + m - 1) / m * m; }
+
+// Shared memory: mbarriers | w, b [L][d] each | the ring of tiles
+// [stages][streams][T][d], which the backward reuses for the warps' sums
+// [kWarps][2][L][d] once the tiles are done.
+__host__ __device__ constexpr size_t weights_bytes(int d, int L) {
+  return round_up(2 * sizeof(float) * L * d, 128);
+}
+
+size_t smem_bytes(int rows, int stages, int d, int L, bool backward) {
+  const size_t streams = backward ? 2 : 1;
+  size_t body = sizeof(float) * stages * streams * rows * d;
+  if (backward) {
+    const size_t sums = sizeof(float) * kWarps * 2 * L * d;
+    if (sums > body) body = sums;
+  }
+  return kHeadBytes + weights_bytes(d, L) + body;
+}
+
+// ---- mbarriers and bulk copies (PTX) -------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(1u) : "memory");
+}
+
+// The phase's one arrival, which also expects `bytes` of copies to land.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n\t"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// global -> shared: `bytes` a multiple of 16, both addresses 16-byte aligned.
+__device__ __forceinline__ void copy_in(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared -> global, one bulk group.
+__device__ __forceinline__ void copy_out(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Until this thread's bulk stores are complete.
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// Orders this thread's shared-memory writes before a later bulk store's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the tile stream -------------------------------------------------------
+
+// The block's tiles k = 0, 1, ... are tiles blockIdx.x + k * gridDim.x of the
+// batch. Tile k lands in stage k % stages, whose mbarrier completes phase
+// (k / stages) & 1 when the tile's bulk copies have arrived. Only the first
+// rows & ~3 rows of a tile are copied; the rest (the batch's last <= 3 rows)
+// stay in global memory.
+struct TileRing {
+  uint64_t* bars;
+  float* buf;
+  int B, d, rows, stages, streams;
+
+  __device__ int first_row(int k) const { return (blockIdx.x + k * gridDim.x) * rows; }
+  __device__ int n_rows(int k) const { return min(rows, B - first_row(k)); }
+  __device__ int copied_rows(int k) const { return n_rows(k) & ~3; }
+  __device__ float* tile(int k, int stream) const {
+    return buf + ((size_t)(k % stages) * streams + stream) * rows * d;
+  }
+  // One thread: the copies of tile k from a (and, with two streams, c).
+  __device__ void issue(int k, const float* a, const float* c) const {
+    const size_t r0 = first_row(k);
+    const uint32_t bytes = copied_rows(k) * d * sizeof(float);
+    uint64_t* bar = bars + k % stages;
+    mbar_arrive_expect(bar, bytes * streams);
+    if (bytes == 0) return;
+    copy_in(tile(k, 0), a + r0 * d, bytes, bar);
+    if (streams == 2) copy_in(tile(k, 1), c + r0 * d, bytes, bar);
+  }
+  __device__ void wait(int k) const { mbar_wait(bars + k % stages, (k / stages) & 1); }
+};
+
+// Block set-up: thread 0 starts the first tiles' copies, then every thread
+// loads w and b into shared memory while they fly.
+__device__ __forceinline__ void start(const TileRing& ring, int mine, const float* a,
+                                      const float* c, const float* __restrict__ w,
+                                      const float* __restrict__ b, float* ws, float* bs,
+                                      int n) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring.stages; ++s) mbar_init(ring.bars + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < min(ring.stages, mine); ++k) ring.issue(k, a, c);
+  }
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    ws[i] = w[i];
+    bs[i] = b[i];
+  }
+  __syncthreads();
+}
+
+// After tile k: the block's warps are done with its buffer. With bulk_store,
+// thread 0 sends the tile's copied rows (now outputs) to out; then it refills
+// the buffer with tile k + stages, if the block has one.
+__device__ __forceinline__ void finish_tile(const TileRing& ring, int k, int mine,
+                                            int bulk_store, float* out, int out_stream,
+                                            const float* a, const float* c) {
+  const bool refill = k + ring.stages < mine;
+  if (!bulk_store && !refill) return;  // uniform across the block
+  if (bulk_store) fence_async_shared();
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  if (bulk_store && ring.copied_rows(k) > 0) {
+    copy_out(out + (size_t)ring.first_row(k) * ring.d, ring.tile(k, out_stream),
+               ring.copied_rows(k) * ring.d * sizeof(float));
+    if (refill) bulk_wait_read();
+  }
+  if (refill) ring.issue(k + ring.stages, a, c);
+}
+
+// ---- the row arithmetic (the first kernel's) -------------------------------
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -59,23 +234,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// sum_c a[c] * v[c] over the row, a held by the lanes, v in global memory.
+// sum_c a[c] * v[c] over the row, a held by the lanes, v in memory.
 template <int NPL>
-__device__ __forceinline__ float row_dot(const float (&a)[NPL],
-                                         const float* __restrict__ v, int lane,
-                                         int d) {
+__device__ __forceinline__ float row_dot(const float (&a)[NPL], const float* v, int lane, int d) {
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
-    if (c < d) s = fmaf(a[j], __ldg(v + c), s);
+    if (c < d) s = fmaf(a[j], v[c], s);
   }
   return warp_sum(s);
 }
 
 template <int NPL>
-__device__ __forceinline__ float row_dot(const float (&a)[NPL],
-                                         const float (&v)[NPL]) {
+__device__ __forceinline__ float row_dot(const float (&a)[NPL], const float (&v)[NPL]) {
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < NPL; ++j) s = fmaf(a[j], v[j], s);
@@ -84,15 +256,13 @@ __device__ __forceinline__ float row_dot(const float (&a)[NPL],
 
 // One cross layer on a row held in registers. Columns past d stay zero.
 template <int NPL>
-__device__ __forceinline__ void layer_step(float (&x)[NPL],
-                                           const float (&x0)[NPL], float g,
-                                           const float* __restrict__ b,
-                                           int lane, int d, int canonical) {
+__device__ __forceinline__ void layer_step(float (&x)[NPL], const float (&x0)[NPL], float g,
+                                           const float* b, int lane, int d, int canonical) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
     if (c < d) {
-      const float bc = __ldg(b + c);
+      const float bc = b[c];
       x[j] = canonical ? __fadd_rn(__fadd_rn(__fmul_rn(x0[j], g), bc), x[j])
                        : __fadd_rn(__fadd_rn(x[j], __fmul_rn(x[j], g)), bc);
     }
@@ -100,9 +270,7 @@ __device__ __forceinline__ void layer_step(float (&x)[NPL],
 }
 
 template <int NPL>
-__device__ __forceinline__ void load_row(float (&r)[NPL],
-                                         const float* __restrict__ src,
-                                         int lane, int d) {
+__device__ __forceinline__ void load_row(float (&r)[NPL], const float* src, int lane, int d) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
@@ -111,9 +279,7 @@ __device__ __forceinline__ void load_row(float (&r)[NPL],
 }
 
 template <int NPL>
-__device__ __forceinline__ void store_row(float* __restrict__ dst,
-                                          const float (&r)[NPL], int lane,
-                                          int d) {
+__device__ __forceinline__ void store_row(float* dst, const float (&r)[NPL], int lane, int d) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
@@ -121,36 +287,134 @@ __device__ __forceinline__ void store_row(float* __restrict__ dst,
   }
 }
 
+// ---- the kernels -------------------------------------------------------------
+
+struct Layout {
+  uint64_t* bars;
+  float *ws, *bs, *ring;
+  __device__ Layout(unsigned char* smem, int d, int L)
+      : bars(reinterpret_cast<uint64_t*>(smem)),
+        ws(reinterpret_cast<float*>(smem + kHeadBytes)),
+        bs(ws + L * d),
+        ring(reinterpret_cast<float*>(smem + kHeadBytes + weights_bytes(d, L))) {}
+};
+
+__device__ __forceinline__ int tiles_of_block(int B, int rows) {
+  const int n_tiles = (B + rows - 1) / rows;
+  return n_tiles > (int)blockIdx.x ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+}
+
 template <int NPL>
 __global__ void __launch_bounds__(kThreads)
     cross_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
-                     const float* __restrict__ b, float* __restrict__ y, int B,
-                     int d, int L, int canonical) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= B) return;  // uniform across the warp; no block barrier follows
-  float xin[NPL], x[NPL];
-  load_row<NPL>(xin, x0 + (size_t)row * d, lane, d);
+                     const float* __restrict__ b, float* __restrict__ y, int B, int d, int L,
+                     int canonical, int rows, int stages, int bulk_store) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout s(smem, d, L);
+  const TileRing ring{s.bars, s.ring, B, d, rows, stages, 1};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mine = tiles_of_block(B, rows);
+  start(ring, mine, x0, nullptr, w, b, s.ws, s.bs, L * d);
+
+  for (int k = 0; k < mine; ++k) {
+    ring.wait(k);
+    const int r0 = ring.first_row(k), n = ring.n_rows(k), copied = ring.copied_rows(k);
+    float* tile = ring.tile(k, 0);
+    for (int r = warp; r < n; r += kWarps) {
+      const bool staged = r < copied;
+      float xin[NPL], x[NPL];
+      load_row<NPL>(xin, staged ? tile + r * d : x0 + (size_t)(r0 + r) * d, lane, d);
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) x[j] = xin[j];
-  for (int l = 0; l < L; ++l) {
-    const float g = row_dot<NPL>(x, w + (size_t)l * d, lane, d);
-    layer_step<NPL>(x, xin, g, b + (size_t)l * d, lane, d, canonical);
+      for (int j = 0; j < NPL; ++j) x[j] = xin[j];
+      for (int l = 0; l < L; ++l) {
+        const float g = row_dot<NPL>(x, s.ws + l * d, lane, d);
+        layer_step<NPL>(x, xin, g, s.bs + l * d, lane, d, canonical);
+      }
+      store_row<NPL>(bulk_store && staged ? tile + r * d : y + (size_t)(r0 + r) * d, x, lane, d);
+    }
+    finish_tile(ring, k, mine, bulk_store, y, 0, x0, nullptr);
   }
-  store_row<NPL>(y + (size_t)row * d, x, lane, d);
+  if (bulk_store && threadIdx.x == 0) bulk_wait();
 }
 
-// Rows of block k: k * kWarps * rpw + r * kWarps + warp for r < rpw.
-// Writes dx0 for those rows and the block's sums of dw, db to
-// partial[k][0 | 1][L][d].
+// Thread 0 takes a ticket on `counter`; true in every thread of the block
+// that drew the last of `expected` tickets, which also puts the counter back
+// to 0. Every block's global writes before the call are visible to that
+// block: the barrier, then thread 0's ticket, an atomic add with release
+// (cumulative over the barrier) and acquire semantics at GPU scope.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* counter, unsigned int expected) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int ticket;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(ticket)
+                 : "l"(counter)
+                 : "memory");
+    last = ticket == expected - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  return last;
+}
+
+// out(i, sum over k < count of src[k * stride + i]) for every i < n, each sum
+// added in order k = 0, 1, ... A thread takes kSumCols columns kThreads apart
+// and loads kSumTerms terms of each before it adds them, so the L2 reads of a
+// sum overlap instead of following one another.
+constexpr int kSumCols = 4, kSumTerms = 8;
+
+template <class Out>
+__device__ __forceinline__ void ordered_sums(const float* src, size_t stride, int count, int n,
+                                             Out out) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kSumCols) {
+    float t[kSumCols];
+#pragma unroll
+    for (int m = 0; m < kSumCols; ++m) t[m] = 0.f;
+    for (int k0 = 0; k0 < count; k0 += kSumTerms) {
+      float v[kSumCols][kSumTerms];
+#pragma unroll
+      for (int m = 0; m < kSumCols; ++m) {
+#pragma unroll
+        for (int q = 0; q < kSumTerms; ++q) {
+          const int i = i0 + m * kThreads, k = k0 + q;
+          v[m][q] = i < n && k < count ? __ldcg(src + (size_t)k * stride + i) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kSumCols; ++m) {
+#pragma unroll
+        for (int q = 0; q < kSumTerms; ++q) {
+          if (k0 + q < count) t[m] += v[m][q];
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kSumCols; ++m) {
+      if (i0 + m * kThreads < n) out(i0 + m * kThreads, t[m]);
+    }
+  }
+}
+
+// Writes dx0 for the block's rows; partial[c] gets cluster c's sums of
+// dw | db ([2][L][d]), and the block that draws the last ticket on
+// counters[0] sums the clusters' rows in order into dw, db. Up to d = 128
+// two blocks fit on an SM (at most 128 registers a thread); wider rows need
+// more registers than that.
 template <int NPL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL <= 4 ? 2 : 1)
     cross_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
                      const float* __restrict__ b, const float* __restrict__ dy,
-                     float* __restrict__ dx0, float* __restrict__ partial,
-                     int B, int d, int L, int canonical, int rpw) {
-  extern __shared__ float smem[];  // [kWarps][2][L][d]
+                     float* __restrict__ dx0, float* __restrict__ dw, float* __restrict__ db,
+                     float* partial, unsigned int* counters, int B,
+                     int d, int L, int canonical, int rows, int stages, int bulk_store) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout s(smem, d, L);
+  const TileRing ring{s.bars, s.ring, B, d, rows, stages, 2};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mine = tiles_of_block(B, rows);
+  start(ring, mine, x0, dy, w, b, s.ws, s.bs, L * d);
+
   float dw_acc[kMaxLayers][NPL], db_acc[kMaxLayers][NPL];
 #pragma unroll
   for (int l = 0; l < kMaxLayers; ++l) {
@@ -158,142 +422,155 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NPL; ++j) dw_acc[l][j] = db_acc[l][j] = 0.f;
   }
 
-  for (int r = 0; r < rpw; ++r) {
-    const int row = (blockIdx.x * rpw + r) * kWarps + warp;
-    if (row >= B) break;  // uniform across the warp
-    float xin[NPL], x[NPL], dx[NPL], dx0_acc[NPL];
-    float xs[kMaxLayers][NPL], g[kMaxLayers];
-    load_row<NPL>(xin, x0 + (size_t)row * d, lane, d);
-    load_row<NPL>(dx, dy + (size_t)row * d, lane, d);
+  for (int k = 0; k < mine; ++k) {
+    ring.wait(k);
+    const int r0 = ring.first_row(k), n = ring.n_rows(k), copied = ring.copied_rows(k);
+    float* tx = ring.tile(k, 0);
+    float* tdy = ring.tile(k, 1);
+    for (int r = warp; r < n; r += kWarps) {
+      const bool staged = r < copied;
+      const size_t row = r0 + r;
+      float xin[NPL], x[NPL], dx[NPL], dx0_acc[NPL];
+      float xs[kMaxLayers][NPL], g[kMaxLayers];
+      load_row<NPL>(xin, staged ? tx + r * d : x0 + row * d, lane, d);
+      load_row<NPL>(dx, staged ? tdy + r * d : dy + row * d, lane, d);
 #pragma unroll
-    for (int j = 0; j < NPL; ++j) {
-      x[j] = xin[j];
-      dx0_acc[j] = 0.f;
-    }
-    // Recompute the layer inputs x_l and gates g_l, as the forward does.
-#pragma unroll
-    for (int l = 0; l < kMaxLayers; ++l) {
-      if (l < L) {
-#pragma unroll
-        for (int j = 0; j < NPL; ++j) xs[l][j] = x[j];
-        g[l] = row_dot<NPL>(x, w + (size_t)l * d, lane, d);
-        layer_step<NPL>(x, xin, g[l], b + (size_t)l * d, lane, d, canonical);
+      for (int j = 0; j < NPL; ++j) {
+        x[j] = xin[j];
+        dx0_acc[j] = 0.f;
       }
-    }
-    // Walk back through the layers.
+      // Recompute the layer inputs x_l and gates g_l, as the forward does.
 #pragma unroll
-    for (int l = kMaxLayers - 1; l >= 0; --l) {
-      if (l < L) {
-        const float* wl = w + (size_t)l * d;
-        const float s = canonical ? row_dot<NPL>(dx, xin) : row_dot<NPL>(dx, xs[l]);
+      for (int l = 0; l < kMaxLayers; ++l) {
+        if (l < L) {
 #pragma unroll
-        for (int j = 0; j < NPL; ++j) {
-          const int c = lane + 32 * j;
-          const float wc = c < d ? __ldg(wl + c) : 0.f;
-          db_acc[l][j] += dx[j];
-          dw_acc[l][j] = fmaf(s, xs[l][j], dw_acc[l][j]);
-          if (canonical) {
-            dx0_acc[j] = fmaf(dx[j], g[l], dx0_acc[j]);
-            dx[j] = fmaf(s, wc, dx[j]);
-          } else {
-            dx[j] = fmaf(s, wc, dx[j] * (1.f + g[l]));
+          for (int j = 0; j < NPL; ++j) xs[l][j] = x[j];
+          g[l] = row_dot<NPL>(x, s.ws + l * d, lane, d);
+          layer_step<NPL>(x, xin, g[l], s.bs + l * d, lane, d, canonical);
+        }
+      }
+      // Walk back through the layers.
+#pragma unroll
+      for (int l = kMaxLayers - 1; l >= 0; --l) {
+        if (l < L) {
+          const float* wl = s.ws + l * d;
+          const float sl = canonical ? row_dot<NPL>(dx, xin) : row_dot<NPL>(dx, xs[l]);
+#pragma unroll
+          for (int j = 0; j < NPL; ++j) {
+            const int c = lane + 32 * j;
+            const float wc = c < d ? wl[c] : 0.f;
+            db_acc[l][j] += dx[j];
+            dw_acc[l][j] = fmaf(sl, xs[l][j], dw_acc[l][j]);
+            if (canonical) {
+              dx0_acc[j] = fmaf(dx[j], g[l], dx0_acc[j]);
+              dx[j] = fmaf(sl, wc, dx[j]);
+            } else {
+              dx[j] = fmaf(sl, wc, dx[j] * (1.f + g[l]));
+            }
           }
         }
       }
-    }
-    if (canonical) {
+      if (canonical) {
 #pragma unroll
-      for (int j = 0; j < NPL; ++j) dx[j] += dx0_acc[j];
+        for (int j = 0; j < NPL; ++j) dx[j] += dx0_acc[j];
+      }
+      store_row<NPL>(bulk_store && staged ? tdy + r * d : dx0 + row * d, dx, lane, d);
     }
-    store_row<NPL>(dx0 + (size_t)row * d, dx, lane, d);
+    finish_tile(ring, k, mine, bulk_store, dx0, 1, x0, dy);
   }
 
-  // The block's sums: each warp writes its own slot, then the warps are
-  // added in order 0 .. kWarps-1.
-  const int n = L * d;
-  float* mine = smem + (size_t)warp * 2 * n;
+  // The block's sums: each warp writes its own slot of the (now idle) ring,
+  // then the warps are added in order 0 .. kWarps-1, into slot 0.
+  if (bulk_store && threadIdx.x == 0) bulk_wait();
+  __syncthreads();
+  const int n = L * d, n2 = 2 * n;
+  float* sums = s.ring;
+  float* own = sums + (size_t)warp * n2;
 #pragma unroll
   for (int l = 0; l < kMaxLayers; ++l) {
     if (l < L) {
-      store_row<NPL>(mine + (size_t)l * d, dw_acc[l], lane, d);
-      store_row<NPL>(mine + n + (size_t)l * d, db_acc[l], lane, d);
+      store_row<NPL>(own + (size_t)l * d, dw_acc[l], lane, d);
+      store_row<NPL>(own + n + (size_t)l * d, db_acc[l], lane, d);
     }
   }
   __syncthreads();
-  float* out = partial + (size_t)blockIdx.x * 2 * n;
-  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < kWarps; ++k) s += smem[(size_t)k * 2 * n + i];
-    out[i] = s;
+  for (int i = threadIdx.x; i < n2; i += kThreads) {
+    float t = 0.f;
+    for (int k = 0; k < kWarps; ++k) t += sums[(size_t)k * n2 + i];
+    sums[i] = t;
   }
-}
 
-// dw | db [2n] = sum over the blocks of partial[k][2n], in a fixed order:
-// thread (tx, ty) adds blocks ty, ty + kReduceRows, ... of column i, then the
-// kReduceRows sums of a column are added in order ty = 0, 1, ...
-__global__ void __launch_bounds__(32 * kReduceRows)
-    cross_bwd_reduce_kernel(const float* __restrict__ partial,
-                            float* __restrict__ dw, float* __restrict__ db,
-                            int n_blocks, int n) {
-  __shared__ float sums[kReduceRows][32];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int i = blockIdx.x * 32 + tx;
-  float s = 0.f;
-  if (i < 2 * n) {
-#pragma unroll 4
-    for (int k = ty; k < n_blocks; k += kReduceRows) s += partial[(size_t)k * 2 * n + i];
-  }
-  sums[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && i < 2 * n) {
+  // The cluster's sums: block `rank` adds the kCluster blocks' sums of its
+  // slice of the columns, in rank order, through distributed shared memory,
+  // into the cluster's row of partial.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int slice = (n2 + kCluster - 1) / kCluster;
+  const int c0 = static_cast<int>(cluster.block_rank()) * slice, c1 = min(n2, c0 + slice);
+  float* row = partial + (size_t)(blockIdx.x / kCluster) * n2;
+  for (int i = c0 + threadIdx.x; i < c1; i += kThreads) {
+    float v[kCluster];
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) v[q] = cluster.map_shared_rank(sums, q)[i];
     float t = 0.f;
 #pragma unroll
-    for (int k = 0; k < kReduceRows; ++k) t += sums[k][tx];
+    for (int q = 0; q < kCluster; ++q) t += v[q];
+    row[i] = t;
+  }
+
+  // The clusters' sum, in order, by the block that draws the last ticket.
+  const bool last = last_to_arrive(counters, gridDim.x);
+  cluster.sync();  // a block's sums stay until its peers have read them
+  if (!last) return;
+  ordered_sums(partial, n2, gridDim.x / kCluster, n2, [=](int i, float t) {
     if (i < n) {
       dw[i] = t;
     } else {
       db[i - n] = t;
     }
-  }
+  });
 }
 
-int rows_per_warp(int B) {
-  const int per_block = (B + kTargetBlocks - 1) / kTargetBlocks;
-  const int rpw = (per_block + kWarps - 1) / kWarps;
-  return rpw < 1 ? 1 : rpw;
+bool valid_plan(int rows, int grid, int stages) {
+  return rows >= 4 && rows <= kMaxRows && rows % 4 == 0 && grid >= 1 && stages >= 1 &&
+         stages <= kMaxStages && stages * rows <= kMaxRing;
 }
 
 template <int NPL>
-cudaError_t launch_fwd(const float* x0, const float* w, const float* b,
-                       float* y, int B, int d, int L, int canonical,
+cudaError_t prepare_instance(int bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      cross_fwd_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(cross_bwd_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// Clusters of the kernel (its compile-time cluster size) the card runs at once.
+template <class Kernel>
+cudaError_t resident_clusters(Kernel k, size_t smem, int* n) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  return cudaOccupancyMaxActiveClusters(n, k, &cfg);
+}
+
+template <int NPL>
+cudaError_t launch_fwd(const float* x0, const float* w, const float* b, float* y, int B, int d,
+                       int L, int canonical, int rows, int grid, int stages, int bulk_store,
                        cudaStream_t stream) {
-  const int grid = (B + kWarps - 1) / kWarps;
-  cross_fwd_kernel<NPL><<<grid, kThreads, 0, stream>>>(x0, w, b, y, B, d, L,
-                                                       canonical);
+  cross_fwd_kernel<NPL><<<grid, kThreads, smem_bytes(rows, stages, d, L, false), stream>>>(
+      x0, w, b, y, B, d, L, canonical, rows, stages, bulk_store);
   return cudaGetLastError();
 }
 
 template <int NPL>
-cudaError_t launch_bwd(const float* x0, const float* w, const float* b,
-                       const float* dy, float* dx0, float* dw, float* db,
-                       float* partial, int B, int d, int L, int canonical,
-                       cudaStream_t stream) {
-  const int rpw = rows_per_warp(B);
-  const int n_blocks = (B + kWarps * rpw - 1) / (kWarps * rpw);
-  const size_t smem = (size_t)kWarps * 2 * L * d * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cross_bwd_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  cross_bwd_kernel<NPL><<<n_blocks, kThreads, smem, stream>>>(
-      x0, w, b, dy, dx0, partial, B, d, L, canonical, rpw);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = L * d;
-  cross_bwd_reduce_kernel<<<(2 * n + 31) / 32, 32 * kReduceRows, 0, stream>>>(
-      partial, dw, db, n_blocks, n);
+cudaError_t launch_bwd(const float* x0, const float* w, const float* b, const float* dy,
+                       float* dx0, float* dw, float* db, float* partial, unsigned int* counters,
+                       int B, int d, int L, int canonical, int rows, int grid, int stages,
+                       int bulk_store, cudaStream_t stream) {
+  cross_bwd_kernel<NPL><<<grid, kThreads, smem_bytes(rows, stages, d, L, true), stream>>>(
+      x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages, bulk_store);
   return cudaGetLastError();
 }
 
@@ -304,61 +581,86 @@ extern "C" {
 int hhrs_cross_max_dim() { return 32 * kMaxPerLane; }
 int hhrs_cross_max_layers() { return kMaxLayers; }
 
-// Blocks of partial sums the backward uses for a batch of B rows: the
-// scratch it takes is [blocks, 2, L, d] float32.
-int hhrs_cross_bwd_blocks(int B) {
-  const int rpw = rows_per_warp(B);
-  return (B + kWarps * rpw - 1) / (kWarps * rpw);
-}
-
 const char* hhrs_cross_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-#define HHRS_CROSS_DISPATCH(NPL_MAX_CALL)                                  \
-  switch ((d + 31) / 32) {                                                 \
-    case 1: return static_cast<int>(NPL_MAX_CALL(1));                      \
-    case 2: return static_cast<int>(NPL_MAX_CALL(2));                      \
-    case 3: return static_cast<int>(NPL_MAX_CALL(3));                      \
-    case 4: return static_cast<int>(NPL_MAX_CALL(4));                      \
-    case 5: return static_cast<int>(NPL_MAX_CALL(5));                      \
-    case 6: return static_cast<int>(NPL_MAX_CALL(6));                      \
-    case 7: return static_cast<int>(NPL_MAX_CALL(7));                      \
-    case 8: return static_cast<int>(NPL_MAX_CALL(8));                      \
-    default: return static_cast<int>(cudaErrorInvalidValue);               \
+#define HHRS_CROSS_DISPATCH(CALL)                      \
+  switch ((d + 31) / 32) {                             \
+    case 1: return static_cast<int>(CALL(1));          \
+    case 2: return static_cast<int>(CALL(2));          \
+    case 3: return static_cast<int>(CALL(3));          \
+    case 4: return static_cast<int>(CALL(4));          \
+    case 5: return static_cast<int>(CALL(5));          \
+    case 6: return static_cast<int>(CALL(6));          \
+    case 7: return static_cast<int>(CALL(7));          \
+    case 8: return static_cast<int>(CALL(8));          \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
+// Once per device, before the first launch there: lets every kernel take the
+// shared memory of the largest plan (96 rows in flight, d 256, 6 layers).
+int hhrs_cross_prepare() {
+  const int bytes = static_cast<int>(smem_bytes(kMaxRing, 1, 32 * kMaxPerLane, kMaxLayers, true));
+  cudaError_t (*const instances[])(int) = {prepare_instance<1>, prepare_instance<2>,
+                                           prepare_instance<3>, prepare_instance<4>,
+                                           prepare_instance<5>, prepare_instance<6>,
+                                           prepare_instance<7>, prepare_instance<8>};
+  cudaError_t err = cudaSuccess;
+  for (auto f : instances) {
+    if ((err = f(bytes)) != cudaSuccess) break;
+  }
+  return static_cast<int>(err);
+}
+
+// Blocks of the backward for rows of width d (1 <= d <= 256) that the card
+// runs at once, in whole clusters, at the largest plan's shared memory; a
+// negative CUDA error code on failure. Call after hhrs_cross_prepare.
+int hhrs_cross_bwd_capacity(int d) {
+  const size_t smem = smem_bytes(kMaxRing, 1, d, kMaxLayers, true);
+  int n = 0;
+#define HHRS_CAPACITY(NPL) resident_clusters(cross_bwd_kernel<NPL>, smem, &n)
+  const int err = [&]() -> int { HHRS_CROSS_DISPATCH(HHRS_CAPACITY) }();
+#undef HHRS_CAPACITY
+  return err != 0 ? -err : n * kCluster;
+}
+
 // Launches on `stream` and returns cudaGetLastError() (0 on success). All
-// pointers are device pointers to contiguous float32 arrays: x0, y [B, d],
-// w, b [L, d]. Needs 1 <= d <= 256 and 0 <= L <= 6.
-int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y,
-                   int B, int d, int L, int canonical, void* stream) {
+// pointers are device pointers to contiguous float32 arrays: x0, y [B, d]
+// (16-byte aligned), w, b [L, d]. Needs 1 <= d <= 256, 0 <= L <= 6 and a plan:
+// rows per tile a multiple of 4 in [4, 48], 1 <= stages <= 3 with
+// stages x rows <= 96, grid >= 1.
+int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y, int B, int d, int L,
+                   int canonical, int rows, int grid, int stages, int bulk_store, void* stream) {
   if (B <= 0) return 0;
-  if (L < 0 || L > kMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
+  if (L < 0 || L > kMaxLayers || !valid_plan(rows, grid, stages))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-#define HHRS_FWD(NPL)                                                        \
-  launch_fwd<NPL>(static_cast<const float*>(x0), static_cast<const float*>(w), \
-                  static_cast<const float*>(b), static_cast<float*>(y), B, d, \
-                  L, canonical, s)
+#define HHRS_FWD(NPL)                                                                       \
+  launch_fwd<NPL>(static_cast<const float*>(x0), static_cast<const float*>(w),              \
+                  static_cast<const float*>(b), static_cast<float*>(y), B, d, L, canonical, \
+                  rows, grid, stages, bulk_store, s)
   HHRS_CROSS_DISPATCH(HHRS_FWD)
 #undef HHRS_FWD
 }
 
-// dy, dx0 [B, d]; dw, db [L, d]; partial [hhrs_cross_bwd_blocks(B), 2, L, d].
-// Two launches; returns the first error.
-int hhrs_cross_bwd(const void* x0, const void* w, const void* b,
-                   const void* dy, void* dx0, void* dw, void* db,
-                   void* partial, int B, int d, int L, int canonical,
-                   void* stream) {
-  if (B <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (L > kMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
+// dy, dx0 [B, d] (16-byte aligned); dw, db [L, d]; partial [grid / 8, 2, L, d]
+// float32 and one unsigned int counter, 0 before the first launch (each
+// launch leaves it at 0). The grid is a multiple of 8 (the cluster size).
+// One launch.
+int hhrs_cross_bwd(const void* x0, const void* w, const void* b, const void* dy, void* dx0,
+                   void* dw, void* db, void* partial, void* counters, int B, int d, int L,
+                   int canonical, int rows, int grid, int stages, int bulk_store, void* stream) {
+  if (B <= 0 || L <= 0 || L > kMaxLayers || !valid_plan(rows, grid, stages) ||
+      grid % kCluster != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-#define HHRS_BWD(NPL)                                                          \
-  launch_bwd<NPL>(static_cast<const float*>(x0), static_cast<const float*>(w), \
-                  static_cast<const float*>(b), static_cast<const float*>(dy), \
-                  static_cast<float*>(dx0), static_cast<float*>(dw),           \
-                  static_cast<float*>(db), static_cast<float*>(partial), B, d, \
-                  L, canonical, s)
+#define HHRS_BWD(NPL)                                                                           \
+  launch_bwd<NPL>(static_cast<const float*>(x0), static_cast<const float*>(w),                  \
+                  static_cast<const float*>(b), static_cast<const float*>(dy),                  \
+                  static_cast<float*>(dx0), static_cast<float*>(dw), static_cast<float*>(db),   \
+                  static_cast<float*>(partial), static_cast<unsigned int*>(counters), B, d, L, \
+                  canonical, rows, grid, stages, bulk_store, s)
   HHRS_CROSS_DISPATCH(HHRS_BWD)
 #undef HHRS_BWD
 }

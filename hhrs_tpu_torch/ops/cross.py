@@ -10,7 +10,8 @@ stacked ``[L, d]``. Two variants:
 * :func:`cross_stack_backward_ref` is the closed-form backward in plain
   PyTorch, recomputing the layer inputs from ``x0``;
 * :func:`cross_stack_forward` and :func:`cross_stack_backward` launch
-  ``csrc/cross_stack.cu`` on CUDA tensors and count their launches;
+  ``csrc/cross_stack.cu`` on CUDA tensors, one kernel each, and count their
+  launches; :func:`cross_plan` lays out the tiles and blocks of a launch;
 * :class:`CrossStackFn` ties them into autograd, and :func:`cross_stack`
   is what the model calls: the plain version on a CPU tensor, the kernels
   on a CUDA tensor. It never falls back from one to the other: a CUDA
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -131,101 +133,264 @@ def assert_close_to_scale(got: torch.Tensor, want: torch.Tensor, scale: torch.Te
     return float(err.max()), float(share.max())
 
 
+class _Kernels(NamedTuple):
+    lib: ctypes.CDLL
+    max_dim: int
+    max_layers: int
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """Build (first use) and load ``csrc/cross_stack.cu``, with typed entry points."""
+def _kernels() -> _Kernels:
+    """Build (first use) and load ``csrc/cross_stack.cu``, with typed entry
+    points and its limits, read once."""
     lib = cuda_build.load(_LIB_NAME, _LIB_SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hhrs_cross_fwd.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.hhrs_cross_fwd.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.hhrs_cross_fwd.restype = i
-    lib.hhrs_cross_bwd.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.hhrs_cross_bwd.argtypes = [p] * 9 + [i] * 8 + [p]
     lib.hhrs_cross_bwd.restype = i
-    lib.hhrs_cross_bwd_blocks.argtypes = [i]
-    lib.hhrs_cross_bwd_blocks.restype = i
+    lib.hhrs_cross_prepare.restype = i
+    lib.hhrs_cross_bwd_capacity.argtypes = [i]
+    lib.hhrs_cross_bwd_capacity.restype = i
     lib.hhrs_cross_max_dim.restype = i
     lib.hhrs_cross_max_layers.restype = i
     lib.hhrs_cross_error_string.argtypes = [i]
     lib.hhrs_cross_error_string.restype = ctypes.c_char_p
-    return lib
+    return _Kernels(lib, lib.hhrs_cross_max_dim(), lib.hhrs_cross_max_layers())
+
+
+# The launch plan. csrc/cross_stack.cu runs 8 warps a block and takes tiles
+# of up to 48 rows (a multiple of 4: a bulk copy moves a multiple of 16
+# bytes), up to 3 tiles and 96 rows in flight per block. The forward kernel
+# is small enough for 4 blocks an SM. The backward, with its per-warp
+# gradient sums in registers, fits at most 2 (up to d = 128; the kernel's
+# launch bounds) and runs in clusters of 8 blocks, which the card places
+# within groups of SMs, so it takes as many blocks as the card reports it
+# runs at once. On an H100 coalesced stores of y and dx0 beat bulk stores
+# from shared memory at every timed size (chip_smoke.py times both).
+WARPS = 8
+MAX_ROWS = 48
+MAX_STAGES = 3
+MAX_RING = 96
+FWD_BLOCKS_PER_SM = 4
+BWD_BLOCKS_PER_SM = 2
+CLUSTER = 8
+BULK_STORE = False
+
+
+class CrossPlan(NamedTuple):
+    rows: int  # rows per tile, a multiple of 4
+    grid: int  # blocks; block k walks tiles k, k + grid, …
+    stages: int  # a block's tiles in flight (its ring of tile buffers)
+    bulk_store: bool  # outputs leave by one bulk copy per tile, else coalesced stores
+
+
+def plan_capacity(sm_count: int, backward: bool) -> int:
+    """The most blocks of a kernel a card with ``sm_count`` SMs runs at once
+    (for the backward whole clusters, at most ``BWD_BLOCKS_PER_SM`` an SM:
+    the size of its scratch)."""
+    if backward:
+        return max(CLUSTER, BWD_BLOCKS_PER_SM * sm_count // CLUSTER * CLUSTER)
+    return FWD_BLOCKS_PER_SM * sm_count
+
+
+@functools.cache
+def cross_plan(B: int, blocks: int, cluster: int = 1) -> CrossPlan:
+    """The plan of a kernel for ``B >= 1`` rows on a card that runs
+    ``blocks`` blocks of it at once (a multiple of ``cluster``): tiles of
+    8 rows, or as many more (a multiple of 4, up to ``MAX_ROWS``) as put
+    the whole batch in one wave of those blocks, so a small batch still
+    spreads over the card and a large one leaves no block a second tile; a
+    batch larger than one such wave keeps up to ``MAX_STAGES`` tiles in
+    flight per block. The grid is a whole number of clusters; blocks past
+    the last tile only join their cluster's sums."""
+    per_block = -(-B // blocks)
+    rows = min(MAX_ROWS, max(WARPS, -(-per_block // 4) * 4))
+    tiles = -(-B // rows)
+    grid = -(-min(tiles, blocks) // cluster) * cluster
+    return CrossPlan(rows, grid, min(MAX_STAGES, MAX_RING // rows, -(-tiles // grid)), BULK_STORE)
+
+
+def capacity(x0: torch.Tensor, backward: bool) -> int:
+    """Blocks of the forward or backward kernel that the device of a CUDA
+    ``x0`` runs at once, at x0's width."""
+    if backward:
+        return _bwd_capacity(x0.get_device(), x0.shape[1])
+    return plan_capacity(_sm_count(x0.get_device()), False)
+
+
+def plan_of(x0: torch.Tensor, backward: bool) -> CrossPlan:
+    """The plan the forward or backward kernel takes for a CUDA ``x0``."""
+    return _plan(max(x0.shape[0], 1), x0.get_device(), x0.shape[1], backward)
+
+
+@functools.cache
+def _plan(B: int, device_index: int, d: int, backward: bool) -> CrossPlan:
+    if backward:
+        return cross_plan(B, _bwd_capacity(device_index, d), CLUSTER)
+    return cross_plan(B, plan_capacity(_sm_count(device_index), False))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    """The device's SM count, read once; lets the kernels there take the
+    shared memory of the largest plan."""
+    k = _kernels()
+    with torch.cuda.device(device_index):
+        err = k.lib.hhrs_cross_prepare()
+    _raise_on(k.lib, err, "cross_stack set-up")
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.cache
+def _bwd_capacity(device_index: int, d: int) -> int:
+    """Blocks of the backward for rows of width ``d`` that the device runs
+    at once, in whole clusters (asked of the card once)."""
+    sm_count = _sm_count(device_index)
+    lib = _kernels().lib
+    with torch.cuda.device(device_index):
+        n = lib.hhrs_cross_bwd_capacity(d)
+    if n < 0:
+        _raise_on(lib, -n, "asking for the cross backward's occupancy")
+    if not CLUSTER <= n <= plan_capacity(sm_count, True):
+        raise RuntimeError(f"the card runs {n} blocks of the cross backward at once, outside "
+                           f"[{CLUSTER}, {plan_capacity(sm_count, True)}]")
+    return n
+
+
+_scratch: dict = {}
+
+
+def _backward_scratch(device_index: int, stream: int) -> tuple:
+    """``(partial, counter)`` of the backward on one device and stream: the
+    clusters' partial sums and the ticket counter, allocated once at the
+    largest plan's size with the counter at 0. Every launch leaves it at 0,
+    so the buffers survive CUDA-graph capture and replay; two streams never
+    share them."""
+    key = (device_index, stream)
+    if key not in _scratch:
+        k, clusters = _kernels(), plan_capacity(_sm_count(device_index), True) // CLUSTER
+        dev = torch.device("cuda", device_index)
+        _scratch[key] = (torch.empty(clusters * 2 * k.max_layers * k.max_dim, dtype=torch.float32, device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev))
+    return _scratch[key]
 
 
 def _check_inputs(tensors: dict, variant: str) -> tuple:
-    """Device, dtype, shape and contiguity checks → ``(B, d, L)``."""
+    """Device, dtype, shape, contiguity, alignment and size checks of CUDA
+    inputs → ``(B, d, L)``."""
     if variant not in CROSS_VARIANTS:
         raise ValueError(f"unknown cross variant {variant!r}")
     x0, w = tensors["x0"], tensors["w"]
     if x0.dim() != 2 or w.dim() != 2:
         raise ValueError(f"x0 must be [B, d] and w [L, d], got {tuple(x0.shape)} and {tuple(w.shape)}")
     (B, d), L = x0.shape, w.shape[0]
-    want = {"x0": (B, d), "w": (L, d), "b": (L, d), "dy": (B, d)}
+    where = x0.get_device()
     for name, t in tensors.items():
-        if t.device != x0.device:
+        if t.get_device() != where:
             raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
+        want = (L, d) if name in ("w", "b") else (B, d)
+        if t.shape != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+        if name in ("x0", "dy") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernels bulk-copy its rows)")
+    k = _kernels()
+    if not 1 <= d <= k.max_dim:
+        raise ValueError(f"the cross kernels take 1 <= d <= {k.max_dim}, got d={d}")
+    if L > k.max_layers:
+        raise ValueError(f"the cross kernels take at most {k.max_layers} layers, got {L}")
     return B, d, L
 
 
-def _check_limits(lib, d: int, L: int) -> None:
-    if not 1 <= d <= lib.hhrs_cross_max_dim():
-        raise ValueError(f"the cross kernels take 1 <= d <= {lib.hhrs_cross_max_dim()}, got d={d}")
-    if L > lib.hhrs_cross_max_layers():
-        raise ValueError(f"the cross kernels take at most {lib.hhrs_cross_max_layers()} layers, got {L}")
+def _check_plan(plan: CrossPlan, device_index: int, backward: bool) -> None:
+    if not (plan.rows % 4 == 0 and 4 <= plan.rows <= MAX_ROWS and 1 <= plan.stages <= MAX_STAGES
+            and plan.stages * plan.rows <= MAX_RING
+            and 1 <= plan.grid <= plan_capacity(_sm_count(device_index), backward)
+            and not (backward and plan.grid % CLUSTER)):
+        raise ValueError(f"not a cross-stack plan on this device: {plan}")
+
+
+def _current_stream(device_index: int) -> int:
+    """The handle of the device's current stream (what
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: {lib.hhrs_cross_error_string(err).decode()}")
+        raise RuntimeError(f"{what} failed: {lib.hhrs_cross_error_string(err).decode()}")
 
 
-def cross_stack_forward(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str) -> torch.Tensor:
+def cross_stack_forward(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str,
+                        plan: CrossPlan | None = None) -> torch.Tensor:
     """One launch of the forward kernel on CUDA tensors (current stream,
-    asynchronous) → ``[B, d]``; ``cross_stack_forward.launches`` counts them."""
-    if x0.device.type != "cuda":
+    asynchronous) → ``[B, d]``, with :func:`plan_of`'s plan unless one is
+    given (any valid plan gives the same ``y`` bit for bit);
+    ``cross_stack_forward.launches`` counts the launches."""
+    if not x0.is_cuda:
         raise ValueError(f"cross_stack_forward runs on cuda tensors, got {x0.device}")
-    B, d, L = _check_inputs({"x0": x0, "w": w, "b": b}, variant)
-    lib = _library()
-    _check_limits(lib, d, L)
+    _check_inputs({"x0": x0, "w": w, "b": b}, variant)
+    if plan is not None:
+        _check_plan(plan, x0.get_device(), False)
+    return _forward(w, b, x0, variant == "canonical", plan)
+
+
+def _forward(w, b, x0, canonical: bool, plan: CrossPlan | None) -> torch.Tensor:
+    index = x0.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _forward(w, b, x0, canonical, plan)
     y = torch.empty_like(x0)
+    B, d = x0.shape
     if B == 0:
         return y
-    with torch.cuda.device(x0.device):
-        err = lib.hhrs_cross_fwd(
-            x0.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, d, L,
-            int(variant == "canonical"), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(lib, err, "cross_stack forward")
+    p = plan or _plan(B, index, d, False)
+    lib = _kernels().lib
+    err = lib.hhrs_cross_fwd(x0.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, d, w.shape[0],
+                             canonical, p.rows, p.grid, p.stages, p.bulk_store, _current_stream(index))
+    _raise_on(lib, err, "cross_stack forward kernel launch")
     cross_stack_forward.launches += 1
     return y
 
 
-def cross_stack_backward(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
-                         dy: torch.Tensor, variant: str) -> tuple:
-    """The backward kernels on CUDA tensors → ``(dx0, dw, db)``. dw and db
-    are summed over the batch in a fixed order, so two calls on the same
-    inputs give bit-identical gradients. ``cross_stack_backward.launches``
-    counts the calls (each is the row kernel and the block-sum kernel)."""
-    if x0.device.type != "cuda":
+def cross_stack_backward(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, dy: torch.Tensor,
+                         variant: str, plan: CrossPlan | None = None) -> tuple:
+    """One launch of the backward kernel on CUDA tensors → ``(dx0, dw,
+    db)``, with :func:`plan_of`'s plan unless one is given (any valid plan
+    gives the same ``dx0`` bit for bit). dw and db are summed over the batch
+    in an order fixed by the plan, so two calls on the same inputs give
+    bit-identical gradients. ``cross_stack_backward.launches`` counts the
+    launches."""
+    if not x0.is_cuda:
         raise ValueError(f"cross_stack_backward runs on cuda tensors, got {x0.device}")
-    B, d, L = _check_inputs({"x0": x0, "w": w, "b": b, "dy": dy}, variant)
-    lib = _library()
-    _check_limits(lib, d, L)
+    _check_inputs({"x0": x0, "w": w, "b": b, "dy": dy}, variant)
+    if plan is not None:
+        _check_plan(plan, x0.get_device(), True)
+    return _backward(w, b, x0, dy, variant == "canonical", plan)
+
+
+def _backward(w, b, x0, dy, canonical: bool, plan: CrossPlan | None) -> tuple:
+    index = x0.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _backward(w, b, x0, dy, canonical, plan)
     dx0, dw, db = torch.empty_like(x0), torch.empty_like(w), torch.empty_like(b)
+    (B, d), L = x0.shape, w.shape[0]
     if B == 0 or L == 0:
         return (dy.clone() if L == 0 else dx0), dw.zero_(), db.zero_()
-    partial = torch.empty((lib.hhrs_cross_bwd_blocks(B), 2, L, d), dtype=torch.float32,
-                          device=x0.device)
-    with torch.cuda.device(x0.device):
-        err = lib.hhrs_cross_bwd(
-            x0.data_ptr(), w.data_ptr(), b.data_ptr(), dy.data_ptr(), dx0.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), partial.data_ptr(), B, d, L,
-            int(variant == "canonical"), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(lib, err, "cross_stack backward")
+    p = plan or _plan(B, index, d, True)
+    stream = _current_stream(index)
+    partial, counter = _backward_scratch(index, stream)
+    lib = _kernels().lib
+    err = lib.hhrs_cross_bwd(x0.data_ptr(), w.data_ptr(), b.data_ptr(), dy.data_ptr(), dx0.data_ptr(),
+                             dw.data_ptr(), db.data_ptr(), partial.data_ptr(), counter.data_ptr(),
+                             B, d, L, canonical, p.rows, p.grid, p.stages, p.bulk_store, stream)
+    _raise_on(lib, err, "cross_stack backward kernel launch")
     cross_stack_backward.launches += 1
     return dx0, dw, db
 
@@ -234,25 +399,38 @@ cross_stack_forward.launches = 0
 cross_stack_backward.launches = 0
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class CrossStackFn(torch.autograd.Function):
     """The cross stack under autograd: the forward saves ``w, b, x0`` only
     and the backward recomputes the layer inputs. CUDA tensors go through
-    the kernels, CPU tensors through the plain versions."""
+    the kernels, checked here once (a misaligned ``x0`` or ``dy`` is
+    copied), CPU tensors through the plain versions."""
 
     @staticmethod
     def forward(ctx, w, b, x0, variant):
         ctx.variant = variant
+        if x0.is_cuda:
+            x0 = _aligned(x0)
+            _check_inputs({"x0": x0, "w": w, "b": b}, variant)
+            y = _forward(w, b, x0, variant == "canonical", None)
+        else:
+            y = cross_stack_apply(w, b, x0, variant)
         ctx.save_for_backward(w, b, x0)
-        if x0.device.type == "cuda":
-            return cross_stack_forward(w, b, x0, variant)
-        return cross_stack_apply(w, b, x0, variant)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
         w, b, x0 = ctx.saved_tensors
         dy = dy.contiguous()  # the output's gradient may be a strided slice
-        if dy.device.type == "cuda":
-            dx0, dw, db = cross_stack_backward(w, b, x0, dy, ctx.variant)
+        if dy.is_cuda:
+            dy = _aligned(dy)
+            if dy.dtype != torch.float32 or dy.shape != x0.shape or dy.device != x0.device:
+                raise ValueError(f"dy must be float32 {tuple(x0.shape)} on {x0.device}, got "
+                                 f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+            dx0, dw, db = _backward(w, b, x0, dy, ctx.variant == "canonical", None)
         else:
             dx0, dw, db = cross_stack_backward_ref(w, b, x0, dy, ctx.variant)
         return dw, db, dx0, None
@@ -261,12 +439,11 @@ class CrossStackFn(torch.autograd.Function):
 def cross_stack(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str) -> torch.Tensor:
     """The cross stack as the model runs it: :func:`cross_stack_apply` on a
     CPU tensor; :class:`CrossStackFn` (the kernels) on a CUDA tensor."""
-    if x0.device.type == "cpu":
-        return cross_stack_apply(w, b, x0, variant)
-    if x0.device.type != "cuda":
+    if x0.is_cuda:
+        return CrossStackFn.apply(w, b, x0, variant)
+    if x0.device.type != "cpu":
         raise ValueError(f"cross_stack runs on cpu or cuda tensors, got {x0.device}")
-    _check_inputs({"x0": x0, "w": w, "b": b}, variant)
-    return CrossStackFn.apply(w, b, x0, variant)
+    return cross_stack_apply(w, b, x0, variant)
 
 
 class CrossStack(nn.Module):

@@ -330,7 +330,7 @@ def launch(folded: dict, x0: torch.Tensor, variant: str, plan: tuple[int, int]) 
     """One launch of the kernel on a CUDA ``x0`` with a given plan
     ``(rows_per_tile, cluster)``. :func:`tower_eval` takes
     :func:`tower_plan`'s; another valid plan gives the same logits bit for
-    bit, which is how ``tower_ab.py`` compares plans."""
+    bit, which is how ``kernel_ab.py`` compares plans."""
     return _launch(folded, x0, variant, plan, _check_inputs(folded, x0, variant))
 
 

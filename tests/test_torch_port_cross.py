@@ -1,6 +1,7 @@
 """Cross-stack parity: the port's plain forward and closed-form backward
 against the JAX Pallas kernel (interpret mode) and its ``jax.grad``, and
-the autograd wiring of :class:`CrossStackFn` on the CPU. The CUDA kernels
+the autograd wiring of :class:`CrossStackFn` and the kernels' launch plan
+on the CPU. The CUDA kernels
 themselves are held to these plain versions on a card
 (``tests/test_torch_port_cuda.py``, ``chip_smoke.py``).
 
@@ -10,6 +11,8 @@ the two sides are float32 programs that add in different orders, so where
 terms cancel they differ by ulps of the terms, not of the result."""
 
 from __future__ import annotations
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -105,3 +108,31 @@ def test_model_cross_goes_through_the_wrapper(monkeypatch):
     for mode in (model.train(), model.eval()):
         mode(u, u, u[:, None] % 6, torch.ones(4, 3))
     assert calls == ["canonical", "canonical"]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("sm_count", [132, 114, 1])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 511, 512, 4487, 8192, 100000])
+def test_launch_plan_covers_every_row_once_in_16_byte_copies(B, sm_count, backward):
+    blocks = cross.plan_capacity(sm_count, backward)
+    cluster = cross.CLUSTER if backward else 1
+    plan = cross.cross_plan(B, blocks, cluster)
+    rows, grid, stages = plan.rows, plan.grid, plan.stages
+    tiles = -(-B // rows)
+    # block k walks tiles k, k + grid, …: every row lies in exactly one tile
+    covered = np.zeros(B, dtype=np.int64)
+    for k in range(grid):
+        for t in range(k, tiles, grid):
+            covered[t * rows:(t + 1) * rows] += 1
+    assert (covered == 1).all()
+    # the backward's scratch, allocated once per device and stream, holds every cluster's sums
+    assert 1 <= grid <= blocks and grid % cluster == 0 and grid - cluster < tiles
+    assert 1 <= stages <= min(cross.MAX_STAGES, -(-tiles // grid)) and stages * rows <= cross.MAX_RING
+    last = B - (tiles - 1) * rows
+    for d in (1, 33, 113, 256):
+        assert rows * d * 4 % 16 == 0  # a full tile is one bulk copy, and every tile starts 16-byte aligned
+        assert (last & ~3) * d * 4 % 16 == 0  # so is the bulk-copied prefix of the last tile
+    assert 4 <= rows <= cross.MAX_ROWS and 0 <= last - (last & ~3) <= 3
+    # the plan is a function of B and the card's capacity alone: the sum order of dw/db follows it
+    assert list(inspect.signature(cross.cross_plan).parameters) == ["B", "blocks", "cluster"]
+    assert cross.cross_plan.__wrapped__(B, blocks, cluster) == plan

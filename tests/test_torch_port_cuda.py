@@ -114,7 +114,8 @@ def _cross_inputs(B: int, d: int, L: int, seed: int = 0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["code", "canonical"])
-@pytest.mark.parametrize("B,d,L", [(1, 113, 3), (512, 113, 3), (1000, 33, 1), (8192, 113, 3), (77, 256, 6)])
+@pytest.mark.parametrize("B,d,L", [(1, 113, 3), (3, 113, 3), (5, 33, 2), (512, 113, 3), (1000, 33, 1),
+                                   (4487, 113, 3), (8192, 113, 3), (77, 256, 6)])
 def test_cuda_cross_kernels_match_plain_versions(variant, B, d, L):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
@@ -131,6 +132,80 @@ def test_cuda_cross_kernels_match_plain_versions(variant, B, d, L):
     for name, got, want, sc in zip(("y", "dx0", "dw", "db"), (y, *grads), ref, scale):
         cross.assert_close_to_scale(got, want, sc, **CROSS_TOL, what=name)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))  # deterministic sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B,d,L", [(4487, 113, 3), (1003, 256, 6), (37, 33, 1)])
+def test_cuda_cross_outputs_do_not_depend_on_the_plan(variant, B, d, L):
+    """y and dx0 are bit for bit the same under every plan: tile heights,
+    rings of 1 to 3 stages that the blocks refill, either output path; dw
+    and db follow the plan's sum order and stay at the term-scale bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _cross_inputs(B, d, L, seed=3)
+    y = cross.cross_stack_forward(w, b, x0, variant)
+    dx0 = cross.cross_stack_backward(w, b, x0, dy, variant)[0]
+    scale = cross.cross_stack_term_scale(w, b, x0, dy, variant)
+    ref = cross.cross_stack_backward_ref(w, b, x0, dy, variant)
+    cap = cross.capacity(x0, True)
+    for rows in (4, 8, 20, 32):
+        tiles = -(-B // rows)
+        for grid, stages in ((1, 1), (3, 3), (7, 2), (tiles, 1)):
+            for bulk_store in (False, True):
+                plan = cross.CrossPlan(rows, min(grid, tiles, cap), stages, bulk_store)
+                assert torch.equal(cross.cross_stack_forward(w, b, x0, variant, plan), y), plan
+                # the backward runs whole clusters of blocks
+                plan = plan._replace(grid=-(-plan.grid // cross.CLUSTER) * cross.CLUSTER)
+                got = cross.cross_stack_backward(w, b, x0, dy, variant, plan)
+                assert torch.equal(got[0], dx0), plan
+                for name, g, want, sc in zip(("dw", "db"), got[1:], ref[1:], scale[2:]):
+                    cross.assert_close_to_scale(g, want, sc, **CROSS_TOL, what=f"{name} {plan}")
+
+
+@pytest.mark.cuda
+def test_cuda_cross_graph_replay_equals_eager_calls():
+    """Forward and backward captured in a CUDA graph and replayed twice give
+    the eager results bit for bit: the backward's tickets are back at 0
+    after every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _cross_inputs(512, 113, 3, seed=4)
+    want = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up on the capture stream: its scratch exists before capture
+        cross.cross_stack_backward(w, b, x0, dy, "code")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y = cross.cross_stack_forward(w, b, x0, "code")
+        grads = cross.cross_stack_backward(w, b, x0, dy, "code")
+    for _ in range(2):
+        for t in (y, *grads):
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, e) for g, e in zip((y, *grads), want))
+
+
+@pytest.mark.cuda
+def test_cuda_cross_backward_is_one_kernel_launch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    w, b, x0, dy = _cross_inputs(8192, 113, 3)
+    cross.cross_stack_backward(w, b, x0, dy, "code")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cross.cross_stack_backward(w, b, x0, dy, "code")
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "cross_" in e.key}
+    assert sum(kernels.values()) == 3 and all("cross_bwd_kernel" in k for k in kernels), kernels
 
 
 @pytest.mark.cuda
@@ -163,6 +238,17 @@ def test_cuda_cross_wrapper_rejects_what_the_kernels_cannot_take():
         cross.cross_stack(w.cpu(), b, x0, "code")
     with pytest.raises(ValueError, match="d <= 256"):
         cross.cross_stack_forward(*_cross_inputs(4, 257, 1)[:3], "code")
+    # contiguous but not on a 16-byte boundary: the kernels bulk-copy whole rows
+    misaligned = torch.empty(16 * 33 + 1, device="cuda")[1:].view(16, 33).copy_(x0)
+    with pytest.raises(ValueError, match="16-byte"):
+        cross.cross_stack_forward(w, b, misaligned, "code")
+    with pytest.raises(ValueError, match="16-byte"):
+        cross.cross_stack_backward(w, b, misaligned, dy, "code")
+    with pytest.raises(ValueError, match="16-byte"):
+        cross.cross_stack_backward(w, b, x0, misaligned, "code")
+    # CrossStackFn copies a misaligned input instead
+    torch.testing.assert_close(cross.cross_stack(w, b, misaligned, "code"),
+                               cross.cross_stack_forward(w, b, x0, "code"), rtol=0, atol=0)
 
 
 @pytest.mark.cuda

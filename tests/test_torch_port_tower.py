@@ -100,7 +100,7 @@ SMEM_OPTIN = 232_448  # an H100's opt-in shared memory per block
 # (cudaOccupancyMaxActiveClusters, as chip_smoke.py prints it).
 RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15}
 # Device ms of one wave of each plan at the hpo_r5 widths on an H100
-# (tower_ab.py's sweep, PERF.md §6).
+# (kernel_ab.py's sweep, PERF.md §6).
 HPO_R5_WAVE_MS = {
     (16, 1): 0.1745, (16, 2): 0.1055, (16, 4): 0.0866, (16, 8): 0.0702,
     (32, 1): 0.2335, (32, 2): 0.1488, (32, 4): 0.1140, (32, 8): 0.0983,
