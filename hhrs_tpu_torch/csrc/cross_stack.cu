@@ -35,10 +35,10 @@
 //    multiple of 4 are read from global memory by the warps that own them;
 //  * runs a persistent grid: block k walks tiles k, k + grid, ...; the plan
 //    (T, grid, stages) comes from ops/cross.py::cross_plan, which sizes T so
-//    that the batch fills the blocks the card runs at once, in one wave;
-//  * sends outputs either as coalesced stores from registers, or written
-//    back into the tile's buffer and sent by one bulk store per tile
-//    (`bulk_store`);
+//    that the batch fills the blocks the card runs at once (asked of the
+//    card, hhrs_cross_capacity), in one wave;
+//  * sends outputs as coalesced stores from registers (on an H100 these beat
+//    a bulk store per tile from shared memory at every timed size);
 //  * sums dw and db over the batch in the same launch, without float
 //    atomics, so two runs give bit-identical gradients: each warp sums its
 //    rows in order in registers; each block sums its warps in order 0..7 in
@@ -137,27 +137,6 @@ __device__ __forceinline__ void copy_in(void* dst, const void* src, uint32_t byt
       : "memory");
 }
 
-// shared -> global, one bulk group.
-__device__ __forceinline__ void copy_out(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_addr(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// Until this thread's bulk stores are complete.
-__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-
-// Orders this thread's shared-memory writes before a later bulk store's reads.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // ---- the tile stream -------------------------------------------------------
 
 // The block's tiles k = 0, 1, ... are tiles blockIdx.x + k * gridDim.x of the
@@ -207,23 +186,13 @@ __device__ __forceinline__ void start(const TileRing& ring, int mine, const floa
   __syncthreads();
 }
 
-// After tile k: the block's warps are done with its buffer. With bulk_store,
-// thread 0 sends the tile's copied rows (now outputs) to out; then it refills
-// the buffer with tile k + stages, if the block has one.
+// After tile k: once the block's warps are done with its buffer, thread 0
+// refills it with tile k + stages, if the block has one.
 __device__ __forceinline__ void finish_tile(const TileRing& ring, int k, int mine,
-                                            int bulk_store, float* out, int out_stream,
                                             const float* a, const float* c) {
-  const bool refill = k + ring.stages < mine;
-  if (!bulk_store && !refill) return;  // uniform across the block
-  if (bulk_store) fence_async_shared();
+  if (k + ring.stages >= mine) return;  // uniform across the block
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  if (bulk_store && ring.copied_rows(k) > 0) {
-    copy_out(out + (size_t)ring.first_row(k) * ring.d, ring.tile(k, out_stream),
-               ring.copied_rows(k) * ring.d * sizeof(float));
-    if (refill) bulk_wait_read();
-  }
-  if (refill) ring.issue(k + ring.stages, a, c);
+  if (threadIdx.x == 0) ring.issue(k + ring.stages, a, c);
 }
 
 // ---- the row arithmetic (the first kernel's) -------------------------------
@@ -308,7 +277,7 @@ template <int NPL>
 __global__ void __launch_bounds__(kThreads)
     cross_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
                      const float* __restrict__ b, float* __restrict__ y, int B, int d, int L,
-                     int canonical, int rows, int stages, int bulk_store) {
+                     int canonical, int rows, int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout s(smem, d, L);
   const TileRing ring{s.bars, s.ring, B, d, rows, stages, 1};
@@ -330,11 +299,10 @@ __global__ void __launch_bounds__(kThreads)
         const float g = row_dot<NPL>(x, s.ws + l * d, lane, d);
         layer_step<NPL>(x, xin, g, s.bs + l * d, lane, d, canonical);
       }
-      store_row<NPL>(bulk_store && staged ? tile + r * d : y + (size_t)(r0 + r) * d, x, lane, d);
+      store_row<NPL>(y + (size_t)(r0 + r) * d, x, lane, d);
     }
-    finish_tile(ring, k, mine, bulk_store, y, 0, x0, nullptr);
+    finish_tile(ring, k, mine, x0, nullptr);
   }
-  if (bulk_store && threadIdx.x == 0) bulk_wait();
 }
 
 // Thread 0 takes a ticket on `counter`; true in every thread of the block
@@ -407,7 +375,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
                      const float* __restrict__ b, const float* __restrict__ dy,
                      float* __restrict__ dx0, float* __restrict__ dw, float* __restrict__ db,
                      float* partial, unsigned int* counters, int B,
-                     int d, int L, int canonical, int rows, int stages, int bulk_store) {
+                     int d, int L, int canonical, int rows, int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout s(smem, d, L);
   const TileRing ring{s.bars, s.ring, B, d, rows, stages, 2};
@@ -474,14 +442,13 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
 #pragma unroll
         for (int j = 0; j < NPL; ++j) dx[j] += dx0_acc[j];
       }
-      store_row<NPL>(bulk_store && staged ? tdy + r * d : dx0 + row * d, dx, lane, d);
+      store_row<NPL>(dx0 + row * d, dx, lane, d);
     }
-    finish_tile(ring, k, mine, bulk_store, dx0, 1, x0, dy);
+    finish_tile(ring, k, mine, x0, dy);
   }
 
   // The block's sums: each warp writes its own slot of the (now idle) ring,
   // then the warps are added in order 0 .. kWarps-1, into slot 0.
-  if (bulk_store && threadIdx.x == 0) bulk_wait();
   __syncthreads();
   const int n = L * d, n2 = 2 * n;
   float* sums = s.ring;
@@ -545,22 +512,37 @@ cudaError_t prepare_instance(int bytes) {
                               bytes);
 }
 
-// Clusters of the kernel (its compile-time cluster size) the card runs at once.
-template <class Kernel>
-cudaError_t resident_clusters(Kernel k, size_t smem, int* n) {
+// Blocks of the backward the card runs at once, in whole clusters (its
+// compile-time cluster size).
+template <int NPL>
+cudaError_t bwd_capacity(size_t smem, int* n) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  return cudaOccupancyMaxActiveClusters(n, k, &cfg);
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, cross_bwd_kernel<NPL>, &cfg);
+  *n = clusters * kCluster;
+  return err;
+}
+
+// Blocks of the forward the card runs at once: blocks an SM times SMs.
+template <int NPL>
+cudaError_t fwd_capacity(size_t smem, int* n) {
+  int per_sm = 0, device = 0, sms = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cross_fwd_kernel<NPL>, kThreads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *n = per_sm * sms;
+  return err;
 }
 
 template <int NPL>
 cudaError_t launch_fwd(const float* x0, const float* w, const float* b, float* y, int B, int d,
-                       int L, int canonical, int rows, int grid, int stages, int bulk_store,
-                       cudaStream_t stream) {
+                       int L, int canonical, int rows, int grid, int stages, cudaStream_t stream) {
   cross_fwd_kernel<NPL><<<grid, kThreads, smem_bytes(rows, stages, d, L, false), stream>>>(
-      x0, w, b, y, B, d, L, canonical, rows, stages, bulk_store);
+      x0, w, b, y, B, d, L, canonical, rows, stages);
   return cudaGetLastError();
 }
 
@@ -568,9 +550,9 @@ template <int NPL>
 cudaError_t launch_bwd(const float* x0, const float* w, const float* b, const float* dy,
                        float* dx0, float* dw, float* db, float* partial, unsigned int* counters,
                        int B, int d, int L, int canonical, int rows, int grid, int stages,
-                       int bulk_store, cudaStream_t stream) {
+                       cudaStream_t stream) {
   cross_bwd_kernel<NPL><<<grid, kThreads, smem_bytes(rows, stages, d, L, true), stream>>>(
-      x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages, bulk_store);
+      x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages);
   return cudaGetLastError();
 }
 
@@ -613,16 +595,18 @@ int hhrs_cross_prepare() {
   return static_cast<int>(err);
 }
 
-// Blocks of the backward for rows of width d (1 <= d <= 256) that the card
-// runs at once, in whole clusters, at the largest plan's shared memory; a
-// negative CUDA error code on failure. Call after hhrs_cross_prepare.
-int hhrs_cross_bwd_capacity(int d) {
-  const size_t smem = smem_bytes(kMaxRing, 1, d, kMaxLayers, true);
+// Blocks of the forward or the backward for rows of width d (1 <= d <= 256)
+// that the current device runs at once (the backward in whole clusters), at
+// the shared memory of the largest plan (96 rows in flight, 6 layers), so
+// that every plan's grid fits; a negative CUDA error code on failure. Call
+// after hhrs_cross_prepare.
+int hhrs_cross_capacity(int d, int backward) {
+  const size_t smem = smem_bytes(kMaxRing, 1, d, kMaxLayers, backward != 0);
   int n = 0;
-#define HHRS_CAPACITY(NPL) resident_clusters(cross_bwd_kernel<NPL>, smem, &n)
+#define HHRS_CAPACITY(NPL) (backward ? bwd_capacity<NPL>(smem, &n) : fwd_capacity<NPL>(smem, &n))
   const int err = [&]() -> int { HHRS_CROSS_DISPATCH(HHRS_CAPACITY) }();
 #undef HHRS_CAPACITY
-  return err != 0 ? -err : n * kCluster;
+  return err != 0 ? -err : n;
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). All
@@ -631,7 +615,7 @@ int hhrs_cross_bwd_capacity(int d) {
 // rows per tile a multiple of 4 in [4, 48], 1 <= stages <= 3 with
 // stages x rows <= 96, grid >= 1.
 int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y, int B, int d, int L,
-                   int canonical, int rows, int grid, int stages, int bulk_store, void* stream) {
+                   int canonical, int rows, int grid, int stages, void* stream) {
   if (B <= 0) return 0;
   if (L < 0 || L > kMaxLayers || !valid_plan(rows, grid, stages))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -639,7 +623,7 @@ int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y, int B,
 #define HHRS_FWD(NPL)                                                                       \
   launch_fwd<NPL>(static_cast<const float*>(x0), static_cast<const float*>(w),              \
                   static_cast<const float*>(b), static_cast<float*>(y), B, d, L, canonical, \
-                  rows, grid, stages, bulk_store, s)
+                  rows, grid, stages, s)
   HHRS_CROSS_DISPATCH(HHRS_FWD)
 #undef HHRS_FWD
 }
@@ -650,7 +634,7 @@ int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y, int B,
 // One launch.
 int hhrs_cross_bwd(const void* x0, const void* w, const void* b, const void* dy, void* dx0,
                    void* dw, void* db, void* partial, void* counters, int B, int d, int L,
-                   int canonical, int rows, int grid, int stages, int bulk_store, void* stream) {
+                   int canonical, int rows, int grid, int stages, void* stream) {
   if (B <= 0 || L <= 0 || L > kMaxLayers || !valid_plan(rows, grid, stages) ||
       grid % kCluster != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -660,7 +644,7 @@ int hhrs_cross_bwd(const void* x0, const void* w, const void* b, const void* dy,
                   static_cast<const float*>(b), static_cast<const float*>(dy),                  \
                   static_cast<float*>(dx0), static_cast<float*>(dw), static_cast<float*>(db),   \
                   static_cast<float*>(partial), static_cast<unsigned int*>(counters), B, d, L, \
-                  canonical, rows, grid, stages, bulk_store, s)
+                  canonical, rows, grid, stages, s)
   HHRS_CROSS_DISPATCH(HHRS_BWD)
 #undef HHRS_BWD
 }

@@ -145,13 +145,13 @@ def _kernels() -> _Kernels:
     points and its limits, read once."""
     lib = cuda_build.load(_LIB_NAME, _LIB_SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hhrs_cross_fwd.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.hhrs_cross_fwd.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.hhrs_cross_fwd.restype = i
-    lib.hhrs_cross_bwd.argtypes = [p] * 9 + [i] * 8 + [p]
+    lib.hhrs_cross_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.hhrs_cross_bwd.restype = i
     lib.hhrs_cross_prepare.restype = i
-    lib.hhrs_cross_bwd_capacity.argtypes = [i]
-    lib.hhrs_cross_bwd_capacity.restype = i
+    lib.hhrs_cross_capacity.argtypes = [i, i]
+    lib.hhrs_cross_capacity.restype = i
     lib.hhrs_cross_max_dim.restype = i
     lib.hhrs_cross_max_layers.restype = i
     lib.hhrs_cross_error_string.argtypes = [i]
@@ -161,13 +161,12 @@ def _kernels() -> _Kernels:
 
 # The launch plan. csrc/cross_stack.cu runs 8 warps a block and takes tiles
 # of up to 48 rows (a multiple of 4: a bulk copy moves a multiple of 16
-# bytes), up to 3 tiles and 96 rows in flight per block. The forward kernel
-# is small enough for 4 blocks an SM. The backward, with its per-warp
-# gradient sums in registers, fits at most 2 (up to d = 128; the kernel's
-# launch bounds) and runs in clusters of 8 blocks, which the card places
-# within groups of SMs, so it takes as many blocks as the card reports it
-# runs at once. On an H100 coalesced stores of y and dx0 beat bulk stores
-# from shared memory at every timed size (chip_smoke.py times both).
+# bytes), up to 3 tiles and 96 rows in flight per block. A plan takes as
+# many blocks as the card reports it runs at once, at the largest plan's
+# shared memory: for the forward at most 4 an SM; for the backward, with
+# its per-warp gradient sums in registers, at most 2 (up to d = 128; the
+# kernel's launch bounds), in clusters of 8 blocks, which the card places
+# within groups of SMs.
 WARPS = 8
 MAX_ROWS = 48
 MAX_STAGES = 3
@@ -175,20 +174,19 @@ MAX_RING = 96
 FWD_BLOCKS_PER_SM = 4
 BWD_BLOCKS_PER_SM = 2
 CLUSTER = 8
-BULK_STORE = False
 
 
 class CrossPlan(NamedTuple):
     rows: int  # rows per tile, a multiple of 4
     grid: int  # blocks; block k walks tiles k, k + grid, …
     stages: int  # a block's tiles in flight (its ring of tile buffers)
-    bulk_store: bool  # outputs leave by one bulk copy per tile, else coalesced stores
 
 
 def plan_capacity(sm_count: int, backward: bool) -> int:
-    """The most blocks of a kernel a card with ``sm_count`` SMs runs at once
-    (for the backward whole clusters, at most ``BWD_BLOCKS_PER_SM`` an SM:
-    the size of its scratch)."""
+    """The most blocks of a kernel that a plan takes on a card with
+    ``sm_count`` SMs: ``FWD_BLOCKS_PER_SM`` an SM for the forward; for the
+    backward whole clusters, at most ``BWD_BLOCKS_PER_SM`` an SM (the size
+    of its scratch)."""
     if backward:
         return max(CLUSTER, BWD_BLOCKS_PER_SM * sm_count // CLUSTER * CLUSTER)
     return FWD_BLOCKS_PER_SM * sm_count
@@ -208,15 +206,13 @@ def cross_plan(B: int, blocks: int, cluster: int = 1) -> CrossPlan:
     rows = min(MAX_ROWS, max(WARPS, -(-per_block // 4) * 4))
     tiles = -(-B // rows)
     grid = -(-min(tiles, blocks) // cluster) * cluster
-    return CrossPlan(rows, grid, min(MAX_STAGES, MAX_RING // rows, -(-tiles // grid)), BULK_STORE)
+    return CrossPlan(rows, grid, min(MAX_STAGES, MAX_RING // rows, -(-tiles // grid)))
 
 
 def capacity(x0: torch.Tensor, backward: bool) -> int:
     """Blocks of the forward or backward kernel that the device of a CUDA
-    ``x0`` runs at once, at x0's width."""
-    if backward:
-        return _bwd_capacity(x0.get_device(), x0.shape[1])
-    return plan_capacity(_sm_count(x0.get_device()), False)
+    ``x0`` runs at once at x0's width, as its plans take them."""
+    return _capacity(x0.get_device(), x0.shape[1], backward)
 
 
 def plan_of(x0: torch.Tensor, backward: bool) -> CrossPlan:
@@ -226,9 +222,7 @@ def plan_of(x0: torch.Tensor, backward: bool) -> CrossPlan:
 
 @functools.cache
 def _plan(B: int, device_index: int, d: int, backward: bool) -> CrossPlan:
-    if backward:
-        return cross_plan(B, _bwd_capacity(device_index, d), CLUSTER)
-    return cross_plan(B, plan_capacity(_sm_count(device_index), False))
+    return cross_plan(B, _capacity(device_index, d, backward), CLUSTER if backward else 1)
 
 
 @functools.cache
@@ -243,19 +237,20 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.cache
-def _bwd_capacity(device_index: int, d: int) -> int:
-    """Blocks of the backward for rows of width ``d`` that the device runs
-    at once, in whole clusters (asked of the card once)."""
-    sm_count = _sm_count(device_index)
+def _capacity(device_index: int, d: int, backward: bool) -> int:
+    """Blocks of the forward or backward for rows of width ``d`` that the
+    device runs at once (the backward in whole clusters), asked of the card
+    once, up to :func:`plan_capacity`."""
+    most = plan_capacity(_sm_count(device_index), backward)
     lib = _kernels().lib
     with torch.cuda.device(device_index):
-        n = lib.hhrs_cross_bwd_capacity(d)
+        n = lib.hhrs_cross_capacity(d, backward)
     if n < 0:
-        _raise_on(lib, -n, "asking for the cross backward's occupancy")
-    if not CLUSTER <= n <= plan_capacity(sm_count, True):
-        raise RuntimeError(f"the card runs {n} blocks of the cross backward at once, outside "
-                           f"[{CLUSTER}, {plan_capacity(sm_count, True)}]")
-    return n
+        _raise_on(lib, -n, "asking for the cross kernels' occupancy")
+    if n < (CLUSTER if backward else 1):
+        raise RuntimeError(f"the card runs {n} blocks of the cross {'backward' if backward else 'forward'} "
+                           "at once")
+    return min(n, most)
 
 
 _scratch: dict = {}
@@ -265,10 +260,17 @@ def _backward_scratch(device_index: int, stream: int) -> tuple:
     """``(partial, counter)`` of the backward on one device and stream: the
     clusters' partial sums and the ticket counter, allocated once at the
     largest plan's size with the counter at 0. Every launch leaves it at 0,
-    so the buffers survive CUDA-graph capture and replay; two streams never
-    share them."""
+    so a CUDA graph captured on the stream replays correctly; two streams
+    never share them. Graphs captured on one stream share its scratch, so
+    they must not replay at the same time. The scratch must exist before a
+    capture (a backward on the capture stream first): allocated during one,
+    it would come from the graph's private pool and its zeroing would join
+    the graph."""
     key = (device_index, stream)
     if key not in _scratch:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the cross backward's scratch for this stream is allocated on its first "
+                               "eager call: run one backward on the capture stream before capturing")
         k, clusters = _kernels(), plan_capacity(_sm_count(device_index), True) // CLUSTER
         dev = torch.device("cuda", device_index)
         _scratch[key] = (torch.empty(clusters * 2 * k.max_layers * k.max_dim, dtype=torch.float32, device=dev),
@@ -352,7 +354,7 @@ def _forward(w, b, x0, canonical: bool, plan: CrossPlan | None) -> torch.Tensor:
     p = plan or _plan(B, index, d, False)
     lib = _kernels().lib
     err = lib.hhrs_cross_fwd(x0.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, d, w.shape[0],
-                             canonical, p.rows, p.grid, p.stages, p.bulk_store, _current_stream(index))
+                             canonical, p.rows, p.grid, p.stages, _current_stream(index))
     _raise_on(lib, err, "cross_stack forward kernel launch")
     cross_stack_forward.launches += 1
     return y
@@ -389,7 +391,7 @@ def _backward(w, b, x0, dy, canonical: bool, plan: CrossPlan | None) -> tuple:
     lib = _kernels().lib
     err = lib.hhrs_cross_bwd(x0.data_ptr(), w.data_ptr(), b.data_ptr(), dy.data_ptr(), dx0.data_ptr(),
                              dw.data_ptr(), db.data_ptr(), partial.data_ptr(), counter.data_ptr(),
-                             B, d, L, canonical, p.rows, p.grid, p.stages, p.bulk_store, stream)
+                             B, d, L, canonical, p.rows, p.grid, p.stages, stream)
     _raise_on(lib, err, "cross_stack backward kernel launch")
     cross_stack_backward.launches += 1
     return dx0, dw, db

@@ -27,12 +27,14 @@ entry points that every tree of the port with both kernels has:
   dx0, dw and db, each held to the tree's plain version at the term-scale
   bar, and a repeated backward held to the first bit for bit; timed at
   B = 512, 4487 and 8192 (d = 113, L = 3), and, where the tree has
-  ``cross.plan_of``, at each alternative plan of tile rows and output
-  path, whose y and dx0 must equal the chosen plan's bit for bit.
+  ``cross.plan_of``, at each alternative plan of tile rows, whose y and
+  dx0 must equal the chosen plan's bit for bit.
 
 Times are CUDA-event means and each kernel's device time per call from
-torch.profiler (for the backward, every kernel of one call, and how many
-kernels one call launches).
+torch.profiler (for the backward, every kernel of one call: one in a tree
+with ``cross.plan_of``, a row kernel and a block-sum kernel before; the
+profile must show no more than that many a call, and at most the few that
+``chip_smoke.device_ms_per_call`` lets the profiler drop).
 """
 
 from __future__ import annotations
@@ -104,11 +106,6 @@ def tower_run(tree: Path, card: str, dev) -> dict:
     return dict(x0=x0_all.cpu(), logits=logits, times=times)
 
 
-def kernels_per_call(fn, calls: int, name: str) -> float:
-    """Kernel launches whose name holds ``name`` per call of ``fn`` (torch.profiler)."""
-    return sum(e.count for e in chip_smoke.profile_kernels(fn, calls, name) if name in e.key) / calls
-
-
 def cross_inputs(dev) -> dict:
     """One seeded set of cross inputs per width: x0, dy [8192, d]; w, b [3, d]."""
     import numpy as np
@@ -126,18 +123,17 @@ def cross_inputs(dev) -> dict:
 
 
 def alternative_plans(cross, x0, backward: bool) -> dict:
-    """The chosen plan first, then tiles of 8, 16 and 32 rows with either
-    output path, each on as many blocks as the card runs at once."""
+    """The chosen plan first, then tiles of 8, 16 and 32 rows, each on as
+    many blocks as the card runs at once."""
     chosen = cross.plan_of(x0, backward)
     plans = {f"chosen plan {tuple(chosen)}": chosen}
     cluster = cross.CLUSTER if backward else 1
     for rows in (8, 16, 32):
         tiles = -(-x0.shape[0] // rows)
         grid = -(-min(tiles, cross.capacity(x0, backward)) // cluster) * cluster
-        for bulk_store in (False, True):
-            plan = cross.CrossPlan(rows, grid, min(cross.MAX_STAGES, -(-tiles // grid)), bulk_store)
-            if plan != chosen:
-                plans[f"plan {tuple(plan)}"] = plan
+        plan = cross.CrossPlan(rows, grid, min(cross.MAX_STAGES, -(-tiles // grid)))
+        if plan != chosen:
+            plans[f"plan {tuple(plan)}"] = plan
     return plans
 
 
@@ -187,7 +183,9 @@ def cross_run(card: str, dev) -> dict:
                     return cross.cross_stack_backward(w, b, x0, dy, "code", **({} if plan is None else {"plan": plan}))
 
                 plans = {"chosen plan": None}
-                if hasattr(cross, "plan_of"):
+                one_launch = hasattr(cross, "plan_of")  # else the backward is a row and a block-sum kernel
+                launches = 1 if kind == "fwd" or one_launch else 2
+                if one_launch:
                     plans = alternative_plans(cross, x0, kind == "bwd")
                     want = call() if kind == "fwd" else call()[0]
                     for what, plan in plans.items():
@@ -197,11 +195,10 @@ def cross_run(card: str, dev) -> dict:
                                              "chosen plan's output")
                 for what, plan in plans.items():
                     ms = chip_smoke.time_cuda(lambda: call(plan), calls)
-                    device_ms = chip_smoke.device_ms_per_call(lambda: call(plan), 50, name)
-                    n_kernels = kernels_per_call(lambda: call(plan), 20, name)
-                    times.append(dict(B=B, kind=kind, what=what, ms=ms, device_ms=device_ms, kernels=n_kernels))
+                    device_ms = chip_smoke.device_ms_per_call(lambda: call(plan), 50, name, launches)
+                    times.append(dict(B=B, kind=kind, what=what, ms=ms, device_ms=device_ms, kernels=launches))
                     print(f"[time] cross {kind} B={B} {what}: {ms:.4f} ms (device {device_ms * 1e3:.2f} us, "
-                          f"{n_kernels:g} kernels a call) on {card}", flush=True)
+                          f"{launches} kernels a call) on {card}", flush=True)
     return dict(outputs=outputs, times=times)
 
 

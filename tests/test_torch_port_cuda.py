@@ -139,8 +139,8 @@ def test_cuda_cross_kernels_match_plain_versions(variant, B, d, L):
 @pytest.mark.parametrize("B,d,L", [(4487, 113, 3), (1003, 256, 6), (37, 33, 1)])
 def test_cuda_cross_outputs_do_not_depend_on_the_plan(variant, B, d, L):
     """y and dx0 are bit for bit the same under every plan: tile heights,
-    rings of 1 to 3 stages that the blocks refill, either output path; dw
-    and db follow the plan's sum order and stay at the term-scale bar."""
+    rings of 1 to 3 stages that the blocks refill; dw and db follow the
+    plan's sum order and stay at the term-scale bar."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     w, b, x0, dy = _cross_inputs(B, d, L, seed=3)
@@ -152,15 +152,31 @@ def test_cuda_cross_outputs_do_not_depend_on_the_plan(variant, B, d, L):
     for rows in (4, 8, 20, 32):
         tiles = -(-B // rows)
         for grid, stages in ((1, 1), (3, 3), (7, 2), (tiles, 1)):
-            for bulk_store in (False, True):
-                plan = cross.CrossPlan(rows, min(grid, tiles, cap), stages, bulk_store)
-                assert torch.equal(cross.cross_stack_forward(w, b, x0, variant, plan), y), plan
-                # the backward runs whole clusters of blocks
-                plan = plan._replace(grid=-(-plan.grid // cross.CLUSTER) * cross.CLUSTER)
-                got = cross.cross_stack_backward(w, b, x0, dy, variant, plan)
-                assert torch.equal(got[0], dx0), plan
-                for name, g, want, sc in zip(("dw", "db"), got[1:], ref[1:], scale[2:]):
-                    cross.assert_close_to_scale(g, want, sc, **CROSS_TOL, what=f"{name} {plan}")
+            plan = cross.CrossPlan(rows, min(grid, tiles, cap), stages)
+            assert torch.equal(cross.cross_stack_forward(w, b, x0, variant, plan), y), plan
+            # the backward runs whole clusters of blocks
+            plan = plan._replace(grid=-(-plan.grid // cross.CLUSTER) * cross.CLUSTER)
+            got = cross.cross_stack_backward(w, b, x0, dy, variant, plan)
+            assert torch.equal(got[0], dx0), plan
+            for name, g, want, sc in zip(("dw", "db"), got[1:], ref[1:], scale[2:]):
+                cross.assert_close_to_scale(g, want, sc, **CROSS_TOL, what=f"{name} {plan}")
+
+
+@pytest.mark.cuda
+def test_cuda_cross_capacity_is_asked_of_the_card():
+    """The blocks a plan takes are those the card runs at once at the
+    largest plan's shared memory: at d = 256 (about 108 KB a forward block)
+    fewer than the 4 an SM that narrower rows get."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in (33, 113, 256):
+        x0 = torch.empty((1, d), device="cuda")
+        for backward in (False, True):
+            n = cross.capacity(x0, backward)
+            assert 1 <= n <= cross.plan_capacity(sms, backward), (d, backward, n)
+            assert cross.plan_of(torch.empty((100000, d), device="cuda"), backward).grid <= n
+    assert cross.capacity(torch.empty((1, 256), device="cuda"), False) < cross.FWD_BLOCKS_PER_SM * sms
 
 
 @pytest.mark.cuda
@@ -187,6 +203,24 @@ def test_cuda_cross_graph_replay_equals_eager_calls():
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(g, e) for g, e in zip((y, *grads), want))
+
+
+@pytest.mark.cuda
+def test_cuda_cross_backward_refuses_a_capture_before_its_scratch_exists():
+    """A backward's first call on a stream allocates its scratch; inside a
+    capture that allocation would join the graph, so it raises instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _cross_inputs(64, 33, 2, seed=5)
+    cross.cross_stack_backward(w, b, x0, dy, "code")  # the device's plans and limits are known
+    side = torch.cuda.Stream()
+    cross._scratch.pop((x0.get_device(), side.cuda_stream), None)  # streams come from a pool
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.graph(graph, stream=side):
+            cross.cross_stack_backward(w, b, x0, dy, "code")
+    assert (x0.get_device(), side.cuda_stream) not in cross._scratch
 
 
 @pytest.mark.cuda
