@@ -28,40 +28,50 @@ Phases (any failure exits non-zero and prints no result line):
    {1, 3}, both variants, at rtol 1e-5 / atol 1e-6 against the scale of
    the terms (``cross_stack_term_scale``); a repeated backward must be
    bit-identical, a row's output must not depend on its position in the
-   batch, and forward and backward captured in a CUDA graph and replayed
-   twice must give the eager results bit for bit;
+   batch, forward and backward captured in a CUDA graph (under a backward
+   scratch of its own) and replayed twice must give the eager results bit
+   for bit, two backward graphs captured on one stream and replayed at
+   once on two streams must each give their eager dx0/dw/db bit for bit,
+   and a Hessian-vector product through ``CrossStackFn`` must equal the
+   float64 one;
 4. builds ``RecommendationEngine.from_dirs("benchmarks/results/hpo_r5/best",
    "data")`` on cuda and serves the golden sweep (known, unknown and
    friendless users; every city and an unknown one; both modes; λ ∈
-   {0.7, 1.0}), ``recommend_many`` with K = 8 and ``similar_items``; every
-   response must equal ``hhrs_tpu_torch/testdata/serve_golden_hpo_r5.json``,
-   where two hotels may trade places only if their golden logits differ by
-   less than ``SWAP_TOL``. The kernel's launch count is reset just before
-   this phase and must be > 0 after it;
+   {0.7, 1.0}), ``recommend_many`` with K = 8 and with K = 5 padded to 8,
+   and ``similar_items``; every response must equal
+   ``hhrs_tpu_torch/testdata/serve_golden_hpo_r5.json``, where two hotels
+   may trade places only if their golden logits differ by less than
+   ``SWAP_TOL``. Each batch bucket runs as a CUDA graph; the kernel's launch
+   count (an eager run and a capture per bucket) is reset just before this
+   phase and must be > 0 after it. Then every request must give the same
+   JSON through the eager path (the same launches, no graph);
 5. times the kernel, its plain version and the cuBLAS products of the same
    tower at B = 128, 8·128 and 64·128: CUDA-event means, and beside them
    the device time of one call from torch.profiler (the kernel's own, and
    the sum of the products' GEMM kernels), so one request compares card
    against card (a kernel the profiler does not show fails the phase);
-   then the per-request p50 of ``recommend`` and ``recommend_many`` (host clock,
-   each ending in the device→host copy), and a profile of 20 requests'
-   device time (torch.profiler);
-6. training, parity run: the port's ``Preprocessor`` on ``data/``, then
+   then the p50 of ``recommend`` and ``recommend_many`` (K = 8), eager and
+   graphed in turns over 8 rounds (host clock, each ending in the
+   device→host copy), and a profile of 20 requests of each;
+6. training, parity runs: the port's ``Preprocessor`` on ``data/``, then
    ``train_dcn`` on cuda from the hpo_r5 weights with the hpo_r5 trial-139
-   hyperparameters and dropout 0 for 2 epochs; the val loss must match
+   hyperparameters and dropout 0 for 2 epochs, per step and with
+   ``train.fused_epoch``; the val loss must match
    ``hhrs_tpu_torch/testdata/train_golden_hpo_r5.json`` (the JAX trainer)
    at rtol 2e-3 / atol 2e-4 after the first epoch and at rtol 5e-3 after
    the later ones (``LATER_EPOCH_TOL``), the LR trace must be equal and the
    final val logloss / AUC must match at 2e-3; a second identical run must
-   repeat it bit for bit. The same run with the plain cross stack in place
-   of the kernels is printed beside it, as the trajectory's rounding-noise
-   floor;
-7. training, timing run: the hpo_r5 configuration as trained (dropout 0.6)
-   from seeded random weights, 3 epochs, with the cross kernels' launch
-   counts reset just before and required > 0 just after; prints
+   repeat each bit for bit. The same run with the plain cross stack in
+   place of the kernels is printed beside it, as the trajectory's
+   rounding-noise floor;
+7. training, timing runs: the hpo_r5 configuration as trained (dropout
+   0.6) from seeded random weights, 3 epochs, per step and with
+   ``train.fused_epoch``, each with the cross kernels' launch counts reset
+   just before and required as expected (> 0) just after; prints
    ``examples_per_s``, the p50 step time and a full-val eval's time,
-   profiles 20 steps, exports the artifact to ``OUT_DIR``, loads it
-   back and answers 5 golden requests from it;
+   profiles one epoch of each, checks a checkpoint-and-resume round trip
+   against the uninterrupted runs, exports the artifact to ``OUT_DIR``,
+   loads it back and answers 5 golden requests from it;
 8. prints the blocks of each cross kernel that the card runs at once
    (asked of the card), then times the cross kernels and their plain
    versions at B = 512, 4487 and 8192 (d = 113, L = 3): CUDA-event means,
@@ -76,6 +86,7 @@ line, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -285,6 +296,66 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def serve_timings(engine, reqs: list, card: str) -> None:
+    """``recommend`` and ``recommend_many`` (K = 8) p50, eager against
+    graphed, in turns (eager, graphed, graphed, eager, twice) so that both
+    see the same host; each p50 per round, their median and spread. Then a
+    profile of 20 requests of each (a diagnostic)."""
+    import torch
+
+    def p50_one(fn) -> float:
+        lat = []
+        for i in range(3 * len(reqs) // 2):
+            t0 = time.perf_counter()
+            fn([reqs[i % len(reqs)]])
+            lat.append(time.perf_counter() - t0)
+        return statistics.median(lat[10:]) * 1e3
+
+    def p50_many(fn) -> float:
+        lat = []
+        for i in range(30):
+            batch = [reqs[(8 * i + j) % len(reqs)] for j in range(8)]
+            t0 = time.perf_counter()
+            fn(batch)
+            lat.append(time.perf_counter() - t0)
+        return statistics.median(lat[3:]) * 1e3
+
+    paths = {"eager": engine._recommend_eager, "graphed": engine.recommend_many}
+    rounds = {k: {"one": [], "many": []} for k in paths}
+    for label in ("eager", "graphed", "graphed", "eager") * 2:
+        rounds[label]["one"].append(p50_one(paths[label]))
+        rounds[label]["many"].append(p50_many(paths[label]))
+    for label, r in rounds.items():
+        for kind, name in (("one", "recommend p50 ms/request"), ("many", "recommend_many(K=8) p50 ms/batch")):
+            xs = r[kind]
+            print(f"[time] {label} {name}: rounds {', '.join(f'{x:.3f}' for x in xs)}; median "
+                  f"{statistics.median(xs):.3f}, spread {min(xs):.3f}-{max(xs):.3f} (host clock, each ending in "
+                  f"the device->host copy) on {card}")
+    try:  # the profiler is a diagnostic, not a phase: its absence fails nothing
+        from torch.profiler import ProfilerActivity, profile
+
+        for label, fn in paths.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for req in reqs[:20]:
+                    fn([req])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            avg = prof.key_averages()
+            kernels_dev = device_events(avg)
+            device_ms = sum(e.self_device_time_total for e in kernels_dev) / 1e3
+            (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
+                avg.table(sort_by="self_device_time_total", row_limit=40))
+            print(f"[profile] 20 {label} recommend calls: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
+                  f"(idle {100 * (1 - device_ms / wall_ms):.1f}% of wall, profiler on), "
+                  f"{sum(e.count for e in kernels_dev) / 20:.0f} kernels and copies a request on {card}")
+            for e in sorted(kernels_dev, key=lambda e: e.self_device_time_total, reverse=True)[:5]:
+                print(f"[profile]   {label} {e.key[:64]:64s} self {e.self_device_time_total / 1e3:8.3f} ms "
+                      f"calls {e.count}")
+    except Exception as e:  # noqa: BLE001
+        print(f"[profile] not measured: {type(e).__name__}: {e}")
+
+
 def cross_parity(cross, model, features, dev) -> dict:
     """Forward and backward kernels against the plain versions; returns the
     largest |kernel − plain| of each."""
@@ -339,22 +410,19 @@ def cross_parity(cross, model, features, dev) -> dict:
                     print(f"[parity] cross {where}: max|kernel-plain| (share of the allowance) "
                           + " ".join(f"{n} {x[0]:.3e} ({x[1]:.2f})" for n, x in zip(("y", "dx0", "dw", "db"), e))
                           + "; repeat bit-identical; flip bit-identical")
-    # The training step's call, captured in a CUDA graph and replayed: the
-    # backward's tickets must be back at 0 after every launch.
+    # The training step's call, captured in a CUDA graph (the backward's
+    # scratch allocated in the capture) and replayed: the tickets are back at
+    # 0 after every launch.
     x0 = features(512)
     w, b = model.cross.w.detach().contiguous(), model.cross.b.detach().contiguous()
     dy = f32(gen.standard_normal(tuple(x0.shape)))
     with torch.no_grad():
         want = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
         side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # the capture stream's scratch exists before capture
-            cross.cross_stack_backward(w, b, x0, dy, "code")
-        torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
             outs = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
-        n_fwd, n_bwd = n_fwd + 2, n_bwd + 3
+        n_fwd, n_bwd = n_fwd + 2, n_bwd + 2
         for _ in range(2):
             for t in outs:
                 t.fill_(float("nan"))
@@ -364,6 +432,9 @@ def cross_parity(cross, model, features, dev) -> dict:
                 raise SmokeFailure("the cross kernels replayed from a CUDA graph differ from the eager calls")
     print("[parity] cross: forward + backward (B=512) captured in a CUDA graph and replayed twice: "
           "bit-identical to the eager calls")
+    n_bwd += concurrent_graph_check(cross, features, f32, gen)
+    fwd, bwd = double_backward_check(cross, features, f32, gen)
+    n_fwd, n_bwd = n_fwd + fwd, n_bwd + bwd
     after = (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
     if (after[0] - before[0], after[1] - before[1]) != (n_fwd, n_bwd):
         raise SmokeFailure("the cross launch counters did not count every parity launch")
@@ -374,8 +445,96 @@ def cross_parity(cross, model, features, dev) -> dict:
     return errs
 
 
+def concurrent_graph_check(cross, features, f32, gen) -> int:
+    """Fault C3: two backward graphs captured on one capture stream, each
+    with the scratch it allocated in its capture, replayed at the same time
+    on two streams (B = 8192, so the launches overlap) give their eager
+    dx0/dw/db bit for bit, 20 times; and the library's owners of graphs
+    (engines, fused epochs) never share a capture stream, whose cuBLAS
+    workspace the graphs would share. Returns the backward launches made."""
+    import torch
+
+    from hhrs_tpu_torch.device import capture_stream
+
+    cases = []
+    for _ in range(2):
+        x0 = features(8192)
+        dy = f32(gen.standard_normal(tuple(x0.shape)))
+        d = x0.shape[1]
+        w, b = f32(gen.uniform(-1, 1, (3, d)) / d ** 0.5), f32(0.1 * gen.standard_normal((3, d)))
+        cases.append((w, b, x0, dy, cross.cross_stack_backward(w, b, x0, dy, "code")))
+    capture = torch.cuda.Stream()
+    graphs = []
+    for w, b, x0, dy, _ in cases:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            outs = cross.cross_stack_backward(w, b, x0, dy, "code")
+        graphs.append((graph, outs))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(20):
+        for (graph, outs), stream in zip(graphs, streams):
+            for t in outs:
+                t.fill_(float("nan"))
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        for stream in streams:
+            torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        for (_, outs), case in zip(graphs, cases):
+            if not all(torch.equal(o, e) for o, e in zip(outs, case[4])):
+                raise SmokeFailure("two backward graphs of one capture stream replayed at once gave other "
+                                   "dx0/dw/db than their eager calls")
+    owners = [type("Owner", (), {})() for _ in range(40)]
+    handles = {capture_stream(o, torch.device("cuda")).cuda_stream for o in owners}
+    if len(handles) != len(owners):
+        raise SmokeFailure("two live owners of CUDA graphs were given one capture stream")
+    print("[parity] cross: two backward graphs (B=8192) captured on one stream, each with its own scratch, "
+          "replayed at once on two streams 20 times: dx0/dw/db bit-identical to their eager calls; "
+          f"{len(owners)} live owners of graphs hold {len(handles)} distinct capture streams")
+    return 4
+
+
+def double_backward_check(cross, features, f32, gen) -> tuple:
+    """Fault C2: a Hessian-vector product through CrossStackFn on the card
+    (the first-order values from one backward kernel launch, the second
+    derivative from the closed form) against the float64 one, at the cross
+    bar against each leaf's largest entry. Returns the forward and backward
+    launches made."""
+    import torch
+
+    x0 = features(512)
+    w = f32(gen.uniform(-1, 1, (3, x0.shape[1])) / x0.shape[1] ** 0.5)
+    b = f32(0.1 * gen.standard_normal((3, x0.shape[1])))
+    c = f32(gen.standard_normal(tuple(x0.shape)))
+    v = [f32(gen.standard_normal(tuple(t.shape))) for t in (w, b, x0)]
+
+    def hvp(fn, inputs, c, v):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        grads = torch.autograd.grad((fn(*leaves, "code") * c).sum(), leaves, create_graph=True)
+        return torch.autograd.grad(sum((g * d).sum() for g, d in zip(grads, v)), leaves, materialize_grads=True)
+
+    before = cross.cross_stack_backward.launches
+    got = hvp(cross.CrossStackFn.apply, (w, b, x0), c, v)
+    exact = hvp(cross.cross_stack_apply, [t.double() for t in (w, b, x0)], c.double(), [t.double() for t in v])
+    if cross.cross_stack_backward.launches != before + 1:
+        raise SmokeFailure("a double backward through CrossStackFn did not take its first-order values from "
+                           "one backward kernel launch")
+    shares = []
+    for name, g, ex in zip(("w", "b", "x0"), got, exact):
+        try:
+            shares.append(cross.assert_close_to_scale(g, ex, ex.abs().max().expand_as(ex), **CROSS_TOL,
+                                                      what=f"HVP {name}")[1])
+        except AssertionError as exc:
+            raise SmokeFailure(f"the double backward through CrossStackFn is not exact: {exc}")
+    print(f"[parity] cross: Hessian-vector product through CrossStackFn (B=512; first-order values from the "
+          f"backward kernel) equals the float64 one; largest share of the allowance {max(shares):.3f}")
+    return 1, 1
+
+
 def training_parity(splits, bundle, dev, card: str) -> None:
-    """train_dcn on the card against the JAX trainer's golden trajectory."""
+    """train_dcn on the card, per step and with train.fused_epoch, against
+    the JAX trainer's golden trajectory; each run twice, bit for bit."""
     import numpy as np
 
     from hhrs_tpu_torch.config import ModelConfig, TrainConfig
@@ -389,30 +548,47 @@ def training_parity(splits, bundle, dev, card: str) -> None:
                            f"{golden['n_train']}/{golden['n_val']}")
     model_cfg, train_cfg = ModelConfig(**golden["model_config"]), TrainConfig(**golden["train_config"])
 
-    def run(params):
+    def run(params, fused=False):
         t0 = time.perf_counter()
-        r = train_dcn(splits, bundle.dims, model_cfg, train_cfg, init_state=(params, bundle.bn_state),
-                      device=dev)
+        r = train_dcn(splits, bundle.dims, model_cfg, dataclasses.replace(train_cfg, fused_epoch=fused),
+                      init_state=(params, bundle.bn_state), device=dev)
         return r, time.perf_counter() - t0
 
-    result, secs = run(bundle.params)
-    again, _ = run(bundle.params)  # deterministic kernels: the run repeats bit for bit
-    a, b = flatten_tree(result.params), flatten_tree(again.params)
-    if result.history != again.history or not all(np.array_equal(a[k], b[k]) for k in a):
-        raise SmokeFailure("two identical training runs on the card differ")
-    print("[train] a second identical run gives the same history and bit-identical weights")
-    got = np.array([h["val_loss"] for h in result.history])
-    want = np.array([h["val_loss"] for h in golden["history"]])
-    print(f"[train] parity run (hpo_r5 weights, trial-139 hyperparameters, dropout 0, "
-          f"{train_cfg.n_epochs} epochs) in {secs:.2f} s on {card}")
-    bars = [VAL_TOL] + [LATER_EPOCH_TOL] * (len(golden["history"]) - 1)
-    for h, w, bar in zip(result.history, golden["history"], bars):
-        allowed = bar["atol"] + bar["rtol"] * abs(w["val_loss"])
-        print(f"[train]   epoch {h['epoch']}: val_loss card {h['val_loss']:.7f} JAX {w['val_loss']:.7f} "
-              f"|Δ| {abs(h['val_loss'] - w['val_loss']):.3e} (allowed {allowed:.3e}); lr {h['lr']:.6g}")
-    fm, gm = result.final_metrics, golden["final_metrics"]
-    print(f"[train]   final val_logloss {fm['val_logloss']:.7f} (JAX {gm['val_logloss']:.7f}), "
-          f"val_auc {fm['val_auc']:.7f} (JAX {gm['val_auc']:.7f})")
+    def held(result, label):
+        bars = [VAL_TOL] + [LATER_EPOCH_TOL] * (len(golden["history"]) - 1)
+        for h, w, bar in zip(result.history, golden["history"], bars):
+            allowed = bar["atol"] + bar["rtol"] * abs(w["val_loss"])
+            print(f"[train]   {label} epoch {h['epoch']}: val_loss card {h['val_loss']:.7f} JAX {w['val_loss']:.7f} "
+                  f"|Δ| {abs(h['val_loss'] - w['val_loss']):.3e} (allowed {allowed:.3e}); lr {h['lr']:.6g}")
+        fm, gm = result.final_metrics, golden["final_metrics"]
+        print(f"[train]   {label} final val_logloss {fm['val_logloss']:.7f} (JAX {gm['val_logloss']:.7f}), "
+              f"val_auc {fm['val_auc']:.7f} (JAX {gm['val_auc']:.7f})")
+        got = np.array([h["val_loss"] for h in result.history])
+        want = np.array([h["val_loss"] for h in golden["history"]])
+        if len(got) != len(want) or not all(np.isclose(g, w, **bar) for g, w, bar in zip(got, want, bars)):
+            raise SmokeFailure(f"the card's {label} val-loss trajectory differs from the JAX trainer's golden one")
+        if [h["lr"] for h in result.history] != [h["lr"] for h in golden["history"]]:
+            raise SmokeFailure(f"the card's {label} LR trace differs from the JAX trainer's")
+        if not (np.isclose(fm["val_logloss"], gm["val_logloss"], **VAL_TOL)
+                and abs(fm["val_auc"] - gm["val_auc"]) <= 2e-3):
+            raise SmokeFailure(f"the {label} final val logloss / AUC differ from the JAX trainer's")
+
+    def same(a, b) -> bool:
+        fa, fb = flatten_tree(a.params), flatten_tree(b.params)
+        return a.history == b.history and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+    for fused, label in ((False, "per-step"), (True, "fused-epoch")):
+        result, secs = run(bundle.params, fused)
+        again, _ = run(bundle.params, fused)  # deterministic kernels: the run repeats bit for bit
+        if not same(result, again):
+            raise SmokeFailure(f"two identical {label} training runs on the card differ")
+        print(f"[train] {label} parity run (hpo_r5 weights, trial-139 hyperparameters, dropout 0, "
+              f"{train_cfg.n_epochs} epochs) in {secs:.2f} s on {card}; a second identical run gives the same "
+              "history and bit-identical weights")
+        held(result, label)
+        if not fused:
+            per_step = result
+    fused_lr_check(splits, bundle, model_cfg, train_cfg, dev)
     # The rounding-noise floor of this trajectory: the same run with the
     # plain cross stack (autograd through cross_stack_apply) in place of the
     # kernels, both valid float32 programs.
@@ -422,35 +598,76 @@ def training_parity(splits, bundle, dev, card: str) -> None:
         plain, _ = run(bundle.params)
     finally:
         cross.cross_stack = kernel_path
-    for h, k, w in zip(plain.history, result.history, golden["history"]):
+    for h, k, w in zip(plain.history, per_step.history, golden["history"]):
         print(f"[train]   epoch {h['epoch']}, plain cross stack on the card: val_loss {h['val_loss']:.7f}; "
               f"|kernels - plain| {abs(k['val_loss'] - h['val_loss']):.3e}, "
               f"|plain - JAX| {abs(h['val_loss'] - w['val_loss']):.3e}")
 
-    if len(got) != len(want) or not all(np.isclose(g, w, **bar) for g, w, bar in zip(got, want, bars)):
-        raise SmokeFailure("the card's val-loss trajectory differs from the JAX trainer's golden one")
-    if [h["lr"] for h in result.history] != [h["lr"] for h in golden["history"]]:
-        raise SmokeFailure("the card's LR trace differs from the JAX trainer's")
-    if not (np.isclose(fm["val_logloss"], gm["val_logloss"], **VAL_TOL)
-            and abs(fm["val_auc"] - gm["val_auc"]) <= 2e-3):
-        raise SmokeFailure("the final val logloss / AUC differ from the JAX trainer's")
 
-
-def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card: str) -> dict:
-    """The hpo_r5 configuration as trained, timed; export, reload, serve.
-    Returns the cross kernels' launches in the run."""
+def fused_lr_check(splits, bundle, model_cfg, train_cfg, dev) -> None:
+    """The fused epoch's graph reads the optimizer's LR tensor. From the
+    hpo_r5 weights with lr_plateau_patience 0 the LR decays after epoch 1:
+    the fused run (epochs 2 and 3 replayed at the decayed LR) keeps the
+    per-step run's LR trace and stays at the golden bars of its val losses.
+    And a replay after set_learning_rate(0) leaves every parameter as it
+    was, bit for bit, while one at the LR moves them."""
     import numpy as np
     import torch
 
-    from hhrs_tpu_torch.models.convert import flatten_tree
-    from hhrs_tpu_torch.models.dcn import ModelDims
-    from hhrs_tpu_torch.ops import cross
-    from hhrs_tpu_torch.serve.engine import RecommendationEngine
-    from hhrs_tpu_torch.train.artifacts import export_artifacts, load_artifact_bundle
-    from hhrs_tpu_torch.train.optimizers import make_optimizer
-    from hhrs_tpu_torch.train.trainer import eval_logits, split_tensors, train_dcn, train_step
+    from hhrs_tpu_torch.train.optimizers import make_optimizer, set_learning_rate
+    from hhrs_tpu_torch.train.trainer import FusedEpoch, split_tensors, train_dcn
 
-    dims = ModelDims.from_artifacts(preproc)
+    runs = [train_dcn(splits, bundle.dims, model_cfg,
+                      dataclasses.replace(train_cfg, n_epochs=4, lr_plateau_patience=0, fused_epoch=fused),
+                      init_state=(bundle.params, bundle.bn_state), device=dev) for fused in (False, True)]
+    lrs = [[h["lr"] for h in r.history] for r in runs]
+    bars = [VAL_TOL] + [LATER_EPOCH_TOL] * 3
+    print(f"[train] plateau decay (patience 0, 4 epochs): LR trace per step {lrs[0]}, fused {lrs[1]}; "
+          "val_loss per step / fused: " + ", ".join(f"{a['val_loss']:.7f} / {b['val_loss']:.7f}"
+                                                   for a, b in zip(runs[0].history, runs[1].history)))
+    if lrs[0] != lrs[1] or not min(lrs[1][:-1]) < lrs[1][0]:
+        raise SmokeFailure("the plateau-decay runs' LR traces differ or never decay before the last epoch")
+    if not all(np.isclose(f["val_loss"], p["val_loss"], **bar)
+               for f, p, bar in zip(runs[1].history, runs[0].history, bars)):
+        raise SmokeFailure("the fused run with a plateau decay left the per-step run's trajectory")
+
+    model = runs[1].model.train()
+    opt = make_optimizer(train_cfg.optimizer, model.parameters(), train_cfg.lr, train_cfg.weight_decay,
+                         capturable_on=torch.device(dev))
+    B = train_cfg.batch_size
+    steps = splits.n_train // B
+    fused = FusedEpoch(model, opt, split_tensors(splits, "train", dev), B, steps,
+                       torch.Generator(device=dev).manual_seed(SEED))
+    perm = np.random.default_rng(SEED).permutation(splits.n_train)[:steps * B]
+    fused.run(perm)  # eager, then the capture
+
+    def moved(rate: float) -> float:
+        set_learning_rate(opt, rate)
+        before = [t.detach().clone() for t in model.parameters()]
+        fused.run(perm)
+        torch.cuda.synchronize()
+        return max(float((t.detach() - u).abs().max()) for t, u in zip(model.parameters(), before))
+
+    at_lr, at_zero, at_tenth = moved(train_cfg.lr), moved(0.0), moved(train_cfg.lr / 10)
+    print(f"[train] fused epoch replayed at LR {train_cfg.lr:.6g}, 0, {train_cfg.lr / 10:.6g}: largest parameter "
+          f"move {at_lr:.3e}, {at_zero:.3e}, {at_tenth:.3e}")
+    if not (at_zero == 0.0 and 0 < at_tenth < at_lr):
+        raise SmokeFailure("the fused epoch's graph does not follow the optimizer's LR tensor")
+
+
+def train_run(splits, dims, model_cfg, train_cfg, dev, card: str, label: str):
+    """One timed train_dcn run, with the cross kernels' launch counts set to
+    0 just before it and read just after → ``(result, launches)``. Per step,
+    the wrappers launch one forward and one backward a step and one forward
+    an eval chunk; under train.fused_epoch they launch in the first epoch,
+    which runs eagerly, and in the capture after it, and every later epoch
+    is one graph replay."""
+    import numpy as np
+    import torch
+
+    from hhrs_tpu_torch.ops import cross
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
     torch.cuda.synchronize()
     cross.cross_stack_forward.launches = cross.cross_stack_backward.launches = 0
     t0 = time.perf_counter()
@@ -461,21 +678,152 @@ def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card:
     steps = splits.n_train // train_cfg.batch_size
     chunks = -(-splits.n_val // train_cfg.eval_batch_size)
     n_epochs = len(result.history)
-    want = {"fwd": n_epochs * (steps + chunks) + chunks, "bwd": n_epochs * steps}
-    print(f"[train] timing run (hpo_r5 configuration, dropout {model_cfg.dropout}, seeded random weights, "
-          f"{n_epochs} epochs of {steps} steps of {train_cfg.batch_size}) in {wall:.2f} s on {card}")
+    evals = n_epochs * chunks + chunks
+    if train_cfg.fused_epoch:  # the eager first epoch and the capture
+        want = {"fwd": 2 * steps + evals, "bwd": 2 * steps}
+    else:
+        want = {"fwd": n_epochs * steps + evals, "bwd": n_epochs * steps}
+    print(f"[train] {label} timing run (hpo_r5 configuration, dropout {model_cfg.dropout}, seeded random "
+          f"weights, {n_epochs} epochs of {steps} steps of {train_cfg.batch_size}) in {wall:.2f} s on {card}")
     for h in result.history:
-        print(f"[train]   epoch {h['epoch']}: train_loss {h['train_loss']:.5f} val_loss {h['val_loss']:.5f}")
-    print(f"[train]   final {json.dumps(result.final_metrics)}")
-    print(f"[train] cross kernel launches on the training path: forward {launches['fwd']}, backward "
-          f"{launches['bwd']} (one per step and per eval chunk: {want['fwd']}, {want['bwd']})")
+        print(f"[train]   {label} epoch {h['epoch']}: train_loss {h['train_loss']:.5f} val_loss {h['val_loss']:.5f}")
+    print(f"[train]   {label} final {json.dumps(result.final_metrics)}")
+    print(f"[train] {label}: cross kernel launches by the wrappers: forward {launches['fwd']}, backward "
+          f"{launches['bwd']} (expected {want['fwd']}, {want['bwd']}; "
+          + ("the first epoch eager, then one capture, then one graph replay an epoch)" if train_cfg.fused_epoch
+             else "one a step and an eval chunk)"))
     if min(launches.values()) <= 0 or launches != want:
-        raise SmokeFailure("the training path did not run the cross kernels once per step and eval chunk")
+        raise SmokeFailure(f"the {label} training path did not launch the cross kernels as expected")
     if not all(np.isfinite(v) for v in result.final_metrics.values()):
-        raise SmokeFailure("the trained model's final metrics are not finite")
+        raise SmokeFailure(f"the {label} run's final metrics are not finite")
     p50 = statistics.median(result.step_ms)
-    print(f"[time] train step p50 {p50:.4f} ms (CUDA events, {len(result.step_ms)} steps after the first "
-          f"epoch); examples_per_s {result.examples_per_s:.1f} (median epoch, eval included) on {card}")
+    print(f"[time] {label} train step p50 {p50:.4f} ms ({len(result.step_ms)} "
+          + ("epochs' CUDA-event time over their steps" if train_cfg.fused_epoch else "steps' CUDA events")
+          + f", after the first epoch); examples_per_s {result.examples_per_s:.1f} (median epoch, eval "
+          f"included) on {card}")
+    return result, launches
+
+
+def epoch_profiles(splits, dims, model_cfg, train_cfg, dev, card: str) -> None:
+    """One epoch of the hpo_r5 configuration per step and one replayed from
+    its graph, each under torch.profiler: wall, device busy, kernels, and
+    the host's launch calls. A diagnostic: its absence fails nothing."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hhrs_tpu_torch.models.dcn import DCNR
+    from hhrs_tpu_torch.train.optimizers import make_optimizer
+    from hhrs_tpu_torch.train.trainer import FusedEpoch, split_tensors, train_step
+
+    B = train_cfg.batch_size
+    steps = splits.n_train // B
+    model = DCNR(dims, model_cfg, generator=torch.Generator().manual_seed(SEED)).to(dev).train()
+    data = split_tensors(splits, "train", dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    perm = np.random.default_rng(SEED).permutation(splits.n_train)[:steps * B]
+    perm_dev = torch.as_tensor(perm, device=dev)
+    opt = make_optimizer(train_cfg.optimizer, model.parameters(), train_cfg.lr, train_cfg.weight_decay)
+
+    def per_step():
+        for s in range(steps):
+            idx = perm_dev[s * B:(s + 1) * B]
+            train_step(model, opt, {k: v[idx] for k, v in data.items()}, gen)
+
+    capturable = torch.device(dev) if torch.device(dev).type == "cuda" else None  # the CPU rehearses
+    fused = FusedEpoch(model, make_optimizer(train_cfg.optimizer, model.parameters(), train_cfg.lr,
+                                             train_cfg.weight_decay, capturable_on=capturable),
+                       data, B, steps, gen)
+    fused.run(perm)  # eager, then the capture
+    for label, fn in (("per-step", per_step), ("fused-epoch", lambda: fused.run(perm))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        avg = prof.key_averages()
+        kernels_dev = device_events(avg)
+        device_ms = sum(e.self_device_time_total for e in kernels_dev) / 1e3
+        n_kernels = sum(e.count for e in kernels_dev)
+        host_launches = {e.key: e.count for e in avg if re.fullmatch(r"cu(da)?(LaunchKernel\w*|GraphLaunch)", e.key)}
+        (OUT_DIR / f"chip_smoke_train_profile_{label}.txt").write_text(
+            avg.table(sort_by="self_device_time_total", row_limit=50) + "\n"
+            + avg.table(sort_by="self_cpu_time_total", row_limit=30))
+        print(f"[profile] one {label} epoch ({steps} steps): wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
+              f"(idle {100 * (1 - device_ms / wall_ms):.1f}% of wall, profiler on), {n_kernels} kernels and copies "
+              f"({n_kernels / steps:.0f} a step), host launch calls {host_launches} on {card}")
+        for e in sorted(kernels_dev, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
+            print(f"[profile]   {label} device {e.key[:60]:60s} self {e.self_device_time_total / 1e3:8.3f} ms "
+                  f"calls {e.count}")
+
+
+def resume_round_trip(splits, dims, model_cfg, train_cfg, full, full_fused, dev) -> None:
+    """Checkpoint and resume on the card: per step, 2 epochs then a rerun to
+    3 equals the uninterrupted 3-epoch run bit for bit (dropout on: the
+    dropout generator's state round-trips); fused, 1 epoch then a rerun to
+    3 (which captures its graph anew) meets the uninterrupted fused run at
+    the trajectory bar."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hhrs_tpu_torch.models.convert import flatten_tree
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    root = REPO / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=root, prefix="chip_smoke_ckpt_"))
+    try:
+        for fused, first_epochs, ref in ((False, 2, full), (True, 1, full_fused)):
+            cfg = dataclasses.replace(train_cfg, fused_epoch=fused)
+            ckpt = str(tmp / ("fused" if fused else "per_step"))
+            train_dcn(splits, dims, model_cfg, dataclasses.replace(cfg, n_epochs=first_epochs), checkpoint_dir=ckpt,
+                      device=dev)
+            resumed = train_dcn(splits, dims, model_cfg, cfg, checkpoint_dir=ckpt, device=dev)
+            fa, fb = flatten_tree(resumed.params), flatten_tree(ref.params)
+            bitwise = resumed.history == ref.history and all(np.array_equal(fa[k], fb[k]) for k in fa)
+            gap = max(abs(a["val_loss"] - b["val_loss"]) for a, b in zip(resumed.history, ref.history))
+            label = "fused-epoch" if fused else "per-step"
+            print(f"[train] {label} resume: {first_epochs} epochs, then a rerun to {cfg.n_epochs} from the "
+                  f"checkpoint: bit-identical to the uninterrupted run: {bitwise}; largest val-loss |Δ| {gap:.3e}")
+            if [h["epoch"] for h in resumed.history] != [h["epoch"] for h in ref.history]:
+                raise SmokeFailure(f"the {label} resumed run has other epochs than the uninterrupted one")
+            if not fused and not bitwise:
+                raise SmokeFailure("the resumed per-step run differs from the uninterrupted one")
+            if fused and not all(np.isclose(a["val_loss"], b["val_loss"], **VAL_TOL)
+                                 for a, b in zip(resumed.history, ref.history)):
+                raise SmokeFailure("the resumed fused-epoch run left the uninterrupted run's trajectory")
+    finally:
+        shutil.rmtree(tmp)
+
+
+def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card: str) -> dict:
+    """The hpo_r5 configuration as trained, per step and with
+    train.fused_epoch, timed; the epoch profiles; a resume round trip; then
+    export, reload, serve. Returns the cross kernels' launches in each run."""
+    import numpy as np
+    import torch
+
+    from hhrs_tpu_torch.models.convert import flatten_tree
+    from hhrs_tpu_torch.models.dcn import ModelDims
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+    from hhrs_tpu_torch.train.artifacts import export_artifacts, load_artifact_bundle
+    from hhrs_tpu_torch.train.trainer import eval_logits, split_tensors
+
+    dims = ModelDims.from_artifacts(preproc)
+    runs = {"per-step": [], "fused-epoch": []}
+    for label in ("per-step", "fused-epoch", "fused-epoch", "per-step"):  # in turns, on one host
+        cfg = dataclasses.replace(train_cfg, fused_epoch=label == "fused-epoch")
+        runs[label].append(train_run(splits, dims, model_cfg, cfg, dev, card, label))
+    for label, rs in runs.items():
+        p50s = [statistics.median(r.step_ms) for r, _ in rs]
+        rates = [r.examples_per_s for r, _ in rs]
+        print(f"[time] {label} over {len(rs)} runs: step p50 {', '.join(f'{x:.4f}' for x in p50s)} ms; "
+              f"examples_per_s {', '.join(f'{x:.1f}' for x in rates)} on {card}")
+    (result, launches), (fused, fused_launches) = runs["per-step"][0], runs["fused-epoch"][0]
 
     val = split_tensors(splits, "val", dev)
     eval_s = []
@@ -489,43 +837,11 @@ def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card:
           f"(host clock, ending in a synchronize) on {card}")
 
     try:  # the profiler is a diagnostic, not a phase: its absence fails nothing
-        from torch.profiler import ProfilerActivity, profile
-
-        model = result.model.train()
-        opt = make_optimizer(train_cfg.optimizer, model.parameters(), train_cfg.lr, train_cfg.weight_decay)
-        data = split_tensors(splits, "train", dev)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        B = train_cfg.batch_size
-        batches = [{k: v[i * B:(i + 1) * B] for k, v in data.items()} for i in range(25)]
-        for batch in batches[:5]:
-            train_step(model, opt, batch, gen)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for batch in batches[5:]:
-                train_step(model, opt, batch, gen)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        avg = prof.key_averages()
-        kernels_dev = device_events(avg)
-        device_ms = sum(e.self_device_time_total for e in kernels_dev) / 1e3
-        cross_ms = sum(e.self_device_time_total for e in kernels_dev if "cross_" in e.key) / 1e3
-        n_kernels = sum(e.count for e in kernels_dev)
-        (OUT_DIR / "chip_smoke_train_profile.txt").write_text(
-            avg.table(sort_by="self_device_time_total", row_limit=50) + "\n"
-            + avg.table(sort_by="self_cpu_time_total", row_limit=30))
-        print(f"[profile] 20 train steps: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
-              f"({100 * device_ms / wall_ms:.1f}% of wall, profiler on), {n_kernels / 20:.0f} kernels "
-              f"and copies a step; cross kernels {cross_ms:.3f} ms = "
-              f"{100 * cross_ms / max(device_ms, 1e-9):.1f}% of device time on {card}")
-        for e in sorted(kernels_dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-            print(f"[profile]   device {e.key[:62]:62s} self {e.self_device_time_total / 1e3:8.3f} ms "
-                  f"calls {e.count}")
-        for e in sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
-            print(f"[profile]   host   {e.key[:62]:62s} self {e.self_cpu_time_total / 1e3:8.3f} ms "
-                  f"calls {e.count}")
+        epoch_profiles(splits, dims, model_cfg, train_cfg, dev, card)
     except Exception as e:  # noqa: BLE001
-        print(f"[profile] train steps not measured: {type(e).__name__}: {e}")
+        print(f"[profile] train epochs not measured: {type(e).__name__}: {e}")
+
+    resume_round_trip(splits, dims, model_cfg, train_cfg, result, fused, dev)
 
     out = OUT_DIR / "train_smoke_artifact"
     export_artifacts(str(out), result.params, result.bn_state, model_cfg, dims, preproc,
@@ -542,7 +858,7 @@ def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card:
             raise SmokeFailure(f"the trained artifact gave no answer to {req}")
         print(f"[train] served {req} from the trained artifact: "
               f"{len(hotels) if hotels is not None else resp['message']} hotels")
-    return launches
+    return {"per_step": launches, "fused": fused_launches}
 
 
 def cross_timings(cross, dev, card: str) -> dict:
@@ -721,22 +1037,33 @@ def main() -> int:
             return fail(f"recommend{tuple(req)} differs from the golden response")
         swaps += s
     many = [golden["requests"][i] for i in golden["many"]]
-    for i, got in zip(golden["many"], engine.recommend_many(many)):
-        s = compare_response(json.loads(json.dumps(got)), golden["responses"][i], golden["logits"][i])
-        if s is None:
-            return fail(f"recommend_many differs from the golden response {i}")
-        swaps += s
+    for batch, pad_to in ((many, None), (many[:5], 8)):
+        for i, got in zip(golden["many"], engine.recommend_many(batch, pad_to=pad_to)):
+            s = compare_response(json.loads(json.dumps(got)), golden["responses"][i], golden["logits"][i])
+            if s is None:
+                return fail(f"recommend_many(K={len(batch)}, pad_to={pad_to}) differs from the golden response {i}")
+            swaps += s
     for item, n, want in golden["similar"]:
         if engine.similar_items(item, n) != want:
             return fail(f"similar_items({item}, {n}) differs from the golden answer")
     torch.cuda.synchronize()
     path_launches = tower.tower_eval.launches
     n_req = len(golden["requests"])
-    print(f"[serve] engine built in {build_s:.2f} s; {n_req} recommend + 1 recommend_many(K={len(many)}) "
-          f"+ {len(golden['similar'])} similar_items match the golden file; tie swaps: {swaps}")
-    print(f"[serve] tower_eval launches on the serving path: {path_launches}")
-    if path_launches <= 0:
-        return fail("the serving path never launched the tower kernel")
+    buckets = sorted(engine._buckets)
+    print(f"[serve] engine built in {build_s:.2f} s; {n_req} recommend + recommend_many(K={len(many)}) + "
+          f"recommend_many(K=5, pad_to=8) + {len(golden['similar'])} similar_items match the golden file; "
+          f"tie swaps: {swaps}")
+    print(f"[serve] tower_eval launches on the serving path: {path_launches} (an eager run and a capture for each "
+          f"batch bucket {buckets}; the {n_req + 2} requests and batches ran as graph replays)")
+    if path_launches <= 0 or buckets != [1, 8]:
+        return fail("the serving path did not run the tower kernel through a graph per bucket")
+    # The graphed path against the same launches run eagerly, request by request.
+    differ = [req for req in golden["requests"] if engine._recommend_eager([req]) != [engine.recommend(*req)]]
+    differ += [b for b in (many, many[:5])
+               if engine._recommend_eager(b, pad_to=8) != engine.recommend_many(b, pad_to=8)]
+    if differ:
+        return fail(f"the graphed serving path differs from the eager one for {differ[:3]}")
+    print(f"[serve] graphed JSON equals the eager path's for all {n_req} requests and 2 padded batches")
 
     # ---- phase 5: timings -------------------------------------------------
     kernels = []
@@ -768,44 +1095,7 @@ def main() -> int:
               f"{plain_ms:.4f} ms, cuBLAS products {library_ms:.4f} ms (device {library_device_ms:.4f} ms), "
               f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) on {card}")
 
-    reqs = golden["requests"]
-    lat = []
-    for i in range(3 * len(reqs) // 2):
-        t0 = time.perf_counter()
-        engine.recommend(*reqs[i % len(reqs)])
-        lat.append(time.perf_counter() - t0)
-    lat_many = []
-    for i in range(30):
-        batch = [reqs[(8 * i + j) % len(reqs)] for j in range(8)]
-        t0 = time.perf_counter()
-        engine.recommend_many(batch)
-        lat_many.append(time.perf_counter() - t0)
-    p50 = statistics.median(lat[10:]) * 1e3
-    p50_many = statistics.median(lat_many[3:]) * 1e3
-    print(f"[time] recommend p50 {p50:.3f} ms/request; recommend_many(K=8) p50 "
-          f"{p50_many:.3f} ms/batch = {p50_many / 8:.3f} ms/request (host clock) on {card}")
-
-    try:  # the profiler is a diagnostic, not a phase: its absence fails nothing
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for req in reqs[:20]:
-                engine.recommend(*req)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        avg = prof.key_averages()
-        kernels_dev = device_events(avg)
-        device_ms = sum(e.self_device_time_total for e in kernels_dev) / 1e3
-        (OUT_DIR / "chip_smoke_profile.txt").write_text(
-            avg.table(sort_by="self_device_time_total", row_limit=40)
-        )
-        print(f"[profile] 20 recommend calls: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
-              f"({100 * device_ms / wall_ms:.1f}% of wall, profiler on) on {card}")
-        for e in sorted(kernels_dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-            print(f"[profile]   {e.key[:70]:70s} self {e.self_device_time_total / 1e3:8.3f} ms calls {e.count}")
-    except Exception as e:  # noqa: BLE001
-        print(f"[profile] not measured: {type(e).__name__}: {e}")
+    serve_timings(engine, golden["requests"], card)
 
     # ---- phase 6: training, parity run against the JAX trainer ----------
     from hhrs_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -840,7 +1130,8 @@ def main() -> int:
         r = cross_rows[(kind, 512)]
         kernels.append({
             "name": f"cross_stack_{kind}", "route": "cuda", "source": "hhrs_tpu_torch/csrc/cross_stack.cu",
-            "replaces": replaces, "launches": cross_launches[kind], "max_abs_err": cross_err[kind],
+            "replaces": replaces, "launches": cross_launches["per_step"][kind],
+            "fused_epoch_launches": cross_launches["fused"][kind], "max_abs_err": cross_err[kind],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "by_batch": [cross_rows[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],

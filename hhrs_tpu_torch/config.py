@@ -77,7 +77,6 @@ class TrainConfig:
 _UNPORTED_TRAIN = (
     ("lazy_table_updates", False, "ROADMAP A7 (lazy sparse-row table updates)"),
     ("stream_slab_steps", 0, "ROADMAP A6c (out-of-core slab streaming)"),
-    ("fused_epoch", False, "ROADMAP A6c (one launch graph per epoch)"),
     ("mesh_resident_data", False, "ROADMAP A11 (multi-device training)"),
     ("moment_dtype", "float32", "ROADMAP A6c (bfloat16 Adam moments)"),
     ("rng_impl", "threefry2x32", "ROADMAP A6c (rng_impl: the port draws dropout from a torch.Generator)"),

@@ -253,28 +253,39 @@ def _capacity(device_index: int, d: int, backward: bool) -> int:
     return min(n, most)
 
 
-_scratch: dict = {}
+class BackwardScratch(NamedTuple):
+    """The backward's clusters' partial sums and its ticket counter (at 0
+    between launches: every launch leaves it so)."""
+
+    partial: torch.Tensor
+    counter: torch.Tensor
 
 
-def _backward_scratch(device_index: int, stream: int) -> tuple:
-    """``(partial, counter)`` of the backward on one device and stream: the
-    clusters' partial sums and the ticket counter, allocated once at the
-    largest plan's size with the counter at 0. Every launch leaves it at 0,
-    so a CUDA graph captured on the stream replays correctly; two streams
-    never share them. Graphs captured on one stream share its scratch, so
-    they must not replay at the same time. The scratch must exist before a
-    capture (a backward on the capture stream first): allocated during one,
-    it would come from the graph's private pool and its zeroing would join
-    the graph."""
+def _new_scratch(device_index: int) -> BackwardScratch:
+    """A backward scratch on a CUDA device, at the largest plan's size with
+    the counter at 0."""
+    k, clusters = _kernels(), plan_capacity(_sm_count(device_index), True) // CLUSTER
+    dev = torch.device("cuda", device_index)
+    return BackwardScratch(torch.empty(clusters * 2 * k.max_layers * k.max_dim, dtype=torch.float32, device=dev),
+                           torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+_scratch: dict = {}  # (device, stream) -> the eager launches' scratch
+
+
+def _backward_scratch(device_index: int, stream: int) -> BackwardScratch:
+    """The scratch of a backward launched on ``stream``. Eager launches on
+    one stream run in order, so they share one, allocated at the stream's
+    first backward. Inside a CUDA-graph capture every backward allocates a
+    scratch of its own there, from the graph's private memory pool: the
+    graph owns it as long as it lives, and its counter is zeroed by a
+    memset the graph replays (the kernel leaves it at 0 in any case). Two
+    graphs, even of one capture stream, never share one."""
+    if torch.cuda.is_current_stream_capturing():
+        return _new_scratch(device_index)
     key = (device_index, stream)
     if key not in _scratch:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the cross backward's scratch for this stream is allocated on its first "
-                               "eager call: run one backward on the capture stream before capturing")
-        k, clusters = _kernels(), plan_capacity(_sm_count(device_index), True) // CLUSTER
-        dev = torch.device("cuda", device_index)
-        _scratch[key] = (torch.empty(clusters * 2 * k.max_layers * k.max_dim, dtype=torch.float32, device=dev),
-                         torch.zeros(1, dtype=torch.int32, device=dev))
+        _scratch[key] = _new_scratch(device_index)
     return _scratch[key]
 
 
@@ -409,15 +420,18 @@ class CrossStackFn(torch.autograd.Function):
     """The cross stack under autograd: the forward saves ``w, b, x0`` only
     and the backward recomputes the layer inputs. CUDA tensors go through
     the kernels, checked here once (a misaligned ``x0`` or ``dy`` is
-    copied), CPU tensors through the plain versions."""
+    copied), CPU tensors through the plain versions. The backward is
+    :class:`CrossBackwardFn`, itself differentiable, so a double backward
+    (``create_graph=True``) is exact: the grad of grad of the jnp stack
+    whose VJP ``cross_stack_pallas`` takes."""
 
     @staticmethod
     def forward(ctx, w, b, x0, variant):
         ctx.variant = variant
         if x0.is_cuda:
-            x0 = _aligned(x0)
-            _check_inputs({"x0": x0, "w": w, "b": b}, variant)
-            y = _forward(w, b, x0, variant == "canonical", None)
+            xa = _aligned(x0)
+            _check_inputs({"x0": xa, "w": w, "b": b}, variant)
+            y = _forward(w, b, xa, variant == "canonical", None)
         else:
             y = cross_stack_apply(w, b, x0, variant)
         ctx.save_for_backward(w, b, x0)
@@ -426,16 +440,42 @@ class CrossStackFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         w, b, x0 = ctx.saved_tensors
-        dy = dy.contiguous()  # the output's gradient may be a strided slice
-        if dy.is_cuda:
-            dy = _aligned(dy)
-            if dy.dtype != torch.float32 or dy.shape != x0.shape or dy.device != x0.device:
-                raise ValueError(f"dy must be float32 {tuple(x0.shape)} on {x0.device}, got "
-                                 f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
-            dx0, dw, db = _backward(w, b, x0, dy, ctx.variant == "canonical", None)
-        else:
-            dx0, dw, db = cross_stack_backward_ref(w, b, x0, dy, ctx.variant)
+        dx0, dw, db = CrossBackwardFn.apply(w, b, x0, dy, ctx.variant)
         return dw, db, dx0, None
+
+
+class CrossBackwardFn(torch.autograd.Function):
+    """The cross stack's backward ``(w, b, x0, dy) → (dx0, dw, db)`` as a
+    function autograd can differentiate again. Its values come from the
+    backward kernel on CUDA tensors (from :func:`cross_stack_backward_ref`
+    on CPU tensors); its own backward differentiates the closed form
+    :func:`cross_stack_backward_ref` in plain ops, with a graph of its own
+    when asked, so derivatives of every order are exact. Only a second
+    derivative runs plain ops on the card; the first-order values always
+    come from the kernel."""
+
+    @staticmethod
+    def forward(ctx, w, b, x0, dy, variant):
+        ctx.variant = variant
+        ctx.save_for_backward(w, b, x0, dy)
+        dy = dy.contiguous()  # the output's gradient may be a strided slice
+        if not dy.is_cuda:
+            return cross_stack_backward_ref(w, b, x0, dy, variant)
+        dy = _aligned(dy)
+        if dy.dtype != torch.float32 or dy.shape != x0.shape or dy.device != x0.device:
+            raise ValueError(f"dy must be float32 {tuple(x0.shape)} on {x0.device}, got "
+                             f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+        return _backward(w, b, _aligned(x0), dy, variant == "canonical", None)
+
+    @staticmethod
+    def backward(ctx, gdx0, gdw, gdb):
+        create = torch.is_grad_enabled()  # asked for a graph of this backward too
+        with torch.enable_grad():  # the inputs that carry a graph keep it: a third order stays exact
+            ins = [t if t.requires_grad else t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = cross_stack_backward_ref(*ins, ctx.variant)
+            grads = torch.autograd.grad(outs, ins, (gdx0, gdw, gdb), create_graph=create, allow_unused=True,
+                                        materialize_grads=True)
+        return (*grads, None)
 
 
 def cross_stack(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str) -> torch.Tensor:

@@ -3,10 +3,20 @@
 Counterpart of ``hhrs_tpu/serve/engine.py::RecommendationEngine`` on
 PyTorch. Request-independent state (candidate masks and the kNN table,
 the serve-item feature matrix, normalized item embeddings, the model) is
-built once on the engine's device. A batch of K requests then runs as
-tensor work with a leading batch dimension — the JAX engine's ``vmap`` —
-and ends in ONE device→host copy of a packed ``order | mmr | count``
-int64 vector per request; the host only translates ids and assembles JSON.
+built once on the engine's device. A batch of K requests is padded to a
+bucket of Kp rows (a power of two, or ``pad_to``; pad rows copy the last
+request), goes to the device in one upload of a packed ``sources | city |
+user | λ`` int32 matrix, runs as tensor work with a leading batch
+dimension — the JAX engine's ``vmap`` — and ends in ONE device→host copy of
+a packed ``order | mmr | count`` int64 vector per request; the host only
+translates ids and assembles JSON for the K real requests.
+
+On a card every bucket runs as a CUDA graph, the counterpart of the JAX
+engine's ``jit``: captured at the bucket's first request (or by
+``warmup(batch_pad=)``) after one eager run on the engine's capture
+stream (no other owner captures there: :func:`device.capture_stream`), all
+buckets in one memory pool, then one replay a batch, one at a time. The
+CPU runs the same code without a graph.
 
 Ranking covers only the request city's item rows by default (exact:
 candidates are a subset of the city's items by construction); with
@@ -22,6 +32,8 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,7 +44,7 @@ from hhrs_tpu_torch.data.features import add_engineered_features
 from hhrs_tpu_torch.data.ingest import load_friendships_csv, load_reviews_csv
 from hhrs_tpu_torch.data.preprocess import encode_item_features
 from hhrs_tpu_torch.data.table import first_occurrence, isna, take
-from hhrs_tpu_torch.device import resolve_device
+from hhrs_tpu_torch.device import capture_stream, resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax
 from hhrs_tpu_torch.ops.mmr import NEG_INF, mmr_rerank
 from hhrs_tpu_torch.ops.tower import build_x0, fold_eval_params, tower_eval
@@ -52,6 +64,23 @@ _NOT_PORTED = {
     "mesh": "ROADMAP A11 (multi-device serving)",
     "retrieval_embeddings_path": "ROADMAP A10 (two-tower retriever)",
 }
+
+
+class _Bucket(NamedTuple):
+    """A batch size's CUDA graph and its static buffers."""
+
+    graph: torch.cuda.CUDAGraph
+    host: torch.Tensor  # pinned int32 [Kp, S + 3], the upload's source
+    inputs: torch.Tensor  # int32 [Kp, S + 3] on the card, the graph's input
+    out: torch.Tensor  # int64 [Kp, W + top_k + 1] on the card, the graph's output
+
+
+def bucket_size(K: int, pad_to: int | None = None) -> int:
+    """Rows a batch of ``K >= 1`` requests runs at: ``pad_to`` when it is
+    at least K, else the next power of two."""
+    if pad_to is not None and pad_to >= K:
+        return pad_to
+    return 1 << (K - 1).bit_length()
 
 
 def _reject_unported(options: dict) -> None:
@@ -138,6 +167,10 @@ class RecommendationEngine:
         self._city_bounded = bool(city_bounded and W < self.gen.M)
         self._order_width = W if self._city_bounded else self.gen.M
         self._all_rows = torch.arange(self.gen.M, dtype=torch.int64, device=dev)
+        self._buckets: dict = {}  # Kp -> _Bucket (on a card)
+        self._graph_lock = threading.Lock()  # one replay at a time: buckets share buffers and a pool
+        self._graph_pool = None
+        self._graph_stream = capture_stream(self, dev) if dev.type == "cuda" else None
 
     # ------------------------------------------------------------------ #
 
@@ -220,32 +253,78 @@ class RecommendationEngine:
                   lambda_param: float = 0.7) -> dict:
         return self.recommend_many([(user_id, city, mode, lambda_param)])[0]
 
-    def recommend_many(self, requests: list) -> list:
+    def recommend_many(self, requests: list, pad_to: int | None = None) -> list:
         """``[(user_id, city, mode, lambda_param), …]`` → responses. The batch
-        runs as one set of launches with K leading, and one device→host copy."""
+        runs at :func:`bucket_size` rows with one upload and one device→host
+        copy; on a card as one replay of the bucket's CUDA graph."""
+        return self._recommend(requests, pad_to, graphed=self.device.type == "cuda")
+
+    def _recommend_eager(self, requests: list, pad_to: int | None = None) -> list:
+        """:meth:`recommend_many` with the same launches run one by one, no
+        graph: the reference that the graphed path is held to."""
+        return self._recommend(requests, pad_to, graphed=False)
+
+    def _recommend(self, requests: list, pad_to: int | None, graphed: bool) -> list:
         K = len(requests)
         if K == 0:
             return []
-        sources = np.empty((K, self.gen.max_sources), np.int64)
-        city_i = np.empty(K, np.int64)
-        user_i = np.empty(K, np.int64)
-        lam = np.empty(K, np.float32)
-        for k, (u, c, mode, l) in enumerate(requests):
-            sources[k], city_i[k], user_i[k] = self._host_inputs(u, c, mode)
-            lam[k] = l
-        dev = self.device
-        sources_t = torch.from_numpy(sources).to(dev)
-        city_t = torch.from_numpy(city_i).to(dev)
-        user_t = torch.from_numpy(user_i).to(dev)
-        lam_t = torch.from_numpy(lam).to(dev)
-        cand, _neg, count = self.gen.generate_batch(sources_t, city_t)
-        if self._city_bounded:
-            rows = self.gen.dev["city_rows"][torch.clamp(city_t, max=len(self.gen.universe.cities))]
-            packed = self._rank_rows(cand, count, user_t, lam_t, rows)
+        S = self.gen.max_sources
+        host = np.empty((bucket_size(K, pad_to), S + 3), np.int32)
+        for k, (u, c, mode, _l) in enumerate(requests):
+            host[k, :S], host[k, S], host[k, S + 1] = self._host_inputs(u, c, mode)
+        host[:K, S + 2] = np.asarray([r[3] for r in requests], np.float32).view(np.int32)
+        host[K:] = host[K - 1]  # pad rows copy the last real row
+        if graphed:
+            packed = self._replay(host)
         else:
-            packed = self._rank_full(cand, count, user_t, lam_t)
-        packed = packed.cpu().numpy()  # the one device→host copy
+            packed = self._device_rank(torch.from_numpy(host).to(self.device)).cpu()  # the one copy back
+        packed = packed.numpy()
         return [self._assemble(u, l, packed[k]) for k, (u, _c, _m, l) in enumerate(requests)]
+
+    @torch.no_grad()
+    def _device_rank(self, inputs: torch.Tensor) -> torch.Tensor:
+        """The device work of a batch: the packed int32 ``[Kp, S + 3]``
+        inputs → the packed int64 ``[Kp, W + top_k + 1]`` output."""
+        S = self.gen.max_sources
+        sources, city, user = inputs[:, :S].long(), inputs[:, S].long(), inputs[:, S + 1].long()
+        lam = inputs.view(torch.float32)[:, S + 2]
+        cand, _neg, count = self.gen.generate_batch(sources, city)
+        if self._city_bounded:
+            rows = self.gen.dev["city_rows"][torch.clamp(city, max=len(self.gen.universe.cities))]
+            return self._rank_rows(cand, count, user, lam, rows)
+        return self._rank_full(cand, count, user, lam)
+
+    def _replay(self, host: np.ndarray) -> torch.Tensor:
+        """Run ``host`` through its bucket's CUDA graph (captured on first
+        use) → the packed output on the host."""
+        with self._graph_lock:
+            b = self._buckets.get(host.shape[0]) or self._capture(host)
+            b.host.numpy()[...] = host
+            b.inputs.copy_(b.host, non_blocking=True)
+            b.graph.replay()
+            return b.out.cpu()  # the one device→host copy; it waits for the replay
+
+    def _capture(self, host: np.ndarray) -> _Bucket:
+        """Capture the bucket of ``host``'s row count. One eager run on the
+        capture stream first sets up what a capture cannot: the tower
+        kernel's launch plan for Kp·W rows (timed with events and a
+        synchronize at its first use), the kernels' libraries, cuBLAS's
+        workspace."""
+        stream, current = self._graph_stream, torch.cuda.current_stream(self.device)
+        inputs = torch.from_numpy(host).to(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self._device_rank(inputs)
+        current.wait_stream(stream)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+            out = self._device_rank(inputs)
+        b = _Bucket(graph, torch.empty(host.shape, dtype=torch.int32, pin_memory=True), inputs, out)
+        self._buckets[host.shape[0]] = b
+        log.info("captured the serving graph of a %d-request bucket", host.shape[0])
+        return b
 
     # ------------------------------------------------------------------ #
 
@@ -259,13 +338,17 @@ class RecommendationEngine:
         neighbours = idx[0, 1:].cpu().tolist()  # drop the first hit (self)
         return [int(self._reverse_item_map[t]) for t in neighbours if t in self._reverse_item_map]
 
-    def warmup(self) -> None:
-        """Run one request of each kind before traffic (builds the kernel)."""
+    def warmup(self, batch_pad: int | None = None) -> None:
+        """Serve one request of each kind before traffic (builds the kernels
+        and, on a card, captures the one-request graph); ``batch_pad`` also
+        runs, and captures, the bucket of that many rows."""
         uni = self.gen.universe
         if uni.n_users and uni.cities:
             u, c = int(uni.user_ids[0]), uni.cities[0]
             self.recommend(u, c, "friends", 0.7)
-            self.recommend_many([(u, c, "personal", 1.0), (u, c, "friends", 0.7)])
+            self.recommend(u, c, "personal", 1.0)
+            if batch_pad:
+                self.recommend_many([(u, c, "friends", 0.7)], pad_to=batch_pad)
 
     @classmethod
     def from_dirs(cls, artifacts_dir: str, data_dir: str, retrieval_cfg=None,

@@ -6,9 +6,12 @@ ingest the reviews CSV, noise-filter, add the engineered features, fit the
 directory that both packages load::
 
     python -m hhrs_tpu_torch.train.cli --data data --out artifacts \\
-        [--epochs N] [--device cuda|cpu] [section.field=value ...]
+        [--epochs N] [--device cuda|cpu] [--checkpoint-dir DIR] \\
+        [section.field=value ...]
 
-The device defaults to ``cuda`` and the run fails without a card.
+The device defaults to ``cuda`` and the run fails without a card. With
+``--checkpoint-dir`` the loop state is saved after every epoch and a rerun
+of the same command resumes from the last saved epoch.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="artifacts", help="artifact output dir")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--checkpoint-dir", default=None, help="checkpoint dir (resume-from-latest)")
     p.add_argument("overrides", nargs="*", help="section.field=value config overrides")
     args = p.parse_args(argv)
 
@@ -72,7 +76,8 @@ def main(argv=None) -> int:
     log.info("training DCN-R: %d users, %d items, cat_dims=%s, %d train / %d val",
              dims.n_users, dims.n_items, dict(dims.cat_dims), splits.n_train, splits.n_val)
 
-    result = train_dcn(splits, dims, cfg.model, cfg.train, device=args.device)
+    result = train_dcn(splits, dims, cfg.model, cfg.train, checkpoint_dir=args.checkpoint_dir,
+                       device=args.device)
     m = result.final_metrics
     log.info("Final Validation LogLoss: %.4f", m["val_logloss"])
     log.info("Final Validation AUC:     %.4f", m["val_auc"])

@@ -10,8 +10,11 @@
 Both run the ``foreach`` implementation (one multi-tensor launch per
 update stage); the ``fused`` one is not used. The learning rate lives in
 ``param_groups``: :func:`set_learning_rate` writes it, so a plateau decay
-needs nothing rebuilt. The JAX package leaves the optimizer to XLA, with no
-Pallas kernel, so ``torch.optim`` is its counterpart.
+needs nothing rebuilt. ``capturable=True`` builds the form a CUDA graph can
+replay: the step counts and the learning rate are tensors on the card (the
+bias corrections are computed there), and the LR is written in place.
+The JAX package leaves the optimizer to XLA, with no Pallas kernel, so
+``torch.optim`` is its counterpart.
 """
 
 from __future__ import annotations
@@ -19,20 +22,27 @@ from __future__ import annotations
 import torch
 
 
-def make_optimizer(name: str, params, lr: float, weight_decay: float) -> torch.optim.Optimizer:
+def make_optimizer(name: str, params, lr: float, weight_decay: float,
+                   capturable_on: torch.device | None = None) -> torch.optim.Optimizer:
+    """``capturable_on``: a CUDA device whose parameters these are, for the
+    CUDA-graph form (LR tensor there, ``capturable=True``)."""
     name = name.lower()
-    if name == "adamw":
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=weight_decay, foreach=True)
-    if name == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=weight_decay, foreach=True)
-    raise ValueError(f"unknown optimizer {name!r}")
+    if name not in ("adamw", "adam"):
+        raise ValueError(f"unknown optimizer {name!r}")
+    kind = torch.optim.AdamW if name == "adamw" else torch.optim.Adam
+    extra = {}
+    if capturable_on is not None:
+        extra = dict(lr=torch.tensor(lr, dtype=torch.float32, device=capturable_on), capturable=True)
+    return kind(params, **{"lr": lr, "betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": weight_decay,
+                           "foreach": True, **extra})
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)  # in place: a captured graph reads this tensor
+        else:
+            group["lr"] = lr
 
 
 def get_learning_rate(opt: torch.optim.Optimizer) -> float:

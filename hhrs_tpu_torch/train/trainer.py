@@ -18,10 +18,16 @@ best state by val loss, and a per-epoch prune hook for HPO. Mechanics:
 * dropout draws from one ``torch.Generator`` on the device, seeded from
   ``train_cfg.seed``. It cannot give JAX's bits, so runs meant to match the
   JAX trainer use dropout 0;
+* ``train.fused_epoch`` runs each epoch as one function over static
+  device buffers (:class:`FusedEpoch`, the JAX trainer's ``lax.scan``
+  epoch): on a card one CUDA-graph replay an epoch, with the same batches
+  and loss as the per-step path; eval, plateau, early stopping and the
+  best state stay host decisions between epochs;
+* ``checkpoint_dir`` saves the whole loop state after every epoch
+  (``train/checkpoint.py``) and a rerun resumes from the last one;
 * the best state is a copy on the device; the final metrics are computed
   on it. ``examples_per_s`` is the median per-epoch rate after the first
-  epoch; ``step_ms`` holds the per-step times of those epochs (CUDA events
-  on a card, the host clock on the CPU).
+  epoch this process ran.
 """
 
 from __future__ import annotations
@@ -37,10 +43,11 @@ import torch
 
 from hhrs_tpu_torch.config import ModelConfig, TrainConfig, unported_train_options
 from hhrs_tpu_torch.data.preprocess import DatasetSplits
-from hhrs_tpu_torch.device import resolve_device
+from hhrs_tpu_torch.device import capture_stream, resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax, jax_from_dcnr
 from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
 from hhrs_tpu_torch.retrieval.similarity import require_full_f32_matmul
+from hhrs_tpu_torch.train.checkpoint import TrainCheckpointer
 from hhrs_tpu_torch.train.metrics import auc_score, bce_with_logits, recall_at_k, rmse_of_probs
 from hhrs_tpu_torch.train.optimizers import PlateauScheduler, make_optimizer, set_learning_rate
 
@@ -57,6 +64,10 @@ class TrainResult:
     best_epoch: int = -1
     final_metrics: dict = field(default_factory=dict)
     examples_per_s: float = 0.0
+    # After the first epoch this process ran: per-step times (CUDA events on
+    # a card, the host clock on the CPU); under fused_epoch one entry an
+    # epoch, the epoch's time divided by its steps (a step has no time of
+    # its own inside one graph replay).
     step_ms: list = field(default_factory=list)
     pruned: bool = False
 
@@ -99,6 +110,69 @@ def train_step(model: DCNR, opt: torch.optim.Optimizer, batch: dict,
     return loss.detach()
 
 
+class FusedEpoch:
+    """One epoch of training steps as one function over static device
+    buffers (counterpart of ``hhrs_tpu/train/trainer.py::make_epoch_fn``):
+    the permutation ``perm [steps·B]``, the per-step losses ``losses
+    [steps]`` and the resident train split; step ``s`` trains on
+    ``perm[s·B:(s+1)·B]``, so the batches are the per-step path's.
+
+    On the CPU the function runs as it stands. On a card its first run is
+    eager, on a capture stream of its own (:func:`device.capture_stream`),
+    and warms up what a capture cannot create (the optimizer's state, the
+    cross kernels' plans, cuBLAS's workspace); then the function is
+    captured there into one CUDA graph, and every later epoch is one
+    replay. A capture that fails raises. Dropout draws from ``generator``,
+    which the graph advances on every replay; the optimizer's LR is a
+    tensor the graph reads, so a plateau decay between epochs reaches it."""
+
+    def __init__(self, model: DCNR, opt: torch.optim.Optimizer, data: dict, batch_size: int,
+                 steps: int, generator: torch.Generator):
+        self.model, self.opt, self.data, self.generator = model, opt, data, generator
+        self.batch_size, self.steps = batch_size, steps
+        dev = data["y"].device
+        self.perm = torch.zeros(steps * batch_size, dtype=torch.int64, device=dev)
+        self.losses = torch.zeros(steps, device=dev)
+        self.graph = None
+        if dev.type == "cuda":
+            self.stream = capture_stream(self, dev)
+
+    def _epoch(self) -> None:
+        B = self.batch_size
+        for s in range(self.steps):
+            idx = self.perm[s * B:(s + 1) * B]
+            loss = train_step(self.model, self.opt, {k: v[idx] for k, v in self.data.items()},
+                              self.generator)
+            self.losses[s].copy_(loss)
+
+    def run(self, perm: np.ndarray) -> torch.Tensor:
+        """Train one epoch on the batches of ``perm`` (host, ``[steps·B]``)
+        → the mean loss, a device scalar. On a card the first run also
+        captures the graph."""
+        self.perm.copy_(torch.from_numpy(np.ascontiguousarray(perm, dtype=np.int64)))
+        self.model.train()
+        if self.perm.device.type != "cuda":
+            self._epoch()
+        elif self.graph is not None:
+            self.graph.replay()
+        else:
+            side = self.stream
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._epoch()
+            torch.cuda.current_stream().wait_stream(side)
+            self._capture()
+        return self.losses.mean()
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)  # each replay draws new dropout masks
+        # Recording runs nothing: the state the last epoch left stays as it is.
+        with torch.cuda.graph(graph, stream=self.stream):
+            self._epoch()
+        self.graph = graph
+
+
 def _new_model(dims: ModelDims, model_cfg: ModelConfig, seed: int, init_state,
                device: torch.device) -> DCNR:
     if init_state is not None:
@@ -124,13 +198,17 @@ def train_dcn(
     ``report_fn(epoch, val_loss) -> should_prune`` is the HPO pruning hook.
     ``init_state=(params, bn_state)`` (JAX-layout numpy trees) replaces the
     fresh initialization; the optimizer moments start at zero and the
-    shuffle and dropout streams are those of a fresh run. ``device``
-    defaults to ``cuda`` and raises without a card; pass ``"cpu"`` to
-    train on the CPU."""
+    shuffle and dropout streams are those of a fresh run. With
+    ``checkpoint_dir`` the whole loop state is saved after every epoch and
+    a rerun resumes from the last saved epoch; a run that had finished,
+    early-stopped or been pruned trains no further. ``device`` defaults to
+    ``cuda`` and raises without a card; pass ``"cpu"`` to train on the CPU."""
     if mesh is not None or explicit_exchange:
         raise NotImplementedError("mesh training is not ported yet: ROADMAP A11 (multi-device training)")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir is not ported yet: ROADMAP A6b (checkpoint and resume)")
+    if train_cfg.fused_epoch and train_cfg.stream_slab_steps:
+        raise ValueError("train.fused_epoch and train.stream_slab_steps are mutually exclusive: a fused epoch "
+                         "scans a device-resident dataset, slab streaming exists so the dataset is NOT "
+                         "device-resident")
     unported_train_options(train_cfg)
     if train_cfg.eval_every < 1:
         raise ValueError(f"train.eval_every must be >= 1, got {train_cfg.eval_every}")
@@ -138,8 +216,9 @@ def train_dcn(
     require_full_f32_matmul(dev)
 
     model = _new_model(dims, model_cfg, train_cfg.seed, init_state, dev)
+    graphed = train_cfg.fused_epoch and dev.type == "cuda"
     opt = make_optimizer(train_cfg.optimizer, model.parameters(), train_cfg.lr,
-                         train_cfg.weight_decay)
+                         train_cfg.weight_decay, capturable_on=dev if graphed else None)
     dropout_gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
     train_data = split_tensors(splits, "train", dev)
     val_data = split_tensors(splits, "val", dev)
@@ -157,28 +236,60 @@ def train_dcn(
     best_state = None
     epochs_no_improve = 0
     shuffle_rng = np.random.default_rng(train_cfg.seed)
+    start_epoch = 0
+
+    ckpt = TrainCheckpointer(checkpoint_dir) if checkpoint_dir is not None else None
+    if ckpt is not None and ckpt.latest_epoch() is not None:
+        state, meta = ckpt.restore(ckpt.latest_epoch(), dev)
+        model.load_state_dict(state["model"])
+        opt.load_state_dict(state["optimizer"])
+        dropout_gen.set_state(state["dropout_generator"].cpu())
+        best_state = state["best"]
+        start_epoch = meta["epoch"] + 1
+        result.history = meta["history"]
+        result.best_val_loss = meta["best_val_loss"]
+        result.best_epoch = meta["best_epoch"]
+        result.pruned = meta["pruned"]
+        epochs_no_improve = meta["epochs_no_improve"]
+        plateau.lr, plateau.best, plateau.num_bad = (meta["plateau"][k] for k in ("lr", "best", "num_bad"))
+        set_learning_rate(opt, plateau.lr)
+        shuffle_rng.bit_generator.state = meta["shuffle_rng_state"]
+        log.info("resumed from checkpoint epoch %d", meta["epoch"])
+        # The loop checks its stop conditions at the end of an epoch: a run
+        # that had already stopped must not train again.
+        if epochs_no_improve >= train_cfg.early_stop_patience or result.pruned:
+            log.info("resumed run had already stopped; skipping the training loop")
+            start_epoch = train_cfg.n_epochs
+
+    fused = FusedEpoch(model, opt, train_data, B, steps_per_epoch, dropout_gen) if train_cfg.fused_epoch else None
     cur_lr = plateau.lr
     epoch_times: list = []
     timed = dev.type == "cuda"
+    epochs_run = 0
 
-    for epoch in range(train_cfg.n_epochs):
+    for epoch in range(start_epoch, train_cfg.n_epochs):
         t_epoch = time.perf_counter()
+        epochs_run += 1
         perm_host = shuffle_rng.permutation(n_train)
         if perm_len > n_train:
             perm_host = np.resize(perm_host, perm_len)  # wrap-pad the ragged tail
-        perm = torch.as_tensor(perm_host[:perm_len], dtype=torch.int64, device=dev)
-        model.train()
-        losses = []
-        marks = []  # per-step timestamps: CUDA events on a card, host seconds on the CPU
-        for s in range(steps_per_epoch):
-            if epoch > 0:
-                marks.append(_mark(timed))
-            idx = perm[s * B:(s + 1) * B]
-            losses.append(train_step(model, opt, {k: v[idx] for k, v in train_data.items()},
-                                     dropout_gen))
-        if epoch > 0:
+        perm_host = perm_host[:perm_len]
+        marks = []  # timestamps: CUDA events on a card, host seconds on the CPU
+        if fused is not None:
             marks.append(_mark(timed))
-        mean_loss = torch.stack(losses).mean()
+            mean_loss = fused.run(perm_host)
+            marks.append(_mark(timed))
+        else:
+            perm = torch.as_tensor(perm_host, dtype=torch.int64, device=dev)
+            model.train()
+            losses = []
+            for s in range(steps_per_epoch):
+                marks.append(_mark(timed))
+                idx = perm[s * B:(s + 1) * B]
+                losses.append(train_step(model, opt, {k: v[idx] for k, v in train_data.items()},
+                                         dropout_gen))
+            marks.append(_mark(timed))
+            mean_loss = torch.stack(losses).mean()
 
         is_eval = (epoch + 1) % train_cfg.eval_every == 0 or epoch + 1 == train_cfg.n_epochs
         pruned_now = False
@@ -200,15 +311,34 @@ def train_dcn(
                 best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
             else:
                 epochs_no_improve += 1
+            # before the save: a run resumed after a prune must see it and train no further
             pruned_now = report_fn is not None and report_fn(epoch, val_loss)
             result.pruned = result.pruned or pruned_now
 
-        if epoch > 0:
+        if ckpt is not None:
+            ckpt.save(epoch, {
+                "model": model.state_dict(),
+                "optimizer": opt.state_dict(),
+                "best": best_state,
+                "dropout_generator": dropout_gen.get_state(),
+            }, {
+                "epoch": epoch,
+                "history": result.history,
+                "best_val_loss": result.best_val_loss,
+                "best_epoch": result.best_epoch,
+                "pruned": result.pruned,
+                "epochs_no_improve": epochs_no_improve,
+                "plateau": {"lr": plateau.lr, "best": plateau.best, "num_bad": plateau.num_bad},
+                "shuffle_rng_state": shuffle_rng.bit_generator.state,
+            })
+
+        if epochs_run > 1:  # the first epoch a process runs warms up (and captures)
             if timed:
                 torch.cuda.synchronize(dev)
-                result.step_ms += [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+                ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
             else:
-                result.step_ms += [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+                ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+            result.step_ms += [ms[0] / steps_per_epoch] if fused is not None else ms
             epoch_times.append(time.perf_counter() - t_epoch)
         if pruned_now:
             log.info("trial pruned at epoch %d", epoch)

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from hhrs_tpu.ops.cross import cross_stack_apply as jax_cross_stack_apply
 from hhrs_tpu.ops.pallas.cross_kernel import cross_stack_pallas
 from hhrs_tpu_torch.config import ModelConfig
 from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
@@ -136,3 +137,73 @@ def test_launch_plan_covers_every_row_once_in_16_byte_copies(B, sm_count, backwa
     # the plan is a function of B and the card's capacity alone: the sum order of dw/db follows it
     assert list(inspect.signature(cross.cross_plan).parameters) == ["B", "blocks", "cluster"]
     assert cross.cross_plan.__wrapped__(B, blocks, cluster) == plan
+
+
+def hvp_inputs(B: int, d: int, L: int, seed: int):
+    """Inputs, an output weight ``c`` and a direction ``v`` over (w, b, x0)
+    for a Hessian-vector product."""
+    x0, w, b = _inputs(B, d, L, seed)
+    rng = np.random.default_rng(seed + 100)
+    c = rng.standard_normal(x0.shape).astype(np.float32)
+    v = [rng.standard_normal(a.shape).astype(np.float32) for a in (w, b, x0)]
+    return (w, b, x0), c, v
+
+
+def torch_hvp(fn, inputs, c, v, variant):
+    """Hessian of ``<fn(w, b, x0), c>`` times ``v``: the gradient of
+    <grad, v>, differentiating through the first backward."""
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    grads = torch.autograd.grad((fn(*leaves, variant) * c).sum(), leaves, create_graph=True)
+    return torch.autograd.grad(sum((g * d).sum() for g, d in zip(grads, v)), leaves, materialize_grads=True)
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("L", [1, 3])
+def test_double_backward_matches_jax_grad_of_grad(variant, L):
+    """A second derivative through CrossStackFn is exact: its Hessian-vector
+    product equals JAX's grad of grad through the jnp cross stack, the
+    function whose VJP ``cross_stack_pallas`` takes (its ``_bwd``), at d =
+    33, against the scale of the float64 product (each leaf's largest
+    entry). JAX itself refuses a grad of grad through ``cross_stack_pallas``
+    (the Pallas forward cannot be linearized), so the jnp stack is the
+    reference."""
+    (w, b, x0), c, v = hvp_inputs(64, 33, L, seed=L)
+
+    def loss(p, x):
+        return jnp.sum(jax_cross_stack_apply(p, x, variant) * c)
+
+    def grad_dot_v(p, x):
+        gp, gx = jax.grad(loss, argnums=(0, 1))(p, x)
+        return jnp.vdot(gp["w"], v[0]) + jnp.vdot(gp["b"], v[1]) + jnp.vdot(gx, v[2])
+
+    hp, hx = jax.grad(grad_dot_v, argnums=(0, 1))({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x0))
+    want = [np.array(a) for a in (hp["w"], hp["b"], hx)]
+
+    tin, tc, tv = [torch.from_numpy(a) for a in (w, b, x0)], torch.from_numpy(c), [torch.from_numpy(a) for a in v]
+    got = torch_hvp(cross.CrossStackFn.apply, tin, tc, tv, variant)
+    exact = torch_hvp(cross.cross_stack_apply, [t.double() for t in tin], tc.double(), [t.double() for t in tv],
+                      variant)
+    for name, g, ref, ex in zip(("w", "b", "x0"), got, want, exact):
+        scale = ex.abs().max().expand_as(ex)
+        cross.assert_close_to_scale(g, torch.from_numpy(ref), scale, **TOL, what=f"HVP {name} vs JAX")
+        cross.assert_close_to_scale(g, ex, scale, **TOL, what=f"HVP {name} vs float64")
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+def test_third_derivative_through_cross_fn_is_exact(variant):
+    """The backward's own backward keeps the graph of its inputs, so a third
+    derivative through CrossStackFn (float64 on the CPU, through
+    CrossBackwardFn as on the card) equals autograd's through the plain
+    stack, to float64 rounding."""
+    (w, b, x0), c, v = hvp_inputs(16, 9, 2, seed=5)
+    tin = [torch.from_numpy(a).double() for a in (w, b, x0)]
+    tc, tv = torch.from_numpy(c).double(), [torch.from_numpy(a).double() for a in v]
+
+    def third(fn):
+        leaves = [t.clone().requires_grad_() for t in tin]
+        grads = torch.autograd.grad((fn(*leaves, variant) * tc).sum(), leaves, create_graph=True)
+        hv = torch.autograd.grad(sum((g * d).sum() for g, d in zip(grads, tv)), leaves, create_graph=True)
+        return torch.autograd.grad(sum((h * d).sum() for h, d in zip(hv, tv)), leaves, materialize_grads=True)
+
+    for got, want in zip(third(cross.CrossStackFn.apply), third(cross.cross_stack_apply)):
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)

@@ -9,15 +9,21 @@ only torch and the port, so it also runs where JAX is absent::
 
 from __future__ import annotations
 
+import gc
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from hhrs_tpu_torch import device as device_module
 from hhrs_tpu_torch.config import ModelConfig, TrainConfig
+from hhrs_tpu_torch.device import capture_stream
 from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
 from hhrs_tpu_torch.ops import cross, tower
-from hhrs_tpu_torch.train.optimizers import make_optimizer
-from hhrs_tpu_torch.train.trainer import train_step
+from hhrs_tpu_torch.train.optimizers import make_optimizer, set_learning_rate
+from hhrs_tpu_torch.train.trainer import FusedEpoch, train_step
 
 DIMS = ModelDims(n_users=2000, n_items=600, cat_dims=(("city", 6), ("hotel_type", 5)),
                  n_num_features=11)
@@ -181,46 +187,190 @@ def test_cuda_cross_capacity_is_asked_of_the_card():
 
 @pytest.mark.cuda
 def test_cuda_cross_graph_replay_equals_eager_calls():
-    """Forward and backward captured in a CUDA graph and replayed twice give
-    the eager results bit for bit: the backward's tickets are back at 0
-    after every launch."""
+    """Forward and backward captured in a CUDA graph (the backward's scratch
+    allocated in the capture, from the graph's pool) and replayed give the
+    eager results bit for bit, also after the cache is emptied: the graph
+    owns its scratch, and the tickets are back at 0 after every launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     w, b, x0, dy = _cross_inputs(512, 113, 3, seed=4)
     want = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
     side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up on the capture stream: its scratch exists before capture
-        cross.cross_stack_backward(w, b, x0, dy, "code")
-    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         y = cross.cross_stack_forward(w, b, x0, "code")
         grads = cross.cross_stack_backward(w, b, x0, dy, "code")
-    for _ in range(2):
+    for _ in range(3):
         for t in (y, *grads):
             t.fill_(float("nan"))
+        torch.cuda.empty_cache()
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(g, e) for g, e in zip((y, *grads), want))
 
 
 @pytest.mark.cuda
-def test_cuda_cross_backward_refuses_a_capture_before_its_scratch_exists():
-    """A backward's first call on a stream allocates its scratch; inside a
-    capture that allocation would join the graph, so it raises instead."""
+def test_cuda_cross_backward_graphs_of_one_stream_replay_at_once():
+    """Two backward graphs captured on one stream each own a scratch, so
+    replayed at the same time on two streams (B = 8192: the launches
+    overlap) each gives its eager dx0/dw/db bit for bit, 20 times."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    w, b, x0, dy = _cross_inputs(64, 33, 2, seed=5)
-    cross.cross_stack_backward(w, b, x0, dy, "code")  # the device's plans and limits are known
-    side = torch.cuda.Stream()
-    cross._scratch.pop((x0.get_device(), side.cuda_stream), None)  # streams come from a pool
-    side.wait_stream(torch.cuda.current_stream())
+    cases = [_cross_inputs(8192, 113, 3, seed=s) for s in (8, 9)]
+    want = [cross.cross_stack_backward(w, b, x0, dy, "code") for w, b, x0, dy in cases]
+    capture, graphs = torch.cuda.Stream(), []
+    for w, b, x0, dy in cases:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            outs = cross.cross_stack_backward(w, b, x0, dy, "code")
+        graphs.append((graph, outs))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(20):
+        for (graph, outs), stream in zip(graphs, streams):
+            for t in outs:
+                t.fill_(float("nan"))
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        for stream in streams:
+            torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        for (_, outs), w in zip(graphs, want):
+            assert all(torch.equal(o, e) for o, e in zip(outs, w))
+
+
+def _backward_step(model, batch) -> None:
+    """One training step's forward and backward (no optimizer); nothing of
+    its autograd graph outlives the call, so the next backward's gradient
+    accumulators follow the stream it runs on."""
+    logits = model(batch["user"], batch["item"], batch["cat"], batch["num"])
+    torch.nn.functional.binary_cross_entropy_with_logits(logits, batch["y"]).backward()
+
+
+def _step_graph(model, batch, stream):
+    """Capture :func:`_backward_step` of ``model`` on ``stream``, after an
+    eager one there."""
+    def step():
+        _backward_step(model, batch)
+
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()
+    torch.cuda.current_stream().wait_stream(stream)
+    model.zero_grad(set_to_none=True)
     graph = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="before capturing"):
-        with torch.cuda.graph(graph, stream=side):
-            cross.cross_stack_backward(w, b, x0, dy, "code")
-    assert (x0.get_device(), side.cuda_stream) not in cross._scratch
+    with torch.cuda.graph(graph, stream=stream):
+        step()
+    return graph
+
+
+def _random_batch(B: int, g: torch.Generator) -> dict:
+    batch = {
+        "user": torch.randint(0, DIMS.n_users, (B,), generator=g),
+        "item": torch.randint(0, DIMS.n_items, (B,), generator=g),
+        "cat": torch.stack([torch.randint(0, 6, (B,), generator=g),
+                            torch.randint(0, 5, (B,), generator=g)], dim=1),
+        "num": torch.rand(B, 11, generator=g),
+        "y": (torch.rand(B, generator=g) < 0.4).float(),
+    }
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+HPO_R5_MODEL = ModelConfig(emb_dim=48, hidden_dim=320, n_cross_layers=3, n_res_blocks=3, dropout=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_two_step_graphs_replay_at_once():
+    """Two training-step graphs of two models (seeds 0 and 1), each
+    captured on its model's stream from device.capture_stream, replayed at
+    the same time on two other streams 20 times: every gradient of each
+    equals its eager step's, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    models, batches, want = [], [], []
+    for seed in (0, 1):
+        g = torch.Generator().manual_seed(seed)
+        model, batch = DCNR(DIMS, HPO_R5_MODEL, generator=g).cuda().train(), _random_batch(8192, g)
+        _backward_step(model, batch)
+        want.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+        models.append(model)
+        batches.append(batch)
+    graphs = [_step_graph(m, bt, capture_stream(m, torch.device("cuda"))) for m, bt in zip(models, batches)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(20):
+        for graph, stream in zip(graphs, streams):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        for stream in streams:
+            torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        assert [n for m, w in zip(models, want) for n, p in m.named_parameters() if not torch.equal(p.grad, w[n])] == []
+
+
+class _Owner:
+    pass
+
+
+@pytest.mark.cuda
+def test_cuda_capture_streams_are_never_shared():
+    """device.capture_stream gives no two live owners one stream, frees an
+    owner's stream when it is collected, and raises when every stream of
+    PyTorch's pool has a live owner; engines and fused epochs take theirs
+    from it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    owners, handles = [], set()
+    with pytest.raises(RuntimeError, match="captures for a live owner"):
+        for _ in range(200):
+            owners.append(_Owner())
+            handles.add(capture_stream(owners[-1], dev).cuda_stream)
+    assert len(handles) == len(owners) - 1  # the last claim found none free
+    freed = owners.pop(0)
+    index = torch.cuda.current_device()
+    stream = {h for h in handles if device_module._capture_owners[(index, h)]() is freed}
+    del freed
+    gc.collect()
+    assert capture_stream(_Owner(), dev).cuda_stream in stream
+    del owners
+    gc.collect()
+    g = torch.Generator().manual_seed(0)
+    model = DCNR(DIMS, HPO_R5_MODEL, generator=g).cuda().train()
+    data = _random_batch(1024, g)
+    fused = [FusedEpoch(model, make_optimizer("adamw", model.parameters(), 1e-3, 0.0, capturable_on=dev), data,
+                        512, 2, torch.Generator(device=dev).manual_seed(0)) for _ in range(2)]
+    assert fused[0].stream.cuda_stream != fused[1].stream.cuda_stream
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+def test_cuda_double_backward_is_exact(variant):
+    """create_graph=True through CrossStackFn on the card: the first-order
+    values come from one backward kernel launch, the second derivative
+    from the closed form, so a Hessian-vector product equals the float64
+    one; an ordinary backward launches the kernel too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, c = _cross_inputs(512, 113, 3, seed=6)
+    v = _cross_inputs(512, 113, 3, seed=7)[:3]
+
+    def hvp(fn, inputs, c, v):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        grads = torch.autograd.grad((fn(*leaves, variant) * c).sum(), leaves, create_graph=True)
+        return torch.autograd.grad(sum((g * d).sum() for g, d in zip(grads, v)), leaves,
+                                   materialize_grads=True)
+
+    before = cross.cross_stack_backward.launches
+    got = hvp(cross.CrossStackFn.apply, (w, b, x0), c, v)
+    assert cross.cross_stack_backward.launches == before + 1  # the first-order values: one kernel launch
+    exact = hvp(cross.cross_stack_apply, [t.double() for t in (w, b, x0)], c.double(), [t.double() for t in v])
+    for name, g, ex in zip(("w", "b", "x0"), got, exact):
+        cross.assert_close_to_scale(g, ex, ex.abs().max().expand_as(ex), **CROSS_TOL, what=f"HVP {name}")
+    leaves = [t.clone().requires_grad_() for t in (w, b, x0)]
+    (cross.CrossStackFn.apply(*leaves, variant) * c).sum().backward()
+    assert cross.cross_stack_backward.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -308,3 +458,122 @@ def test_cuda_training_steps_reduce_the_loss():
     losses = [float(train_step(model, opt, batch, None)) for _ in range(5)]
     assert (cross.cross_stack_forward.launches - before[0], cross.cross_stack_backward.launches - before[1]) == (5, 5)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+REPO = Path(__file__).resolve().parents[1]
+ARTIFACT = REPO / "benchmarks/results/hpo_r5/best"
+GOLDEN_SERVE = REPO / "hhrs_tpu_torch/testdata/serve_golden_hpo_r5.json"
+GOLDEN_TRAIN = REPO / "hhrs_tpu_torch/testdata/train_golden_hpo_r5.json"
+
+
+@pytest.mark.cuda
+def test_cuda_serving_graphs_equal_the_eager_path():
+    """Every request of the golden sweep, served through the buckets' CUDA
+    graphs, gives the eager path's JSON and the golden response (no tie
+    swaps); batches of 3 and 8 with and without pad_to do too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    golden = json.loads(GOLDEN_SERVE.read_text())
+    engine = RecommendationEngine.from_dirs(str(ARTIFACT), str(REPO / "data"), device="cuda")
+    engine.warmup(batch_pad=8)
+    assert set(engine._buckets) == {1, 8}
+    for req, want in zip(golden["requests"], golden["responses"]):
+        got = engine.recommend(*req)
+        assert got == engine._recommend_eager([req])[0], req
+        assert json.loads(json.dumps(got)) == want, req
+    for K, pad_to in ((3, None), (3, 8), (8, None), (8, 8)):
+        reqs = [golden["requests"][i] for i in golden["many"]][:K]
+        got = engine.recommend_many(reqs, pad_to=pad_to)
+        assert got == engine._recommend_eager(reqs, pad_to=pad_to)
+        assert json.loads(json.dumps(got)) == [golden["responses"][i] for i in golden["many"]][:K]
+    assert set(engine._buckets) == {1, 4, 8}
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_meets_the_golden_bars_and_repeats():
+    """train.fused_epoch on the card (one graph replay an epoch after the
+    first) from the hpo_r5 weights: the golden trajectory's bars, and a
+    second run bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.config import Config, TrainConfig as TC
+    from hhrs_tpu_torch.train.artifacts import load_artifact_bundle
+    from hhrs_tpu_torch.train.cli import build_dataset
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    golden = json.loads(GOLDEN_TRAIN.read_text())
+    bundle = load_artifact_bundle(str(ARTIFACT))
+    splits, _ = build_dataset(str(REPO / "data"), Config())
+    mcfg, tcfg = ModelConfig(**golden["model_config"]), TC(**dict(golden["train_config"], fused_epoch=True))
+    runs = [train_dcn(splits, bundle.dims, mcfg, tcfg, init_state=(bundle.params, bundle.bn_state),
+                      device="cuda") for _ in range(2)]
+    assert runs[0].history == runs[1].history
+    for a, b in zip(runs[0].model.state_dict().values(), runs[1].model.state_dict().values()):
+        assert torch.equal(a, b)
+    bars = [dict(rtol=2e-3, atol=2e-4)] + [dict(rtol=5e-3, atol=2e-4)] * (len(golden["history"]) - 1)
+    for h, w, bar in zip(runs[0].history, golden["history"], bars):
+        assert h["val_loss"] == pytest.approx(w["val_loss"], rel=bar["rtol"], abs=bar["atol"])
+        assert h["lr"] == w["lr"]
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_graph_reads_the_learning_rate():
+    """The fused epoch's graph reads the LR from the optimizer's tensor: a
+    replay after set_learning_rate(0) leaves every parameter bit for bit
+    (AdamW at LR 0 moves nothing), one at the LR again moves them, and at
+    a tenth of it they move less."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+    model = DCNR(DIMS, HPO_R5_MODEL, generator=g).cuda().train()
+    data, B, steps, lr = _random_batch(4096, g), 512, 8, 3e-3
+    opt = make_optimizer("adamw", model.parameters(), lr, 0.1, capturable_on=dev)
+    fused = FusedEpoch(model, opt, data, B, steps, torch.Generator(device=dev).manual_seed(0))
+    perm = np.random.default_rng(0).permutation(4096)
+    fused.run(perm)  # eager, then the capture
+    assert fused.graph is not None
+
+    def moved(rate: float) -> float:
+        set_learning_rate(opt, rate)
+        before = [p.detach().clone() for p in model.parameters()]
+        fused.run(perm)
+        torch.cuda.synchronize()
+        return max(float((p.detach() - q).abs().max()) for p, q in zip(model.parameters(), before))
+
+    assert moved(lr) > 0
+    assert moved(0.0) == 0.0
+    full, tenth = moved(lr), moved(lr / 10)
+    assert 0 < tenth < full / 3, (tenth, full)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_plateau_decay_meets_the_per_step_run():
+    """From the hpo_r5 weights with lr_plateau_patience 0, the val loss
+    rises after epoch 1 and the LR decays tenfold: the fused epochs replay
+    the graph at the decayed LR and stay at the golden bars of the per-step
+    run, with the same LR trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.config import Config, TrainConfig as TC
+    from hhrs_tpu_torch.train.artifacts import load_artifact_bundle
+    from hhrs_tpu_torch.train.cli import build_dataset
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    golden = json.loads(GOLDEN_TRAIN.read_text())
+    bundle = load_artifact_bundle(str(ARTIFACT))
+    splits, _ = build_dataset(str(REPO / "data"), Config())
+    mcfg = ModelConfig(**golden["model_config"])
+    runs = {}
+    for fused in (False, True):
+        tcfg = TC(**dict(golden["train_config"], n_epochs=4, lr_plateau_patience=0, fused_epoch=fused))
+        runs[fused] = train_dcn(splits, bundle.dims, mcfg, tcfg, init_state=(bundle.params, bundle.bn_state),
+                                device="cuda")
+    lrs = [h["lr"] for h in runs[False].history]
+    assert [h["lr"] for h in runs[True].history] == lrs
+    assert min(lrs[:-1]) < lrs[0]  # a later epoch of the graph ran at a decayed LR
+    bars = [dict(rtol=2e-3, atol=2e-4)] + [dict(rtol=5e-3, atol=2e-4)] * 3
+    for h, w, bar in zip(runs[True].history, runs[False].history, bars):
+        assert h["val_loss"] == pytest.approx(w["val_loss"], rel=bar["rtol"], abs=bar["atol"])

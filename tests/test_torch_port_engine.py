@@ -26,7 +26,7 @@ if str(REPO) not in sys.path:  # for the --write entry point
 
 from hhrs_tpu.models.dcn import apply_dcn  # noqa: E402
 from hhrs_tpu.serve.engine import RecommendationEngine as JaxEngine  # noqa: E402
-from hhrs_tpu_torch.serve.engine import RecommendationEngine  # noqa: E402
+from hhrs_tpu_torch.serve.engine import RecommendationEngine, bucket_size  # noqa: E402
 from tests.test_torch_port_model import one_torch_thread  # noqa: F401 — module fixture
 
 ARTIFACT = str(REPO / "benchmarks/results/hpo_r5/best")
@@ -147,6 +147,38 @@ def test_recommend_many_matches_single(torch_engines, golden, city_bounded):
     assert te.recommend_many(reqs) == [golden["responses"][i] for i in golden["many"]]
     # a batch mixing every request of the sweep gives the same answers too
     assert te.recommend_many(golden["requests"]) == golden["responses"]
+
+
+# (K, pad_to): the power-of-two buckets 1, 4, 8, 8 without pad_to; pad_to
+# 8 at every K; and a pad_to below K, which falls back to the bucket.
+PAD_CASES = [(1, None), (3, None), (5, None), (8, None), (1, 8), (3, 8), (5, 8), (8, 8), (5, 2)]
+
+
+@pytest.mark.parametrize("city_bounded", [True, False])
+@pytest.mark.parametrize("K,pad_to", PAD_CASES)
+def test_recommend_many_pad_to_matches_jax_engine(jax_engines, torch_engines, golden, city_bounded, K,
+                                                  pad_to):
+    """Pad rows copy the last real row and only the K real rows are
+    answered: the JSON equals the JAX engine's for the same pad_to."""
+    je, te = jax_engines[city_bounded], torch_engines[city_bounded]
+    reqs = golden["requests"][5 * K::13][:K]  # users, cities, modes and λ mixed
+    assert len(reqs) == K
+    got = te.recommend_many(reqs, pad_to=pad_to)
+    assert got == je.recommend_many(reqs, pad_to=pad_to)
+    assert got == [je.recommend(*r) for r in reqs]
+
+
+@pytest.mark.parametrize("K,pad_to,want", [(1, None, 1), (2, None, 2), (3, None, 4), (5, None, 8), (8, None, 8),
+                                           (9, None, 16), (3, 8, 8), (8, 8, 8), (9, 8, 16), (5, 5, 5)])
+def test_bucket_size_is_the_jax_engines(K, pad_to, want):
+    assert bucket_size(K, pad_to) == want
+
+
+def test_warmup_runs_the_padded_bucket_on_the_cpu(torch_engines, golden):
+    te = torch_engines[True]
+    te.warmup(batch_pad=4)
+    assert te._buckets == {}  # graphs are captured on a card only
+    assert te._recommend_eager(golden["requests"][:3], pad_to=4) == golden["responses"][:3]
 
 
 def test_similar_items_match(jax_engines, torch_engines, golden):

@@ -10,9 +10,11 @@ Regenerate it with ``python tests/test_torch_port_train.py --write``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
+import re
 import sys
 from pathlib import Path
 
@@ -36,6 +38,8 @@ from hhrs_tpu.models.dcn import ModelDims as JaxModelDims  # noqa: E402
 from hhrs_tpu.models.dcn import init_dcn  # noqa: E402
 from hhrs_tpu.train.artifacts import export_artifacts as jax_export  # noqa: E402
 from hhrs_tpu.train.artifacts import load_artifact_bundle as jax_load_bundle  # noqa: E402
+from hhrs_tpu.train.optimizers import make_optimizer as jax_make_optimizer  # noqa: E402
+from hhrs_tpu.train.trainer import _device_put_splits, make_train_step  # noqa: E402
 from hhrs_tpu.train.trainer import train_dcn as jax_train_dcn  # noqa: E402
 from hhrs_tpu_torch.config import ModelConfig, TrainConfig  # noqa: E402
 from hhrs_tpu_torch.data.features import add_engineered_features  # noqa: E402
@@ -46,7 +50,9 @@ from hhrs_tpu_torch.models.dcn import ARCHS, ModelDims  # noqa: E402
 from hhrs_tpu_torch.train import cli  # noqa: E402
 from hhrs_tpu_torch.train.artifacts import export_artifacts, load_artifact_bundle  # noqa: E402
 from hhrs_tpu_torch.train.serialization import msgpack_serialize  # noqa: E402
-from hhrs_tpu_torch.train.trainer import train_dcn  # noqa: E402
+from hhrs_tpu_torch.train.checkpoint import TrainCheckpointer  # noqa: E402
+from hhrs_tpu_torch.train.optimizers import make_optimizer  # noqa: E402
+from hhrs_tpu_torch.train.trainer import split_tensors, train_dcn, train_step  # noqa: E402
 from tests.test_torch_port_model import one_torch_thread  # noqa: E402,F401 — module fixture
 
 ARTIFACT = REPO / "benchmarks/results/hpo_r5/best"
@@ -55,9 +61,15 @@ GOLDEN = REPO / "hhrs_tpu_torch/testdata/train_golden_hpo_r5.json"
 REVIEWS = "hackathon_augmented_data.csv"
 VAL_TOL = dict(rtol=2e-3, atol=2e-4)  # the bar of tests/test_parity_train.py
 # The golden run's epochs after the first carry ~1e-3 of rounding noise
-# (chip_smoke.py LATER_EPOCH_TOL; PERF.md §6).
+# (chip_smoke.py LATER_EPOCH_TOL). Its growth is measured leaf by leaf in
+# test_training_steps_track_jax_leaf_by_leaf (PERF.md §6): float32
+# gradient elements that are pure rounding noise become whole Adam steps
+# of ±lr, and the trajectory amplifies them as it amplifies a one-ulp
+# change of the JAX run's own start; it is not in the port.
 LATER_EPOCH_TOL = dict(rtol=5e-3, atol=2e-4)
 SMALL_MODEL = dict(emb_dim=8, hidden_dim=32, n_cross_layers=2, n_res_blocks=1, dropout=0.0)
+# The checkpoint tests' run (tests/test_checkpoint.py's, for the JAX trainer).
+CKPT_TRAIN = dict(lr=3e-3, batch_size=256, n_epochs=6, early_stop_patience=10, eval_batch_size=1024)
 
 
 def jax_splits(csv: str, **kw):
@@ -162,6 +174,202 @@ def test_port_reproduces_the_golden_trajectory_on_the_cpu():
     assert fm["val_auc"] == pytest.approx(gm["val_auc"], abs=2e-3)
 
 
+def test_fused_epoch_equals_the_per_step_run(synthetic):
+    """train.fused_epoch runs the same batches through the same steps: at
+    dropout 0 the CPU runs are bit-identical."""
+    splits, art = port_splits(os.path.join(synthetic, REVIEWS))
+    dims, mcfg = ModelDims.from_artifacts(art), ModelConfig(**SMALL_MODEL)
+    tcfg = TrainConfig(**dict(CKPT_TRAIN, n_epochs=3))
+    per_step = train_dcn(splits, dims, mcfg, tcfg, device="cpu")
+    fused = train_dcn(splits, dims, mcfg, dataclasses.replace(tcfg, fused_epoch=True), device="cpu")
+    assert fused.history == per_step.history
+    assert_same_weights(fused, per_step)
+    assert len(fused.step_ms) == 2 and fused.examples_per_s > 0  # one time an epoch after the first
+
+
+def test_fused_epoch_with_dropout_learns(synthetic):
+    splits, art = port_splits(os.path.join(synthetic, REVIEWS))
+    mcfg = ModelConfig(**dict(SMALL_MODEL, dropout=0.2))
+    res = train_dcn(splits, ModelDims.from_artifacts(art), mcfg,
+                    TrainConfig(**dict(CKPT_TRAIN, n_epochs=3, fused_epoch=True)), device="cpu")
+    assert np.isfinite(res.best_val_loss)
+    assert res.history[-1]["train_loss"] < res.history[0]["train_loss"]
+
+
+def test_fused_epoch_matches_jax_fused_epoch(synthetic):
+    """Both trainers with train.fused_epoch=True (JAX: the whole-epoch
+    lax.scan) from the same weights, at the bars of the per-step parity test."""
+    splits, art = jax_splits(os.path.join(synthetic, REVIEWS))
+    jdims = JaxModelDims.from_artifacts(art)
+    tkw = dict(lr=0.01, batch_size=256, n_epochs=3, seed=3, eval_batch_size=1024, lr_plateau_patience=0,
+               lr_plateau_factor=0.5, early_stop_patience=10, fused_epoch=True)
+    params, bn_state = np_tree(init_dcn(jax.random.PRNGKey(5), jdims, JaxModelConfig(**SMALL_MODEL)))
+    want = jax_train_dcn(splits, jdims, JaxModelConfig(**SMALL_MODEL), JaxTrainConfig(**tkw),
+                         init_state=(params, bn_state))
+    got = train_dcn(splits, port_dims(jdims), ModelConfig(**SMALL_MODEL), TrainConfig(**tkw),
+                    init_state=(params, bn_state), device="cpu")
+    np.testing.assert_allclose([h["val_loss"] for h in got.history],
+                               [h["val_loss"] for h in want.history], **VAL_TOL)
+    np.testing.assert_allclose([h["train_loss"] for h in got.history],
+                               [h["train_loss"] for h in want.history], **VAL_TOL)
+    assert [h["lr"] for h in got.history] == [h["lr"] for h in want.history]
+    assert got.best_epoch == want.best_epoch
+
+
+def test_fused_epoch_and_slab_streaming_are_exclusive():
+    tcfg = TrainConfig(fused_epoch=True, stream_slab_steps=4)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        train_dcn(None, ModelDims(4, 4, (), 1), ModelConfig(), tcfg, device="cpu")
+
+
+def assert_same_weights(a, b) -> None:
+    fa, fb = flatten_tree({"p": a.params, "s": a.bn_state}), flatten_tree({"p": b.params, "s": b.bn_state})
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_resume_matches_uninterrupted(synthetic, tmp_path, fused):
+    """A run killed after 3 epochs and rerun to 6 from its checkpoints equals
+    the uninterrupted 6-epoch run bit for bit (dropout on: the generator's
+    state round-trips too)."""
+    splits, art = port_splits(os.path.join(synthetic, REVIEWS))
+    dims, mcfg = ModelDims.from_artifacts(art), ModelConfig(**dict(SMALL_MODEL, dropout=0.2))
+    tcfg = TrainConfig(**dict(CKPT_TRAIN, fused_epoch=fused))
+    full = train_dcn(splits, dims, mcfg, tcfg, device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    part1 = train_dcn(splits, dims, mcfg, dataclasses.replace(tcfg, n_epochs=3), checkpoint_dir=ckpt,
+                      device="cpu")
+    assert len(part1.history) == 3
+    part2 = train_dcn(splits, dims, mcfg, tcfg, checkpoint_dir=ckpt, device="cpu")
+    assert [h["epoch"] for h in part2.history] == list(range(6))
+    assert part2.history == full.history
+    assert (part2.best_val_loss, part2.best_epoch) == (full.best_val_loss, full.best_epoch)
+    assert part2.final_metrics == full.final_metrics
+    assert_same_weights(part2, full)
+    assert TrainCheckpointer(ckpt).epochs() == [3, 4, 5]  # the last three are kept
+
+
+def test_resume_of_a_finished_run_trains_nothing(synthetic, tmp_path):
+    splits, art = port_splits(os.path.join(synthetic, REVIEWS))
+    dims, mcfg = ModelDims.from_artifacts(art), ModelConfig(**SMALL_MODEL)
+    tcfg = TrainConfig(**dict(CKPT_TRAIN, n_epochs=3))
+    first = train_dcn(splits, dims, mcfg, tcfg, checkpoint_dir=str(tmp_path), device="cpu")
+    again = train_dcn(splits, dims, mcfg, tcfg, checkpoint_dir=str(tmp_path), device="cpu")
+    assert [h["epoch"] for h in again.history] == [0, 1, 2]
+    assert again.step_ms == [] and again.examples_per_s == 0.0
+    assert again.best_val_loss == first.best_val_loss
+    assert_same_weights(again, first)
+
+
+@pytest.mark.parametrize("stop", ["early_stop", "pruned"])
+def test_resume_after_a_stop_trains_no_extra_epochs(synthetic, tmp_path, stop):
+    """A run that early-stopped, or was pruned, and is resumed trains no
+    further: the loop's stop conditions are checked again before it."""
+    splits, art = port_splits(os.path.join(synthetic, REVIEWS))
+    dims, mcfg = ModelDims.from_artifacts(art), ModelConfig(**SMALL_MODEL)
+    if stop == "early_stop":  # patience 0: the first epoch without improvement stops
+        tcfg, report = TrainConfig(**dict(CKPT_TRAIN, early_stop_patience=0)), None
+    else:
+        tcfg, report = TrainConfig(**CKPT_TRAIN), (lambda epoch, loss: epoch == 1)
+    first = train_dcn(splits, dims, mcfg, tcfg, report_fn=report, checkpoint_dir=str(tmp_path), device="cpu")
+    assert len(first.history) < 6
+    second = train_dcn(splits, dims, mcfg, tcfg, checkpoint_dir=str(tmp_path), device="cpu")
+    assert second.history == first.history and second.pruned == first.pruned
+    assert second.best_val_loss == first.best_val_loss
+    assert_same_weights(second, first)
+
+
+def test_cli_resumes_from_its_checkpoint_dir(synthetic, tmp_path):
+    args = ["--data", synthetic, "--device", "cpu", "--checkpoint-dir", str(tmp_path / "ckpt"),
+            "model.hidden_dim=32", "train.batch_size=256"]
+    assert cli.main([*args, "--out", str(tmp_path / "a"), "--epochs", "1"]) == 0
+    assert TrainCheckpointer(str(tmp_path / "ckpt")).epochs() == [0]
+    assert cli.main([*args, "--out", str(tmp_path / "b"), "--epochs", "2"]) == 0
+    assert TrainCheckpointer(str(tmp_path / "ckpt")).epochs() == [0, 1]
+
+
+PRE_BN_BIAS = re.compile(r"params\.res_blocks\.\d+\.layer[12]\.bias")
+
+
+def _largest(rel: dict) -> tuple:
+    return max(rel.items(), key=lambda kv: kv[1])
+
+
+def _rel_gaps(got: dict, want: dict) -> dict:
+    """Each leaf's relative difference in norm, ``got`` against ``want``."""
+    return {k: float(np.linalg.norm(got[k].astype(np.float64) - want[k]) / np.linalg.norm(want[k])) for k in want}
+
+
+def test_training_steps_track_jax_leaf_by_leaf(record_property):
+    """The port's train_step beside the JAX step function on the same
+    batches, from the hpo_r5 weights with dropout 0: after one step every
+    parameter and running statistic is within 1e-5 of JAX's (relative, in
+    norm), except the biases of the linears that feed a BatchNorm. Their
+    exact gradient is zero, so Adam turns rounding noise into steps of
+    about the LR whose sign neither side controls; they are recorded, with
+    the largest difference after steps 5 and 35 (PERF.md §6). Recorded
+    beside them: the same growth of JAX against itself, started one ulp
+    apart in one element of ``final.kernel``, and the port's first
+    float32 gradient against its float64 one."""
+    model_cfg, train_cfg = golden_configs()
+    B = train_cfg.batch_size
+    jb, bundle = jax_load_bundle(str(ARTIFACT)), load_artifact_bundle(str(ARTIFACT))
+    splits, _ = port_splits(str(DATA / REVIEWS))
+    tx = jax_make_optimizer(train_cfg.optimizer, train_cfg.lr, train_cfg.weight_decay)
+    jcfg = JaxModelConfig(**dataclasses.asdict(model_cfg))
+    raw = make_train_step(jcfg, B, None, JaxTrainConfig(**dataclasses.asdict(train_cfg)))
+    jstep = jax.jit(lambda p, b, o, d, perm, s, r: raw(p, b, o, tx.update, d, perm, s, r))
+    params = jax.tree.map(jax.numpy.asarray, jb.params)
+    bn, opt_state = jax.tree.map(jax.numpy.asarray, jb.bn_state), tx.init(params)
+    twin = np_tree(jb.params)  # one ulp away from JAX's start
+    kernel = twin["final"]["kernel"] = twin["final"]["kernel"].copy()
+    kernel.flat[0] = np.nextafter(kernel.flat[0], np.float32(np.inf))
+    twin = jax.tree.map(jax.numpy.asarray, twin)
+    twin_bn, twin_opt = bn, tx.init(twin)
+    perm = np.random.default_rng(train_cfg.seed).permutation(splits.n_train)[:splits.n_train // B * B]
+    jdata, jperm, s = _device_put_splits(splits)[0], jax.numpy.asarray(perm, np.int32), np.int32(0)
+
+    model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, model_cfg, "cpu", train=True)
+    opt = make_optimizer(train_cfg.optimizer, model.parameters(), train_cfg.lr, train_cfg.weight_decay)
+    data, tperm = split_tensors(splits, "train", torch.device("cpu")), torch.as_tensor(perm)
+    first = {k: v[tperm[:B]] for k, v in data.items()}
+    grads = []
+    for m in (copy.deepcopy(model), copy.deepcopy(model).double()):  # copies: a train-mode pass moves BN stats
+        logits = m(first["user"], first["item"], first["cat"], first["num"].to(next(m.parameters()).dtype))
+        torch.nn.functional.binary_cross_entropy_with_logits(logits, first["y"].to(logits.dtype)).backward()
+        grads.append({n: p.grad.double().numpy() for n, p in m.named_parameters()})
+        m.zero_grad(set_to_none=True)
+    grad_rel = _rel_gaps(*grads)
+    record_property("grad_f32_vs_f64_largest_rel", _largest({k: v for k, v in grad_rel.items()
+                                                             if not PRE_BN_BIAS.fullmatch("params." + k)}))
+    record_property("grad_pre_bn_bias_f32_vs_f64_rel", sorted(v for k, v in grad_rel.items()
+                                                              if PRE_BN_BIAS.fullmatch("params." + k)))
+    for step in range(1, 36):
+        params, bn, opt_state, jloss, s_next = jstep(params, bn, opt_state, jdata, jperm, s, jax.random.PRNGKey(0))
+        twin, twin_bn, twin_opt, _, _ = jstep(twin, twin_bn, twin_opt, jdata, jperm, s, jax.random.PRNGKey(0))
+        s = s_next
+        idx = tperm[(step - 1) * B: step * B]
+        loss = train_step(model, opt, {k: v[idx] for k, v in data.items()}, None)
+        if step not in (1, 5, 35):
+            continue
+        got = flatten_tree(dict(zip(("params", "bn_state"), jax_from_dcnr(model))))
+        want = flatten_tree({"params": np_tree(params), "bn_state": np_tree(bn)})
+        rel = _rel_gaps(got, want)
+        noise = {k: v for k, v in rel.items() if PRE_BN_BIAS.fullmatch(k)}
+        held = {k: v for k, v in rel.items() if k not in noise}
+        assert len(noise) == 2 * model_cfg.n_res_blocks
+        record_property(f"step{step}_largest_rel", _largest(held))
+        record_property(f"step{step}_pre_bn_bias_rel", sorted(noise.values()))
+        twin_rel = _rel_gaps(flatten_tree({"params": np_tree(twin), "bn_state": np_tree(twin_bn)}), want)
+        record_property(f"step{step}_jax_one_ulp_twin_largest_rel", _largest({k: twin_rel[k] for k in held}))
+        record_property(f"step{step}_jax_one_ulp_twin_pre_bn_bias_rel", sorted(twin_rel[k] for k in noise))
+        if step == 1:
+            assert float(loss) == pytest.approx(float(jloss), rel=1e-6)
+            assert max(held.values()) <= 1e-5, sorted(held.items(), key=lambda kv: -kv[1])[:5]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reverse_carrier_inverts_dcnr_from_jax(arch):
     jdims = JaxModelDims(n_users=30, n_items=20, cat_dims=(("city", 6), ("hotel_type", 5)),
@@ -247,7 +455,6 @@ def test_cli_rejects_an_unknown_section(synthetic, tmp_path):
 @pytest.mark.parametrize("option,value,item", [
     ("lazy_table_updates", True, "ROADMAP A7"),
     ("stream_slab_steps", 4, "ROADMAP A6c"),
-    ("fused_epoch", True, "ROADMAP A6c"),
     ("mesh_resident_data", True, "ROADMAP A11"),
     ("moment_dtype", "bfloat16", "ROADMAP A6c"),
     ("rng_impl", "rbg", "ROADMAP A6c"),
@@ -255,7 +462,6 @@ def test_cli_rejects_an_unknown_section(synthetic, tmp_path):
     ("eval_catalog_recall", True, "ROADMAP A7"),
     ("mesh", object(), "ROADMAP A11"),
     ("explicit_exchange", "all_to_all", "ROADMAP A11"),
-    ("checkpoint_dir", "ckpt", "ROADMAP A6b"),
 ])
 def test_unported_options_name_their_roadmap_item(option, value, item):
     dims = ModelDims(n_users=4, n_items=4, cat_dims=(), n_num_features=1)
