@@ -34,6 +34,13 @@ Phases (any failure exits non-zero and prints no result line):
    once on two streams must each give their eager dx0/dw/db bit for bit,
    and a Hessian-vector product through ``CrossStackFn`` must equal the
    float64 one;
+3b. the bfloat16 instantiation of the cross kernels against the plain
+   versions on bf16 tensors (the model at ``compute_dtype=bfloat16``):
+   B ∈ {1, 5, 9, 15, 512, 1000, 4487, 8192} (ragged last tiles of 1 to 7
+   rows), d ∈ {113, 33}, L ∈ {1, 3}, both variants, at the term-scale bar
+   with bf16's unit roundoff (rtol 2⁻⁸); repeated backwards bit-identical,
+   flip invariance, and forward and backward replayed from a CUDA graph
+   bit for bit;
 4. builds ``RecommendationEngine.from_dirs("benchmarks/results/hpo_r5/best",
    "data")`` on cuda and serves the golden sweep (known, unknown and
    friendless users; every city and an unknown one; both modes; λ ∈
@@ -53,6 +60,18 @@ Phases (any failure exits non-zero and prints no result line):
    then the p50 of ``recommend`` and ``recommend_many`` (K = 8), eager and
    graphed in turns over 8 rounds (host clock, each ending in the
    device→host copy), and a profile of 20 requests of each;
+5b. the engine's options: ``quantize_tables`` (int8 tables, scored by the
+   tower kernel), ``bf16`` (``DCNR.forward`` at compute bf16, through the
+   bf16 cross forward kernel) and ``candidate_cap=16`` city-bounded and
+   not, each over the golden sweep, buckets 1 and 8, graphed and eager:
+   int8 against ``serve_golden_hpo_r5_int8.json`` under ``SWAP_TOL``; bf16
+   against ``serve_golden_hpo_r5_bf16.json``, where two hotels may trade
+   places only if their JAX bf16 logits differ by less than
+   ``BF16_BAR · max |JAX bf16 − JAX f32|`` over the file's hotels; the
+   capped engine equal to the uncapped one, both branches taken. Each
+   engine's tower and cross-forward launches are counted from 0 over its
+   sweep; then graphed ``recommend`` p50 of the f32, int8, bf16 and capped
+   engines in turns, and the bf16 deep products' route timed;
 6. training, parity runs: the port's ``Preprocessor`` on ``data/``, then
    ``train_dcn`` on cuda from the hpo_r5 weights with the hpo_r5 trial-139
    hyperparameters and dropout 0 for 2 epochs, per step and with
@@ -72,13 +91,17 @@ Phases (any failure exits non-zero and prints no result line):
    profiles one epoch of each, checks a checkpoint-and-resume round trip
    against the uninterrupted runs, exports the artifact to ``OUT_DIR``,
    loads it back and answers 5 golden requests from it;
+7b. the same hpo_r5 training run at compute + storage bf16, per step and
+   fused, with the bf16 cross kernels' launch counts from 0 (one backward a
+   step), finite losses and f32 exported params;
 8. prints the blocks of each cross kernel that the card runs at once
    (asked of the card), then times the cross kernels and their plain
    versions at B = 512, 4487 and 8192 (d = 113, L = 3): CUDA-event means,
    and each kernel's device time per call from torch.profiler over 50
    calls, which must show one cross kernel a call: a missing device time,
    more than 50 cross-kernel launches, or fewer than the profiler's
-   ``PROFILE_DROPS`` allow fails the phase.
+   ``PROFILE_DROPS`` allow fails the phase; the same for the bf16
+   instantiation, in the same run.
 
 The last lines are one JSON object of kernel measurements, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -104,6 +127,7 @@ OUT_DIR = REPO / "chiprun_out"
 SEED = 0
 TOL = 2e-5  # kernel vs plain, rtol and atol: the JAX kernel's parity bar
 CROSS_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX cross kernel's bar, against the term scale
+CROSS_BF16_TOL = dict(rtol=2.0 ** -8, atol=0.0)  # bf16's unit roundoff, against the term scale
 VAL_TOL = dict(rtol=2e-3, atol=2e-4)  # training trajectory vs the JAX trainer
 # Epochs after the first: the val loss of this configuration (lr 6.4e-3 AdamW
 # from a trained state) carries rounding noise of ~1e-3 by epoch 1, more
@@ -112,6 +136,13 @@ VAL_TOL = dict(rtol=2e-3, atol=2e-4)  # training trajectory vs the JAX trainer
 # holds the CPU run to the same two bars.
 LATER_EPOCH_TOL = dict(rtol=5e-3, atol=2e-4)
 SWAP_TOL = 1e-4  # golden logits of two hotels allowed to trade places
+# The bf16 engine: two hotels may trade places where their JAX bf16 logits
+# differ by less than BF16_BAR times the largest |JAX bf16 − JAX f32| logit
+# of the golden file (tests/test_torch_port_model.py's model bar).
+BF16_BAR = 0.05
+GOLDEN_INT8 = "hhrs_tpu_torch/testdata/serve_golden_hpo_r5_int8.json"
+GOLDEN_BF16 = "hhrs_tpu_torch/testdata/serve_golden_hpo_r5_bf16.json"
+CAP = 16
 # Tower parity sizes: one request, ragged tiles, the golden sweep's 200,
 # recommend_many (K = 8), 64 requests; each takes another launch plan.
 TOWER_PARITY_B = (1, 31, 33, 128, 200, 1000, 1024, 64 * 128)
@@ -119,6 +150,8 @@ TOWER_TIMED_B = ((128, 500), (8 * 128, 200), (64 * 128, 50))  # (B, calls)
 # Cross parity sizes: ragged last tiles of 1, 3 and 1 rows past a multiple
 # of 4 (B = 1, 3, 5), the training batch, the eval chunk (4487), 8192.
 CROSS_PARITY_B = (1, 3, 5, 512, 1000, 4487, 8192)
+# bf16 rows are bulk-copied 8 at a time: last tiles of 1, 5, 1 and 7 rows.
+CROSS_BF16_PARITY_B = (1, 5, 9, 15, 512, 1000, 4487, 8192)
 CROSS_TIMED_B = ((512, 500), (4487, 300), (8192, 200))  # (B, calls), d = 113, L = 3
 # H100 SXM published peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -140,10 +173,12 @@ def ptxas_summary(log: str) -> list:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            demangled = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?", name)
+            demangled = re.search(r"\d+([a-z_]+_kernel)(?:I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?)?", name)
             if demangled:
-                kernel, a, b = demangled.groups()
-                name = kernel + (f"<{a}, {b}>" if b else f"<{a}>" if a else "")
+                kernel, elem, a, b = demangled.groups()
+                args = [{"f": "float", "13__nv_bfloat16": "bf16"}[elem]] if elem else []
+                args += [x for x in (a, b) if x]
+                name = kernel + (f"<{', '.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills = int(m.group(1)) + int(m.group(2))
@@ -260,8 +295,9 @@ def device_ms_per_call(fn, calls: int, name: str | None = None, launches: int = 
     return total / shown * want / 1e3 / calls
 
 
-def compare_response(got: dict, want: dict, logits: list) -> int | None:
-    """Number of tie swaps, or None when ``got`` breaks the tie rule."""
+def compare_response(got: dict, want: dict, logits: list, tol: float = SWAP_TOL) -> int | None:
+    """Number of tie swaps, or None when ``got`` breaks the tie rule (two
+    hotels trade places only where their logits differ by less than ``tol``)."""
     if set(got) != set(want) or got.get("message") != want.get("message"):
         return None
     g, w = got["ranked_hotels"], want["ranked_hotels"]
@@ -274,21 +310,23 @@ def compare_response(got: dict, want: dict, logits: list) -> int | None:
         if gh.get("hotel_id") not in payload or gh != payload[gh["hotel_id"]]:
             return None
         if gh["hotel_id"] != wh["hotel_id"]:
-            if abs(logit[gh["hotel_id"]] - logit[wh["hotel_id"]]) >= SWAP_TOL:
+            if abs(logit[gh["hotel_id"]] - logit[wh["hotel_id"]]) >= tol:
                 return None
             swaps += 1
     return swaps
 
 
-def cross_work(B: int, d: int, L: int, kind: str, variant: str = "code") -> tuple[float, float]:
-    """(flops, bytes) of one cross-stack call: each input read once, each
-    output written once. A forward layer is a d-term gate (2d) and a 3-op
-    update (3d) per row; the backward recomputes the forward and then does
-    8d (code) or 9d (canonical) per layer and row."""
+def cross_work(B: int, d: int, L: int, kind: str, variant: str = "code", elem: int = 4) -> tuple[float, float]:
+    """(flops, bytes) of one cross-stack call on elements of ``elem`` bytes:
+    each input read once, each output written once. A forward layer is a
+    d-term gate (2d) and a 3-op update (3d) per row; the backward recomputes
+    the forward and then does 8d (code) or 9d (canonical) per layer and row.
+    The bf16 instantiation does the same f32 operations (its roundings are
+    conversions, not counted) on half the bytes."""
     if kind == "fwd":
-        return 5.0 * B * L * d, 4.0 * (2 * B * d + 2 * L * d)
+        return 5.0 * B * L * d, elem * (2 * B * d + 2 * L * d)
     per_layer = 8 if variant == "code" else 9
-    return (5.0 + per_layer) * B * L * d, 4.0 * (3 * B * d + 4 * L * d)
+    return (5.0 + per_layer) * B * L * d, elem * (3 * B * d + 4 * L * d)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -657,24 +695,29 @@ def fused_lr_check(splits, bundle, model_cfg, train_cfg, dev) -> None:
 
 def train_run(splits, dims, model_cfg, train_cfg, dev, card: str, label: str):
     """One timed train_dcn run, with the cross kernels' launch counts set to
-    0 just before it and read just after → ``(result, launches)``. Per step,
-    the wrappers launch one forward and one backward a step and one forward
-    an eval chunk; under train.fused_epoch they launch in the first epoch,
-    which runs eagerly, and in the capture after it, and every later epoch
-    is one graph replay."""
+    0 just before it and read just after → ``(result, launches)``: those of
+    the instantiation of the model's compute dtype, the other's must stay 0.
+    Per step, the wrappers launch one forward and one backward a step and
+    one forward an eval chunk; under train.fused_epoch they launch in the
+    first epoch, which runs eagerly, and in the capture after it, and every
+    later epoch is one graph replay."""
     import numpy as np
     import torch
 
+    from hhrs_tpu_torch.models.convert import flatten_tree
     from hhrs_tpu_torch.ops import cross
     from hhrs_tpu_torch.train.trainer import train_dcn
 
     torch.cuda.synchronize()
-    cross.cross_stack_forward.launches = cross.cross_stack_backward.launches = 0
+    reset_cross_counts(cross)
     t0 = time.perf_counter()
     result = train_dcn(splits, dims, model_cfg, train_cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fwd": cross.cross_stack_forward.launches, "bwd": cross.cross_stack_backward.launches}
+    counts = cross_counts(cross)
+    bf16 = model_cfg.compute_dtype == "bfloat16"
+    launches = {k: counts[f"{k}_bf16" if bf16 else k] for k in ("fwd", "bwd")}
+    other = {k: counts[k if bf16 else f"{k}_bf16"] for k in ("fwd", "bwd")}
     steps = splits.n_train // train_cfg.batch_size
     chunks = -(-splits.n_val // train_cfg.eval_batch_size)
     n_epochs = len(result.history)
@@ -692,8 +735,12 @@ def train_run(splits, dims, model_cfg, train_cfg, dev, card: str, label: str):
           f"{launches['bwd']} (expected {want['fwd']}, {want['bwd']}; "
           + ("the first epoch eager, then one capture, then one graph replay an epoch)" if train_cfg.fused_epoch
              else "one a step and an eval chunk)"))
-    if min(launches.values()) <= 0 or launches != want:
-        raise SmokeFailure(f"the {label} training path did not launch the cross kernels as expected")
+    if min(launches.values()) <= 0 or launches != want or any(other.values()):
+        raise SmokeFailure(f"the {label} training path did not launch the cross kernels as expected "
+                           f"({launches}, and {other} of the other instantiation)")
+    leaves = flatten_tree({"params": result.params, "bn_state": result.bn_state})
+    if any(v.dtype != np.float32 for v in leaves.values()):
+        raise SmokeFailure(f"the {label} run exported non-f32 params")
     if not all(np.isfinite(v) for v in result.final_metrics.values()):
         raise SmokeFailure(f"the {label} run's final metrics are not finite")
     p50 = statistics.median(result.step_ms)
@@ -861,18 +908,21 @@ def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card:
     return {"per_step": launches, "fused": fused_launches}
 
 
-def cross_timings(cross, dev, card: str) -> dict:
-    """The cross kernels against their plain versions: CUDA-event means
-    and device time per call."""
+def cross_timings(cross, dev, card: str, dtype=None) -> dict:
+    """The cross kernels (the instantiation of ``dtype``, float32 by
+    default) against their plain versions: CUDA-event means and device
+    time per call."""
     import numpy as np
     import torch
 
+    dtype = dtype or torch.float32
+    tag = "" if dtype == torch.float32 else " bf16"
     gen = np.random.default_rng(SEED + 2)
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).to(dtype).contiguous()  # noqa: E731
     d, L = 113, 3
     rows = {}
-    probe = torch.empty((1, d), device=dev)
-    print(f"[time] cross: the card runs {cross.capacity(probe, False)} forward blocks and "
+    probe = torch.empty((1, d), device=dev, dtype=dtype)
+    print(f"[time] cross{tag}: the card runs {cross.capacity(probe, False)} forward blocks and "
           f"{cross.capacity(probe, True)} backward blocks (clusters of {cross.CLUSTER}) at once at d={d} "
           f"(occupancy asked of the card at the largest plan's shared memory; plans take at most "
           f"{cross.FWD_BLOCKS_PER_SM} and {cross.BWD_BLOCKS_PER_SM} an SM)")
@@ -890,11 +940,11 @@ def cross_timings(cross, dev, card: str) -> dict:
                 plan = cross.plan_of(x0, kind == "bwd")
                 ms, plain_ms = time_cuda(kernel, iters), time_cuda(plain, iters)
                 device_ms = device_ms_per_call(kernel, 50, "cross_")  # exactly one cross kernel a call
-                flops, nbytes = cross_work(B, d, L, kind)
+                flops, nbytes = cross_work(B, d, L, kind, elem=x0.element_size())
                 bound_ms, bound_by = bound(flops, nbytes)
                 rows[(kind, B)] = dict(B=B, plan=list(plan), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by)
-                print(f"[time] cross {kind} B={B} plan {tuple(plan)}: kernel {ms:.4f} ms (device "
+                print(f"[time] cross{tag} {kind} B={B} plan {tuple(plan)}: kernel {ms:.4f} ms (device "
                       f"{device_ms * 1e3:.2f} us, one kernel a call), plain {plain_ms:.4f} ms, bound "
                       f"{bound_ms * 1e3:.3f} us ({bound_by}; {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB); "
                       f"no single PyTorch call computes it (library_ms null) on {card}")
@@ -902,9 +952,249 @@ def cross_timings(cross, dev, card: str) -> dict:
         fns = {"kernels (CrossStackFn)": lambda: cross.CrossStackFn.apply(*leaves, "code").backward(dy),
                "plain (autograd)": lambda: cross.cross_stack_apply(*leaves, "code").backward(dy)}
         for name, fn in fns.items():
-            print(f"[time] cross forward+backward B={B} through autograd, {name}: "
+            print(f"[time] cross{tag} forward+backward B={B} through autograd, {name}: "
                   f"{time_cuda(fn, iters):.4f} ms on {card}")
     return rows
+
+
+def reset_cross_counts(cross) -> None:
+    """Every cross instantiation's launch count to 0."""
+    for fn in (cross.cross_stack_forward, cross.cross_stack_backward):
+        fn.launches = fn.launches_bf16 = 0
+
+
+def cross_counts(cross) -> dict:
+    f, b = cross.cross_stack_forward, cross.cross_stack_backward
+    return {"fwd": f.launches, "bwd": b.launches, "fwd_bf16": f.launches_bf16, "bwd_bf16": b.launches_bf16}
+
+
+def bf16_cross_parity(cross, model, features, dev) -> dict:
+    """The bf16 instantiation of the cross kernels against the plain
+    versions on the same bf16 tensors (phase 3b); returns the largest
+    |kernel − plain| of the forward and the backward."""
+    import numpy as np
+    import torch
+
+    gen = np.random.default_rng(SEED + 3)
+    bf = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).to(torch.bfloat16).contiguous()  # noqa: E731
+    d_model = model.cross.w.shape[1]
+    errs, shares = {"fwd": 0.0, "bwd": 0.0}, {"fwd": 0.0, "bwd": 0.0}
+    before = cross_counts(cross)
+    n_fwd = n_bwd = 0
+    for B in CROSS_BF16_PARITY_B:
+        for d in (d_model, 33):
+            for L in (1, 3):
+                for variant in ("code", "canonical"):
+                    if d == d_model:  # hpo_r5's trained cross weights on real feature rows, cast as the model casts
+                        x0 = features(B).to(torch.bfloat16)
+                        w = model.cross.w.detach()[:L].to(torch.bfloat16).contiguous()
+                        b = model.cross.b.detach()[:L].to(torch.bfloat16).contiguous()
+                    else:
+                        x0 = bf(gen.standard_normal((B, d)))
+                        w = bf(gen.uniform(-1, 1, (L, d)) / np.sqrt(d))
+                        b = bf(0.1 * gen.standard_normal((L, d)))
+                    dy = bf(gen.standard_normal((B, d)))
+                    with torch.no_grad():
+                        y = cross.cross_stack_forward(w, b, x0, variant)
+                        grads = cross.cross_stack_backward(w, b, x0, dy, variant)
+                        again = cross.cross_stack_backward(w, b, x0, dy, variant)
+                        x0f, dyf = x0.flip(0).contiguous(), dy.flip(0).contiguous()
+                        y_flip = cross.cross_stack_forward(w, b, x0f, variant).flip(0)
+                        dx0_flip = cross.cross_stack_backward(w, b, x0f, dyf, variant)[0].flip(0)
+                        n_fwd, n_bwd = n_fwd + 2, n_bwd + 3
+                        torch.cuda.synchronize()
+                        ref = (cross.cross_stack_apply(w, b, x0, variant),
+                               *cross.cross_stack_backward_ref(w, b, x0, dy, variant))
+                        scale = cross.cross_stack_term_scale(w, b, x0, dy, variant)
+                    where = f"B={B} d={d} L={L} {variant} bf16"
+                    if not all(t.dtype == torch.bfloat16 for t in (y, *grads)):
+                        raise SmokeFailure(f"the bf16 cross kernels returned another dtype at {where}")
+                    try:
+                        e = [cross.assert_close_to_scale(g, r, sc, **CROSS_BF16_TOL, what=name)
+                             for name, g, r, sc in zip(("y", "dx0", "dw", "db"), (y, *grads), ref, scale)]
+                    except AssertionError as exc:
+                        raise SmokeFailure(f"bf16 cross kernels disagree with their plain versions at {where}: {exc}")
+                    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+                        raise SmokeFailure(f"a repeated bf16 cross backward is not bit-identical at {where}")
+                    if not (torch.equal(y_flip, y) and torch.equal(dx0_flip, grads[0])):
+                        raise SmokeFailure(f"a row's bf16 cross output depends on its position at {where}")
+                    bitwise = all(torch.equal(g, r) for g, r in zip((y, *grads), ref))
+                    errs["fwd"] = max(errs["fwd"], e[0][0])
+                    errs["bwd"] = max(errs["bwd"], *(x[0] for x in e[1:]))
+                    shares["fwd"] = max(shares["fwd"], e[0][1])
+                    shares["bwd"] = max(shares["bwd"], *(x[1] for x in e[1:]))
+                    print(f"[parity] cross {where}: max|kernel-plain| (share of the allowance) "
+                          + " ".join(f"{n} {x[0]:.3e} ({x[1]:.2f})" for n, x in zip(("y", "dx0", "dw", "db"), e))
+                          + f"; equal to the plain version bit for bit: {bitwise}; repeat and flip bit-identical")
+    for B in (512, 8192):  # the training batch and the largest, replayed from a graph
+        x0 = features(B).to(torch.bfloat16)
+        w, b = model.cross.w.detach().to(torch.bfloat16), model.cross.b.detach().to(torch.bfloat16)
+        dy = bf(gen.standard_normal(tuple(x0.shape)))
+        with torch.no_grad():
+            want = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+                outs = (cross.cross_stack_forward(w, b, x0, "code"),
+                        *cross.cross_stack_backward(w, b, x0, dy, "code"))
+            n_fwd, n_bwd = n_fwd + 2, n_bwd + 2
+            for _ in range(2):
+                for t in outs:
+                    t.fill_(float("nan"))
+                graph.replay()
+                torch.cuda.synchronize()
+                if not all(torch.equal(o, e) for o, e in zip(outs, want)):
+                    raise SmokeFailure(f"the bf16 cross kernels replayed from a CUDA graph (B={B}) differ from the "
+                                       "eager calls")
+    after = cross_counts(cross)
+    if (after["fwd_bf16"] - before["fwd_bf16"], after["bwd_bf16"] - before["bwd_bf16"]) != (n_fwd, n_bwd) or (
+            after["fwd"], after["bwd"]) != (before["fwd"], before["bwd"]):
+        raise SmokeFailure("the bf16 cross launches were not counted as bf16 launches, each once")
+    print(f"[parity] cross bf16: {n_fwd} forward + {n_bwd} backward launches held to rtol={CROSS_BF16_TOL['rtol']} "
+          f"(bf16's unit roundoff) atol={CROSS_BF16_TOL['atol']} against the term scale; max abs err fwd "
+          f"{errs['fwd']:.3e} bwd {errs['bwd']:.3e}; largest share of the allowance fwd {shares['fwd']:.3f} bwd "
+          f"{shares['bwd']:.3f}; forward + backward (B=512, 8192) replayed twice from a CUDA graph: bit-identical")
+    return errs
+
+
+def option_sweep(engine, golden: dict, tol: float, label: str, reference=None) -> dict:
+    """The golden sweep through one option engine (phase 5b): every
+    request by ``recommend`` (bucket 1; the capped program where the engine
+    has a cap), ``recommend_many`` K = 8 and K = 5 padded to 8 (bucket 8),
+    graphed, against the golden responses at ``tol``, and against
+    ``reference`` (an engine whose JSON must be equal) where given. The
+    tower and cross-forward launch counts are set to 0 just before and read
+    just after. Then every request and batch must give the same JSON
+    eagerly. Returns the counts, the tie swaps and the cap's branches."""
+    import torch
+
+    from hhrs_tpu_torch.ops import cross, tower
+
+    torch.cuda.synchronize()
+    tower.tower_eval.launches = 0
+    reset_cross_counts(cross)
+    branches = dict(engine.cap_branches)
+    swaps, got_one = 0, []
+    for req, want, logits in zip(golden["requests"], golden["responses"], golden["logits"]):
+        got = json.loads(json.dumps(engine.recommend(*req)))
+        got_one.append(got)
+        n = compare_response(got, want, logits, tol)
+        if n is None:
+            raise SmokeFailure(f"the {label} engine's recommend{tuple(req)} differs from its golden response")
+        swaps += n
+    many = [golden["requests"][i] for i in golden["many"]]
+    got_many = {}
+    for batch, pad_to in ((many, None), (many[:5], 8)):
+        got_many[pad_to] = engine.recommend_many(batch, pad_to=pad_to)
+        for i, got in zip(golden["many"], got_many[pad_to]):
+            n = compare_response(json.loads(json.dumps(got)), golden["responses"][i], golden["logits"][i], tol)
+            if n is None:
+                raise SmokeFailure(f"the {label} engine's recommend_many(K={len(batch)}) differs from golden {i}")
+            swaps += n
+    torch.cuda.synchronize()
+    counts = {"tower": tower.tower_eval.launches, **{f"cross_{k}": v for k, v in cross_counts(cross).items()}}
+    took = {k: engine.cap_branches[k] - branches[k] for k in branches}
+    if reference is not None:
+        differ = [r for r, g in zip(golden["requests"], got_one) if json.loads(json.dumps(reference.recommend(*r))) != g]
+        if differ:
+            raise SmokeFailure(f"the {label} engine differs from its reference engine for {differ[:3]}")
+    capped = bool(engine._cap)
+    differ = [r for r, g in zip(golden["requests"], got_one)
+              if json.loads(json.dumps(engine._recommend_eager([r], capped=capped)[0])) != g]
+    differ += [b for b in (many, many[:5]) if engine._recommend_eager(b, pad_to=8) != engine.recommend_many(b, pad_to=8)]
+    if differ:
+        raise SmokeFailure(f"the {label} engine's graphed path differs from its eager one for {differ[:3]}")
+    print(f"[serve] {label}: {len(golden['requests'])} recommend + 2 batches match the golden file at tol {tol:.3e}"
+          f" (tie swaps {swaps}); graphed equals eager; buckets {sorted(engine._buckets)}; scoring: {engine.scoring}")
+    print(f"[serve] {label}: launches over the sweep: tower_eval {counts['tower']}, cross forward f32 "
+          f"{counts['cross_fwd']}, cross forward bf16 {counts['cross_fwd_bf16']}"
+          + (f"; cap {engine._cap}: {took['capped']} requests answered by the capped branch, {took['full']} by the "
+             "full program" if capped else ""))
+    return {"launches": counts, "swaps": swaps, "cap": took}
+
+
+def serve_options(engine, golden: dict, dev, card: str) -> dict:
+    """Phase 5b: the quantize_tables, bf16 and candidate_cap engines
+    against their golden files, then graphed recommend p50 of the f32, int8,
+    bf16 and capped engines in turns, and the bf16 deep products' route."""
+    import torch
+
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    data = str(REPO / "data")
+    build = lambda **kw: RecommendationEngine.from_dirs(str(REPO / ARTIFACT), data, device=dev, **kw)  # noqa: E731
+    golden_int8 = json.loads((REPO / GOLDEN_INT8).read_text())
+    golden_bf16 = json.loads((REPO / GOLDEN_BF16).read_text())
+    dev_bf16 = max(abs(a - b) for xs, ys in zip(golden_bf16["logits"], golden_bf16["logits_f32"])
+                   for a, b in zip(xs, ys))
+    bf16_tol = BF16_BAR * dev_bf16
+    print(f"[serve] bf16 swap bar: {BF16_BAR} x max |JAX bf16 - JAX f32| logit over the golden hotels "
+          f"({dev_bf16:.4e}) = {bf16_tol:.4e}")
+    engines = {"int8": build(quantize_tables=True), "bf16": build(bf16=True),
+               "cap16": build(candidate_cap=CAP), "cap16, city_bounded=False": build(candidate_cap=CAP, city_bounded=False)}
+    uncapped_all_rows = build(city_bounded=False)
+    out = {
+        "int8": option_sweep(engines["int8"], golden_int8, SWAP_TOL, "quantize_tables"),
+        "bf16": option_sweep(engines["bf16"], golden_bf16, bf16_tol, "bf16"),
+        "cap16": option_sweep(engines["cap16"], golden, SWAP_TOL, f"candidate_cap={CAP}", reference=engine),
+        "cap16_all_rows": option_sweep(engines["cap16, city_bounded=False"], golden, SWAP_TOL,
+                                       f"candidate_cap={CAP}, city_bounded=False", reference=uncapped_all_rows),
+    }
+    if out["int8"]["swaps"] or out["int8"]["launches"]["tower"] <= 0:
+        raise SmokeFailure("the int8 engine swapped hotels or did not score through the tower kernel")
+    if out["bf16"]["launches"]["cross_fwd_bf16"] <= 0 or out["bf16"]["launches"]["tower"]:
+        raise SmokeFailure("the bf16 engine did not score through the bf16 cross forward kernel alone")
+    for key in ("cap16", "cap16_all_rows"):
+        if min(out[key]["cap"].values()) <= 0 or out[key]["launches"]["tower"] <= 0:
+            raise SmokeFailure(f"the {key} engine did not take both branches of the cap through the tower kernel")
+
+    timed = {"f32": engine, "int8": engines["int8"], "bf16": engines["bf16"], "cap16": engines["cap16"]}
+    reqs = golden["requests"]
+    p50s = {k: [] for k in timed}
+    for label in list(timed) + list(timed)[::-1]:  # in turns
+        lat = []
+        for i in range(len(reqs) + 10):
+            t0 = time.perf_counter()
+            timed[label].recommend(*reqs[i % len(reqs)])
+            lat.append(time.perf_counter() - t0)
+        p50s[label].append(statistics.median(lat[10:]) * 1e3)
+    for label, xs in p50s.items():
+        print(f"[time] graphed recommend p50, {label} engine: {', '.join(f'{x:.3f}' for x in xs)} ms (two rounds, "
+              f"host clock, each ending in the device->host copy) on {card}")
+
+    # The bf16 deep products' route on the card: an f32 GEMM of bf16-rounded operands.
+    model = engines["bf16"].model
+    lin = model.initial_deep
+    with torch.no_grad():
+        for B in (128, 8 * 128):
+            x = torch.randn(B, lin.kernel.shape[0], device=dev)
+            ms_bf16 = time_cuda(lambda: lin(x, torch.bfloat16), 300)
+            ms_f32 = time_cuda(lambda: lin(x), 300)
+            xb, kb = x.to(torch.bfloat16), lin.kernel.to(torch.bfloat16)
+            try:
+                lib = f"{time_cuda(lambda: torch.mm(xb, kb, out_dtype=torch.float32), 300):.4f} ms"
+            except (RuntimeError, TypeError) as e:
+                lib = f"not measured ({type(e).__name__})"
+            print(f"[time] bf16 Linear route (initial_deep, B={B}): casts + f32 GEMM of bf16-rounded operands "
+                  f"{ms_bf16:.4f} ms, the f32 Linear {ms_f32:.4f} ms, cuBLAS bf16 GEMM with f32 output (yardstick, "
+                  f"unused) {lib} on {card}")
+    return out
+
+
+def bf16_training(splits, preproc, model_cfg, train_cfg, dev, card: str) -> dict:
+    """Phase 7b: the hpo_r5 training run at compute + storage bf16, per step
+    and fused; returns the bf16 cross kernels' launches of the per-step run."""
+    from hhrs_tpu_torch.models.dcn import ModelDims
+
+    dims = ModelDims.from_artifacts(preproc)
+    cfg16 = dataclasses.replace(model_cfg, compute_dtype="bfloat16", storage_dtype="bfloat16")
+    runs = {}
+    for label in ("per-step", "fused-epoch"):
+        cfg = dataclasses.replace(train_cfg, fused_epoch=label == "fused-epoch")
+        runs[label] = train_run(splits, dims, cfg16, cfg, dev, card, f"bf16 {label}")
+    for label, (r, launches) in runs.items():
+        print(f"[time] bf16 {label}: step p50 {statistics.median(r.step_ms):.4f} ms, examples_per_s "
+              f"{r.examples_per_s:.1f}; bf16 cross launches {launches} on {card}")
+    return {"per_step": runs["per-step"][1], "fused": runs["fused-epoch"][1]}
 
 
 def main() -> int:
@@ -1020,6 +1310,7 @@ def main() -> int:
     print(f"[parity] {n_checks} launches held to rtol=atol={TOL}; max abs err {max_err:.3e}; every launch "
           f"repeated bit for bit; flip and plan invariance bit for bit (B in {TOWER_PARITY_B})")
     cross_err = cross_parity(cross, model, features, dev)
+    cross_err_bf16 = bf16_cross_parity(cross, model, features, dev)
 
     # ---- phase 4: the serving path --------------------------------------
     golden = json.loads((REPO / GOLDEN).read_text())
@@ -1055,7 +1346,7 @@ def main() -> int:
           f"tie swaps: {swaps}")
     print(f"[serve] tower_eval launches on the serving path: {path_launches} (an eager run and a capture for each "
           f"batch bucket {buckets}; the {n_req + 2} requests and batches ran as graph replays)")
-    if path_launches <= 0 or buckets != [1, 8]:
+    if path_launches <= 0 or buckets != [(1, False), (8, False)]:
         return fail("the serving path did not run the tower kernel through a graph per bucket")
     # The graphed path against the same launches run eagerly, request by request.
     differ = [req for req in golden["requests"] if engine._recommend_eager([req]) != [engine.recommend(*req)]]
@@ -1097,6 +1388,9 @@ def main() -> int:
 
     serve_timings(engine, golden["requests"], card)
 
+    # ---- phase 5b: the engine's options ----------------------------------
+    options = serve_options(engine, golden, dev, card)
+
     # ---- phase 6: training, parity run against the JAX trainer ----------
     from hhrs_tpu_torch.config import Config, ModelConfig, TrainConfig
     from hhrs_tpu_torch.train.cli import build_dataset
@@ -1112,9 +1406,11 @@ def main() -> int:
     model_cfg = ModelConfig(**dict(golden_t["model_config"], dropout=bundle.model_cfg.dropout))
     train_cfg = TrainConfig(**dict(golden_t["train_config"], n_epochs=3))
     cross_launches = train_timing(splits, preproc, model_cfg, train_cfg, golden, dev, card)
+    bf16_launches = bf16_training(splits, preproc, model_cfg, train_cfg, dev, card)
 
     # ---- phase 8: cross kernel timings ------------------------------------
     cross_rows = cross_timings(cross, dev, card)
+    cross_rows_bf16 = cross_timings(cross, dev, card, torch.bfloat16)
 
     r = rows[128]
     kernels.append({
@@ -1124,6 +1420,7 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
         "by_batch": [rows[B] for B, _ in TOWER_TIMED_B if B != 128],
+        "launches_by_option": {k: options[k]["launches"]["tower"] for k in ("int8", "cap16", "cap16_all_rows")},
     })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
                            ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):
@@ -1135,6 +1432,21 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "by_batch": [cross_rows[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
+        })
+    for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
+                           ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):
+        r = cross_rows_bf16[(kind, 512)]
+        # launches: the bf16 serving path's for the forward (its main path), the
+        # bf16 per-step training run's for the backward
+        launches = options["bf16"]["launches"]["cross_fwd_bf16"] if kind == "fwd" else bf16_launches["per_step"][kind]
+        kernels.append({
+            "name": f"cross_stack_{kind}_bf16", "route": "cuda", "source": "hhrs_tpu_torch/csrc/cross_stack.cu",
+            "replaces": replaces, "launches": launches,
+            "training_launches": bf16_launches["per_step"][kind],
+            "fused_epoch_launches": bf16_launches["fused"][kind], "max_abs_err": cross_err_bf16[kind],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
+            "by_batch": [cross_rows_bf16[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

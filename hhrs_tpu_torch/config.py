@@ -5,7 +5,8 @@ Copies of ``hhrs_tpu/config.py``'s ``ModelConfig``, ``TrainConfig``,
 ``DataConfig`` and ``RetrievalConfig`` (same fields and defaults) and of
 the ``section.field=value`` overrides of ``Config.apply_overrides``, and of
 ``hhrs_tpu/utils/shapes.py::round_up``. An artifact manifest's
-``model_config`` loads into :class:`ModelConfig` field for field. Trainer
+``model_config`` loads into :class:`ModelConfig` field for field;
+:func:`check_dtypes` holds its dtypes to the JAX model's rules. Trainer
 options whose paths are not ported yet are rejected by
 :func:`unported_train_options`.
 """
@@ -43,6 +44,22 @@ class ModelConfig:
     def cat_emb_dim(self, n_cat: int) -> int:
         # floor(sqrt(n)) + 1, the reference heuristic
         return int(n_cat**0.5) + 1
+
+
+def check_dtypes(cfg: ModelConfig) -> None:
+    """The dtype rules of ``hhrs_tpu/models/dcn.py::apply_dcn_from_x0``, with
+    its wording: ``compute_dtype`` and ``storage_dtype`` are each
+    ``float32`` or ``bfloat16``, and bf16 storage needs bf16 compute."""
+    for name in ("compute_dtype", "storage_dtype"):
+        value = getattr(cfg, name)
+        if value not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown model.{name} {value!r}; expected 'float32' or 'bfloat16'")
+    if cfg.storage_dtype == "bfloat16" and cfg.compute_dtype != "bfloat16":
+        raise ValueError(
+            "model.storage_dtype='bfloat16' requires "
+            "model.compute_dtype='bfloat16' (bf16-stored activations imply "
+            "bf16 matmul inputs)"
+        )
 
 
 @dataclass

@@ -59,12 +59,25 @@
 // they round as the plain version's separate operations). So y and dx0 are
 // bit for bit those of the earlier kernels, at any position in any tile and
 // under any plan.
+//
+// The element type T is a template parameter beside NPL: float, or
+// __nv_bfloat16 for a model run at model.compute_dtype=bfloat16, where the
+// Pallas kernel computes on bf16 refs. A bf16 instantiation loads bf16 rows,
+// w and b, computes every operation in f32 and rounds its result to bf16
+// where the plain version (ops/cross.py, the JAX ops and their VJP) rounds:
+// after each elementwise product and sum, a gate or row sum once after its
+// f32 sum (the product of two bf16 values is exact in f32), dw and db once
+// after the same deterministic f32 batch sums. Its tiles hold bf16 rows, so a
+// tile is a multiple of 16 bytes when its row count is a multiple of 8
+// (kRowAlign<T>); the float instantiation is the code above, unchanged.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -82,6 +95,30 @@ constexpr int kCluster = 8;           // backward: blocks that sum through share
 
 __host__ __device__ constexpr size_t round_up(size_t x, size_t m) { return (x + m - 1) / m * m; }
 
+using bf16 = __nv_bfloat16;
+
+// Rows of T a bulk copy moves at a time: 16 bytes for any row width d.
+template <class T>
+constexpr int kRowAlign = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <class T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// An f32 result rounded to T and back: where the plain version rounds.
+template <class T>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
+}
+
 // Shared memory: mbarriers | w, b [L][d] each | the ring of tiles
 // [stages][streams][T][d], which the backward reuses for the warps' sums
 // [kWarps][2][L][d] once the tiles are done.
@@ -89,9 +126,9 @@ __host__ __device__ constexpr size_t weights_bytes(int d, int L) {
   return round_up(2 * sizeof(float) * L * d, 128);
 }
 
-size_t smem_bytes(int rows, int stages, int d, int L, bool backward) {
+size_t smem_bytes(int rows, int stages, int d, int L, bool backward, size_t elem) {
   const size_t streams = backward ? 2 : 1;
-  size_t body = sizeof(float) * stages * streams * rows * d;
+  size_t body = elem * stages * streams * rows * d;
   if (backward) {
     const size_t sums = sizeof(float) * kWarps * 2 * L * d;
     if (sums > body) body = sums;
@@ -142,23 +179,24 @@ __device__ __forceinline__ void copy_in(void* dst, const void* src, uint32_t byt
 // The block's tiles k = 0, 1, ... are tiles blockIdx.x + k * gridDim.x of the
 // batch. Tile k lands in stage k % stages, whose mbarrier completes phase
 // (k / stages) & 1 when the tile's bulk copies have arrived. Only the first
-// rows & ~3 rows of a tile are copied; the rest (the batch's last <= 3 rows)
-// stay in global memory.
+// rows & ~(kRowAlign - 1) rows of a tile are copied; the rest (the batch's
+// last rows, fewer than kRowAlign) stay in global memory.
+template <class T>
 struct TileRing {
   uint64_t* bars;
-  float* buf;
+  T* buf;
   int B, d, rows, stages, streams;
 
   __device__ int first_row(int k) const { return (blockIdx.x + k * gridDim.x) * rows; }
   __device__ int n_rows(int k) const { return min(rows, B - first_row(k)); }
-  __device__ int copied_rows(int k) const { return n_rows(k) & ~3; }
-  __device__ float* tile(int k, int stream) const {
+  __device__ int copied_rows(int k) const { return n_rows(k) & ~(kRowAlign<T> - 1); }
+  __device__ T* tile(int k, int stream) const {
     return buf + ((size_t)(k % stages) * streams + stream) * rows * d;
   }
   // One thread: the copies of tile k from a (and, with two streams, c).
-  __device__ void issue(int k, const float* a, const float* c) const {
+  __device__ void issue(int k, const T* a, const T* c) const {
     const size_t r0 = first_row(k);
-    const uint32_t bytes = copied_rows(k) * d * sizeof(float);
+    const uint32_t bytes = copied_rows(k) * d * sizeof(T);
     uint64_t* bar = bars + k % stages;
     mbar_arrive_expect(bar, bytes * streams);
     if (bytes == 0) return;
@@ -169,10 +207,11 @@ struct TileRing {
 };
 
 // Block set-up: thread 0 starts the first tiles' copies, then every thread
-// loads w and b into shared memory while they fly.
-__device__ __forceinline__ void start(const TileRing& ring, int mine, const float* a,
-                                      const float* c, const float* __restrict__ w,
-                                      const float* __restrict__ b, float* ws, float* bs,
+// loads w and b into shared memory (as f32) while they fly.
+template <class T>
+__device__ __forceinline__ void start(const TileRing<T>& ring, int mine, const T* a,
+                                      const T* c, const T* __restrict__ w,
+                                      const T* __restrict__ b, float* ws, float* bs,
                                       int n) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < ring.stages; ++s) mbar_init(ring.bars + s);
@@ -180,16 +219,17 @@ __device__ __forceinline__ void start(const TileRing& ring, int mine, const floa
     for (int k = 0; k < min(ring.stages, mine); ++k) ring.issue(k, a, c);
   }
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    ws[i] = w[i];
-    bs[i] = b[i];
+    ws[i] = to_f(w[i]);
+    bs[i] = to_f(b[i]);
   }
   __syncthreads();
 }
 
 // After tile k: once the block's warps are done with its buffer, thread 0
 // refills it with tile k + stages, if the block has one.
-__device__ __forceinline__ void finish_tile(const TileRing& ring, int k, int mine,
-                                            const float* a, const float* c) {
+template <class T>
+__device__ __forceinline__ void finish_tile(const TileRing<T>& ring, int k, int mine,
+                                            const T* a, const T* c) {
   if (k + ring.stages >= mine) return;  // uniform across the block
   __syncthreads();
   if (threadIdx.x == 0) ring.issue(k + ring.stages, a, c);
@@ -215,16 +255,25 @@ __device__ __forceinline__ float row_dot(const float (&a)[NPL], const float* v, 
   return warp_sum(s);
 }
 
-template <int NPL>
+// A backward row sum sum_c a[c] * v[c], both held by the lanes: one fmaf
+// chain in f32; in bf16 each product rounded to bf16 first (the VJP's
+// elementwise product), then summed in f32.
+template <class T, int NPL>
 __device__ __forceinline__ float row_dot(const float (&a)[NPL], const float (&v)[NPL]) {
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) s = fmaf(a[j], v[j], s);
+  for (int j = 0; j < NPL; ++j) {
+    if constexpr (std::is_same_v<T, float>) {
+      s = fmaf(a[j], v[j], s);
+    } else {
+      s = __fadd_rn(s, rnd<T>(__fmul_rn(a[j], v[j])));
+    }
+  }
   return warp_sum(s);
 }
 
 // One cross layer on a row held in registers. Columns past d stay zero.
-template <int NPL>
+template <class T, int NPL>
 __device__ __forceinline__ void layer_step(float (&x)[NPL], const float (&x0)[NPL], float g,
                                            const float* b, int lane, int d, int canonical) {
 #pragma unroll
@@ -232,27 +281,28 @@ __device__ __forceinline__ void layer_step(float (&x)[NPL], const float (&x0)[NP
     const int c = lane + 32 * j;
     if (c < d) {
       const float bc = b[c];
-      x[j] = canonical ? __fadd_rn(__fadd_rn(__fmul_rn(x0[j], g), bc), x[j])
-                       : __fadd_rn(__fadd_rn(x[j], __fmul_rn(x[j], g)), bc);
+      x[j] = canonical
+                 ? rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(x0[j], g)), bc)), x[j]))
+                 : rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(x[j], rnd<T>(__fmul_rn(x[j], g)))), bc));
     }
   }
 }
 
-template <int NPL>
-__device__ __forceinline__ void load_row(float (&r)[NPL], const float* src, int lane, int d) {
+template <int NPL, class T>
+__device__ __forceinline__ void load_row(float (&r)[NPL], const T* src, int lane, int d) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
-    r[j] = c < d ? src[c] : 0.f;
+    r[j] = c < d ? to_f(src[c]) : 0.f;
   }
 }
 
-template <int NPL>
-__device__ __forceinline__ void store_row(float* dst, const float (&r)[NPL], int lane, int d) {
+template <int NPL, class T>
+__device__ __forceinline__ void store_row(T* dst, const float (&r)[NPL], int lane, int d) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
-    if (c < d) dst[c] = r[j];
+    if (c < d) dst[c] = from_f<T>(r[j]);
   }
 }
 
@@ -260,12 +310,13 @@ __device__ __forceinline__ void store_row(float* dst, const float (&r)[NPL], int
 
 struct Layout {
   uint64_t* bars;
-  float *ws, *bs, *ring;
+  float *ws, *bs;
+  unsigned char* ring;
   __device__ Layout(unsigned char* smem, int d, int L)
       : bars(reinterpret_cast<uint64_t*>(smem)),
         ws(reinterpret_cast<float*>(smem + kHeadBytes)),
         bs(ws + L * d),
-        ring(reinterpret_cast<float*>(smem + kHeadBytes + weights_bytes(d, L))) {}
+        ring(smem + kHeadBytes + weights_bytes(d, L)) {}
 };
 
 __device__ __forceinline__ int tiles_of_block(int B, int rows) {
@@ -273,22 +324,22 @@ __device__ __forceinline__ int tiles_of_block(int B, int rows) {
   return n_tiles > (int)blockIdx.x ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
 }
 
-template <int NPL>
+template <class T, int NPL>
 __global__ void __launch_bounds__(kThreads)
-    cross_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
-                     const float* __restrict__ b, float* __restrict__ y, int B, int d, int L,
+    cross_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ w,
+                     const T* __restrict__ b, T* __restrict__ y, int B, int d, int L,
                      int canonical, int rows, int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout s(smem, d, L);
-  const TileRing ring{s.bars, s.ring, B, d, rows, stages, 1};
+  const TileRing<T> ring{s.bars, reinterpret_cast<T*>(s.ring), B, d, rows, stages, 1};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int mine = tiles_of_block(B, rows);
-  start(ring, mine, x0, nullptr, w, b, s.ws, s.bs, L * d);
+  start(ring, mine, x0, static_cast<const T*>(nullptr), w, b, s.ws, s.bs, L * d);
 
   for (int k = 0; k < mine; ++k) {
     ring.wait(k);
     const int r0 = ring.first_row(k), n = ring.n_rows(k), copied = ring.copied_rows(k);
-    float* tile = ring.tile(k, 0);
+    const T* tile = ring.tile(k, 0);
     for (int r = warp; r < n; r += kWarps) {
       const bool staged = r < copied;
       float xin[NPL], x[NPL];
@@ -296,12 +347,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < NPL; ++j) x[j] = xin[j];
       for (int l = 0; l < L; ++l) {
-        const float g = row_dot<NPL>(x, s.ws + l * d, lane, d);
-        layer_step<NPL>(x, xin, g, s.bs + l * d, lane, d, canonical);
+        const float g = rnd<T>(row_dot<NPL>(x, s.ws + l * d, lane, d));
+        layer_step<T, NPL>(x, xin, g, s.bs + l * d, lane, d, canonical);
       }
       store_row<NPL>(y + (size_t)(r0 + r) * d, x, lane, d);
     }
-    finish_tile(ring, k, mine, x0, nullptr);
+    finish_tile(ring, k, mine, x0, static_cast<const T*>(nullptr));
   }
 }
 
@@ -369,16 +420,16 @@ __device__ __forceinline__ void ordered_sums(const float* src, size_t stride, in
 // counters[0] sums the clusters' rows in order into dw, db. Up to d = 128
 // two blocks fit on an SM (at most 128 registers a thread); wider rows need
 // more registers than that.
-template <int NPL>
+template <class T, int NPL>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL <= 4 ? 2 : 1)
-    cross_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ w,
-                     const float* __restrict__ b, const float* __restrict__ dy,
-                     float* __restrict__ dx0, float* __restrict__ dw, float* __restrict__ db,
+    cross_bwd_kernel(const T* __restrict__ x0, const T* __restrict__ w,
+                     const T* __restrict__ b, const T* __restrict__ dy,
+                     T* __restrict__ dx0, T* __restrict__ dw, T* __restrict__ db,
                      float* partial, unsigned int* counters, int B,
                      int d, int L, int canonical, int rows, int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout s(smem, d, L);
-  const TileRing ring{s.bars, s.ring, B, d, rows, stages, 2};
+  const TileRing<T> ring{s.bars, reinterpret_cast<T*>(s.ring), B, d, rows, stages, 2};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int mine = tiles_of_block(B, rows);
   start(ring, mine, x0, dy, w, b, s.ws, s.bs, L * d);
@@ -393,8 +444,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
   for (int k = 0; k < mine; ++k) {
     ring.wait(k);
     const int r0 = ring.first_row(k), n = ring.n_rows(k), copied = ring.copied_rows(k);
-    float* tx = ring.tile(k, 0);
-    float* tdy = ring.tile(k, 1);
+    const T* tx = ring.tile(k, 0);
+    const T* tdy = ring.tile(k, 1);
     for (int r = warp; r < n; r += kWarps) {
       const bool staged = r < copied;
       const size_t row = r0 + r;
@@ -413,8 +464,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
         if (l < L) {
 #pragma unroll
           for (int j = 0; j < NPL; ++j) xs[l][j] = x[j];
-          g[l] = row_dot<NPL>(x, s.ws + l * d, lane, d);
-          layer_step<NPL>(x, xin, g[l], s.bs + l * d, lane, d, canonical);
+          g[l] = rnd<T>(row_dot<NPL>(x, s.ws + l * d, lane, d));
+          layer_step<T, NPL>(x, xin, g[l], s.bs + l * d, lane, d, canonical);
         }
       }
       // Walk back through the layers.
@@ -422,25 +473,35 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
       for (int l = kMaxLayers - 1; l >= 0; --l) {
         if (l < L) {
           const float* wl = s.ws + l * d;
-          const float sl = canonical ? row_dot<NPL>(dx, xin) : row_dot<NPL>(dx, xs[l]);
+          const float sl = rnd<T>(canonical ? row_dot<T, NPL>(dx, xin) : row_dot<T, NPL>(dx, xs[l]));
 #pragma unroll
           for (int j = 0; j < NPL; ++j) {
             const int c = lane + 32 * j;
             const float wc = c < d ? wl[c] : 0.f;
             db_acc[l][j] += dx[j];
             dw_acc[l][j] = fmaf(sl, xs[l][j], dw_acc[l][j]);
-            if (canonical) {
-              dx0_acc[j] = fmaf(dx[j], g[l], dx0_acc[j]);
-              dx[j] = fmaf(sl, wc, dx[j]);
-            } else {
-              dx[j] = fmaf(sl, wc, dx[j] * (1.f + g[l]));
+            if constexpr (std::is_same_v<T, float>) {
+              if (canonical) {
+                dx0_acc[j] = fmaf(dx[j], g[l], dx0_acc[j]);
+                dx[j] = fmaf(sl, wc, dx[j]);
+              } else {
+                dx[j] = fmaf(sl, wc, dx[j] * (1.f + g[l]));
+              }
+            } else {  // the VJP's operations, each rounded to bf16
+              const float sw = rnd<T>(__fmul_rn(sl, wc));
+              if (canonical) {
+                dx0_acc[j] = rnd<T>(__fadd_rn(dx0_acc[j], rnd<T>(__fmul_rn(dx[j], g[l]))));
+                dx[j] = rnd<T>(__fadd_rn(dx[j], sw));
+              } else {
+                dx[j] = rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(dx[j], rnd<T>(__fmul_rn(dx[j], g[l])))), sw));
+              }
             }
           }
         }
       }
       if (canonical) {
 #pragma unroll
-        for (int j = 0; j < NPL; ++j) dx[j] += dx0_acc[j];
+        for (int j = 0; j < NPL; ++j) dx[j] = rnd<T>(dx[j] + dx0_acc[j]);
       }
       store_row<NPL>(dx0 + row * d, dx, lane, d);
     }
@@ -451,7 +512,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
   // then the warps are added in order 0 .. kWarps-1, into slot 0.
   __syncthreads();
   const int n = L * d, n2 = 2 * n;
-  float* sums = s.ring;
+  float* sums = reinterpret_cast<float*>(s.ring);
   float* own = sums + (size_t)warp * n2;
 #pragma unroll
   for (int l = 0; l < kMaxLayers; ++l) {
@@ -491,80 +552,77 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
   if (!last) return;
   ordered_sums(partial, n2, gridDim.x / kCluster, n2, [=](int i, float t) {
     if (i < n) {
-      dw[i] = t;
+      dw[i] = from_f<T>(t);
     } else {
-      db[i - n] = t;
+      db[i - n] = from_f<T>(t);
     }
   });
 }
 
-bool valid_plan(int rows, int grid, int stages) {
-  return rows >= 4 && rows <= kMaxRows && rows % 4 == 0 && grid >= 1 && stages >= 1 &&
+bool valid_plan(int rows, int grid, int stages, int align) {
+  return rows >= align && rows <= kMaxRows && rows % align == 0 && grid >= 1 && stages >= 1 &&
          stages <= kMaxStages && stages * rows <= kMaxRing;
+}
+
+template <class T, int NPL>
+cudaError_t prepare_typed(int bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      cross_fwd_kernel<T, NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(cross_bwd_kernel<T, NPL>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int NPL>
 cudaError_t prepare_instance(int bytes) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      cross_fwd_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(cross_bwd_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+  const cudaError_t err = prepare_typed<float, NPL>(bytes);
+  return err != cudaSuccess ? err : prepare_typed<bf16, NPL>(bytes);
 }
 
 // Blocks of the backward the card runs at once, in whole clusters (its
 // compile-time cluster size).
-template <int NPL>
+template <class T, int NPL>
 cudaError_t bwd_capacity(size_t smem, int* n) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   int clusters = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, cross_bwd_kernel<NPL>, &cfg);
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, cross_bwd_kernel<T, NPL>, &cfg);
   *n = clusters * kCluster;
   return err;
 }
 
 // Blocks of the forward the card runs at once: blocks an SM times SMs.
-template <int NPL>
+template <class T, int NPL>
 cudaError_t fwd_capacity(size_t smem, int* n) {
   int per_sm = 0, device = 0, sms = 0;
-  cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cross_fwd_kernel<NPL>, kThreads, smem);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, cross_fwd_kernel<T, NPL>, kThreads, smem);
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   *n = per_sm * sms;
   return err;
 }
 
-template <int NPL>
-cudaError_t launch_fwd(const float* x0, const float* w, const float* b, float* y, int B, int d,
-                       int L, int canonical, int rows, int grid, int stages, cudaStream_t stream) {
-  cross_fwd_kernel<NPL><<<grid, kThreads, smem_bytes(rows, stages, d, L, false), stream>>>(
-      x0, w, b, y, B, d, L, canonical, rows, stages);
+template <class T, int NPL>
+cudaError_t launch_fwd(const T* x0, const T* w, const T* b, T* y, int B, int d, int L,
+                       int canonical, int rows, int grid, int stages, cudaStream_t stream) {
+  cross_fwd_kernel<T, NPL>
+      <<<grid, kThreads, smem_bytes(rows, stages, d, L, false, sizeof(T)), stream>>>(
+          x0, w, b, y, B, d, L, canonical, rows, stages);
   return cudaGetLastError();
 }
 
-template <int NPL>
-cudaError_t launch_bwd(const float* x0, const float* w, const float* b, const float* dy,
-                       float* dx0, float* dw, float* db, float* partial, unsigned int* counters,
-                       int B, int d, int L, int canonical, int rows, int grid, int stages,
-                       cudaStream_t stream) {
-  cross_bwd_kernel<NPL><<<grid, kThreads, smem_bytes(rows, stages, d, L, true), stream>>>(
-      x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages);
+template <class T, int NPL>
+cudaError_t launch_bwd(const T* x0, const T* w, const T* b, const T* dy, T* dx0, T* dw, T* db,
+                       float* partial, unsigned int* counters, int B, int d, int L, int canonical,
+                       int rows, int grid, int stages, cudaStream_t stream) {
+  cross_bwd_kernel<T, NPL>
+      <<<grid, kThreads, smem_bytes(rows, stages, d, L, true, sizeof(T)), stream>>>(
+          x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages);
   return cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-int hhrs_cross_max_dim() { return 32 * kMaxPerLane; }
-int hhrs_cross_max_layers() { return kMaxLayers; }
-
-const char* hhrs_cross_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 #define HHRS_CROSS_DISPATCH(CALL)                      \
@@ -580,10 +638,55 @@ const char* hhrs_cross_error_string(int err) {
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
+template <class T>
+int capacity_typed(int d, bool backward, int* n) {
+  const size_t smem = smem_bytes(kMaxRing, 1, d, kMaxLayers, backward, sizeof(T));
+#define HHRS_CAPACITY(NPL) (backward ? bwd_capacity<T, NPL>(smem, n) : fwd_capacity<T, NPL>(smem, n))
+  HHRS_CROSS_DISPATCH(HHRS_CAPACITY)
+#undef HHRS_CAPACITY
+}
+
+template <class T>
+int fwd_typed(const void* x0, const void* w, const void* b, void* y, int B, int d, int L,
+              int canonical, int rows, int grid, int stages, cudaStream_t s) {
+#define HHRS_FWD(NPL)                                                                       \
+  launch_fwd<T, NPL>(static_cast<const T*>(x0), static_cast<const T*>(w),                   \
+                     static_cast<const T*>(b), static_cast<T*>(y), B, d, L, canonical, rows, \
+                     grid, stages, s)
+  HHRS_CROSS_DISPATCH(HHRS_FWD)
+#undef HHRS_FWD
+}
+
+template <class T>
+int bwd_typed(const void* x0, const void* w, const void* b, const void* dy, void* dx0, void* dw,
+              void* db, void* partial, void* counters, int B, int d, int L, int canonical,
+              int rows, int grid, int stages, cudaStream_t s) {
+#define HHRS_BWD(NPL)                                                                          \
+  launch_bwd<T, NPL>(static_cast<const T*>(x0), static_cast<const T*>(w),                      \
+                     static_cast<const T*>(b), static_cast<const T*>(dy), static_cast<T*>(dx0), \
+                     static_cast<T*>(dw), static_cast<T*>(db), static_cast<float*>(partial),    \
+                     static_cast<unsigned int*>(counters), B, d, L, canonical, rows, grid,      \
+                     stages, s)
+  HHRS_CROSS_DISPATCH(HHRS_BWD)
+#undef HHRS_BWD
+}
+
+}  // namespace
+
+extern "C" {
+
+int hhrs_cross_max_dim() { return 32 * kMaxPerLane; }
+int hhrs_cross_max_layers() { return kMaxLayers; }
+
+const char* hhrs_cross_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
 // Once per device, before the first launch there: lets every kernel take the
 // shared memory of the largest plan (96 rows in flight, d 256, 6 layers).
 int hhrs_cross_prepare() {
-  const int bytes = static_cast<int>(smem_bytes(kMaxRing, 1, 32 * kMaxPerLane, kMaxLayers, true));
+  const int bytes =
+      static_cast<int>(smem_bytes(kMaxRing, 1, 32 * kMaxPerLane, kMaxLayers, true, sizeof(float)));
   cudaError_t (*const instances[])(int) = {prepare_instance<1>, prepare_instance<2>,
                                            prepare_instance<3>, prepare_instance<4>,
                                            prepare_instance<5>, prepare_instance<6>,
@@ -596,57 +699,51 @@ int hhrs_cross_prepare() {
 }
 
 // Blocks of the forward or the backward for rows of width d (1 <= d <= 256)
-// that the current device runs at once (the backward in whole clusters), at
-// the shared memory of the largest plan (96 rows in flight, 6 layers), so
-// that every plan's grid fits; a negative CUDA error code on failure. Call
-// after hhrs_cross_prepare.
-int hhrs_cross_capacity(int d, int backward) {
-  const size_t smem = smem_bytes(kMaxRing, 1, d, kMaxLayers, backward != 0);
+// and the element type (is_bf16 != 0: bfloat16, else float32) that the current
+// device runs at once (the backward in whole clusters), at the shared memory
+// of the largest plan (96 rows in flight, 6 layers), so that every plan's
+// grid fits; a negative CUDA error code on failure. Call after
+// hhrs_cross_prepare.
+int hhrs_cross_capacity(int d, int backward, int is_bf16) {
   int n = 0;
-#define HHRS_CAPACITY(NPL) (backward ? bwd_capacity<NPL>(smem, &n) : fwd_capacity<NPL>(smem, &n))
-  const int err = [&]() -> int { HHRS_CROSS_DISPATCH(HHRS_CAPACITY) }();
-#undef HHRS_CAPACITY
+  const int err = is_bf16 ? capacity_typed<bf16>(d, backward != 0, &n)
+                          : capacity_typed<float>(d, backward != 0, &n);
   return err != 0 ? -err : n;
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). All
-// pointers are device pointers to contiguous float32 arrays: x0, y [B, d]
-// (16-byte aligned), w, b [L, d]. Needs 1 <= d <= 256, 0 <= L <= 6 and a plan:
-// rows per tile a multiple of 4 in [4, 48], 1 <= stages <= 3 with
+// pointers are device pointers to contiguous arrays of one element type,
+// bfloat16 when is_bf16 != 0, else float32: x0, y [B, d] (16-byte aligned), w,
+// b [L, d]. Needs 1 <= d <= 256, 0 <= L <= 6 and a plan: rows per tile a
+// multiple of 4 (float32) or 8 (bfloat16) in [4, 48], 1 <= stages <= 3 with
 // stages x rows <= 96, grid >= 1.
 int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y, int B, int d, int L,
-                   int canonical, int rows, int grid, int stages, void* stream) {
+                   int canonical, int rows, int grid, int stages, int is_bf16, void* stream) {
   if (B <= 0) return 0;
-  if (L < 0 || L > kMaxLayers || !valid_plan(rows, grid, stages))
+  const int align = is_bf16 ? kRowAlign<bf16> : kRowAlign<float>;
+  if (L < 0 || L > kMaxLayers || !valid_plan(rows, grid, stages, align))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-#define HHRS_FWD(NPL)                                                                       \
-  launch_fwd<NPL>(static_cast<const float*>(x0), static_cast<const float*>(w),              \
-                  static_cast<const float*>(b), static_cast<float*>(y), B, d, L, canonical, \
-                  rows, grid, stages, s)
-  HHRS_CROSS_DISPATCH(HHRS_FWD)
-#undef HHRS_FWD
+  return is_bf16 ? fwd_typed<bf16>(x0, w, b, y, B, d, L, canonical, rows, grid, stages, s)
+                 : fwd_typed<float>(x0, w, b, y, B, d, L, canonical, rows, grid, stages, s);
 }
 
-// dy, dx0 [B, d] (16-byte aligned); dw, db [L, d]; partial [grid / 8, 2, L, d]
-// float32 and one unsigned int counter, 0 before the first launch (each
-// launch leaves it at 0). The grid is a multiple of 8 (the cluster size).
-// One launch.
+// dy, dx0 [B, d] (16-byte aligned); dw, db [L, d], all of the element type;
+// partial [grid / 8, 2, L, d] float32 and one unsigned int counter, 0 before
+// the first launch (each launch leaves it at 0). The grid is a multiple of 8
+// (the cluster size). One launch.
 int hhrs_cross_bwd(const void* x0, const void* w, const void* b, const void* dy, void* dx0,
                    void* dw, void* db, void* partial, void* counters, int B, int d, int L,
-                   int canonical, int rows, int grid, int stages, void* stream) {
-  if (B <= 0 || L <= 0 || L > kMaxLayers || !valid_plan(rows, grid, stages) ||
+                   int canonical, int rows, int grid, int stages, int is_bf16, void* stream) {
+  const int align = is_bf16 ? kRowAlign<bf16> : kRowAlign<float>;
+  if (B <= 0 || L <= 0 || L > kMaxLayers || !valid_plan(rows, grid, stages, align) ||
       grid % kCluster != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-#define HHRS_BWD(NPL)                                                                           \
-  launch_bwd<NPL>(static_cast<const float*>(x0), static_cast<const float*>(w),                  \
-                  static_cast<const float*>(b), static_cast<const float*>(dy),                  \
-                  static_cast<float*>(dx0), static_cast<float*>(dw), static_cast<float*>(db),   \
-                  static_cast<float*>(partial), static_cast<unsigned int*>(counters), B, d, L, \
-                  canonical, rows, grid, stages, s)
-  HHRS_CROSS_DISPATCH(HHRS_BWD)
-#undef HHRS_BWD
+  return is_bf16 ? bwd_typed<bf16>(x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L,
+                                   canonical, rows, grid, stages, s)
+                 : bwd_typed<float>(x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L,
+                                    canonical, rows, grid, stages, s);
 }
 
 }  // extern "C"

@@ -4,7 +4,10 @@ and a :class:`~hhrs_tpu_torch.models.dcn.DCNR`'s parameters and buffers.
 The tree may hold lists (the JAX package's in-memory form) or maps keyed
 ``"0"``, ``"1"``, … (the flax msgpack form); both flatten to the same
 dotted paths, which are the module's ``state_dict`` keys. Loading is
-strict: a missing, extra or mis-shaped leaf raises. :func:`jax_from_dcnr`
+strict: a missing, extra or mis-shaped leaf raises. An embedding table may
+be an int8 table (an object with ``values`` and ``scales``, as
+``quantize_embedding_params`` of either package makes): the model then
+holds it as an ``ops/quant.py::QuantizedTable``. :func:`jax_from_dcnr`
 goes the other way: BatchNorm ``mean``/``var`` go to ``bn_state``, every
 other leaf to ``params``, and lists take the JAX in-memory form.
 """
@@ -16,6 +19,7 @@ import torch
 
 from hhrs_tpu_torch.config import ModelConfig
 from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
+from hhrs_tpu_torch.ops.quant import QuantizedTable
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -37,14 +41,38 @@ def dcnr_from_jax(params, bn_state, dims: ModelDims, cfg: ModelConfig,
     """Build a :class:`DCNR` on ``device`` holding exactly the given JAX
     weights (numpy leaves), in eval mode, or in train mode with ``train``."""
     state = {**flatten_tree(params), **flatten_tree(bn_state)}
+    tables = {k: state.pop(k) for k in list(state) if hasattr(state[k], "scales")}
     with torch.device("meta"):
         model = DCNR(dims, cfg)
-    model.load_state_dict(
-        {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()},
-        strict=True,
-        assign=True,
-    )
+    tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()}
+    if tables:
+        tensors.update(_install_quantized(model, tables))
+    model.load_state_dict(tensors, strict=True, assign=True)
     return model.to(device).train(train)
+
+
+def _install_quantized(model: DCNR, tables: dict) -> dict:
+    """Put a QuantizedTable in place of each table parameter named in
+    ``tables`` → their buffers as state-dict entries."""
+    n_cat = len(model.cat_embeddings)
+    cats = [f"cat_embeddings.{i}" for i in range(n_cat)]
+    if any(k in tables for k in cats) and not all(k in tables for k in cats):
+        raise ValueError("either every categorical table is quantized or none is")
+    entries = {}
+    q = {k: QuantizedTable(torch.tensor(np.asarray(v.values)), torch.tensor(np.asarray(v.scales)))
+         for k, v in tables.items()}
+    for name in ("user_embedding", "item_embedding"):
+        if name in q:
+            delattr(model, name)
+            setattr(model, name, q[name])
+    if n_cat and cats[0] in q:
+        model.cat_embeddings = torch.nn.ModuleList([q[k] for k in cats])
+    unknown = set(q) - {"user_embedding", "item_embedding", *cats}
+    if unknown:
+        raise ValueError(f"only embedding tables may be quantized, got {sorted(unknown)}")
+    for k, table in q.items():
+        entries.update({f"{k}.{b}": t for b, t in table.state_dict().items()})
+    return entries
 
 
 def jax_from_dcnr(model: DCNR) -> tuple[dict, dict]:

@@ -13,6 +13,13 @@ Parameter and buffer names are the JAX tree's paths joined with dots
 so ``models/convert.py`` moves a JAX weight tree in by name. Train/eval
 mode is the module's ``training`` flag; in train mode the BatchNorm
 buffers update in place, like the JAX package's returned ``bn_state``.
+
+``model.compute_dtype`` / ``storage_dtype`` follow the JAX model's dtype
+rules (:func:`apply_dcn_from_x0`): parameters, BatchNorm state and logits
+stay f32; bf16 compute feeds the linears and the cross stack bf16
+operands; bf16 storage also keeps x0 and the deep tower's activations
+bf16. The embedding tables are f32 parameters or int8
+``ops/quant.py::QuantizedTable``s; both are read through ``table_lookup``.
 """
 
 from __future__ import annotations
@@ -22,9 +29,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from hhrs_tpu_torch.config import ModelConfig
+from hhrs_tpu_torch.config import ModelConfig, check_dtypes
 from hhrs_tpu_torch.ops.cross import CrossStack
 from hhrs_tpu_torch.ops.nn import Linear, embedding_table
+from hhrs_tpu_torch.ops.quant import table_lookup
 from hhrs_tpu_torch.ops.resblock import MLPBlock, ResBlock
 
 ARCHS = ("dcnr", "cross_only", "deep_only", "dcn_mlp")
@@ -73,10 +81,7 @@ class DCNR(nn.Module):
         super().__init__()
         if cfg.arch not in ARCHS:
             raise ValueError(f"unknown model.arch {cfg.arch!r}; expected one of {ARCHS}")
-        if cfg.compute_dtype != "float32" or cfg.storage_dtype != "float32":
-            raise NotImplementedError(
-                "bfloat16 compute/storage is not ported yet (ROADMAP A1: dtype rules)"
-            )
+        check_dtypes(cfg)
         self.cfg = cfg
         self.has_deep = cfg.arch in ("dcnr", "deep_only", "dcn_mlp")
         self.has_cross = cfg.arch in ("dcnr", "cross_only", "dcn_mlp")
@@ -102,28 +107,50 @@ class DCNR(nn.Module):
         self.final = Linear(final_in, 1, generator)
 
     def embed(self, user_ids, item_ids, cat_features, num_features) -> torch.Tensor:
-        """The gather + concat front half → x0 ``[B, d_in]``."""
-        cats = [tab[cat_features[:, i]] for i, tab in enumerate(self.cat_embeddings)]
+        """The gather + concat front half → x0 ``[B, d_in]`` (f32; int8
+        tables are dequantized by the lookup)."""
+        cats = [table_lookup(tab, cat_features[:, i]) for i, tab in enumerate(self.cat_embeddings)]
         return torch.cat(
-            [self.user_embedding[user_ids], self.item_embedding[item_ids], *cats, num_features],
+            [table_lookup(self.user_embedding, user_ids), table_lookup(self.item_embedding, item_ids),
+             *cats, num_features],
             dim=1,
         )
 
     def tower(self, x0: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        """x0 ``[B, d_in]`` → logits ``[B]``."""
-        rate = self.cfg.dropout
-        towers = []
-        if self.has_deep:
-            if self.training and rate > 0.0 and generator is None:
-                raise ValueError("train mode with dropout > 0 requires a generator")
-            deep = self.initial_deep(x0)
-            for block in self.res_blocks:
-                deep = block(deep, rate, generator)
-            towers.append(deep)
-        if self.has_cross:
-            towers.append(self.cross(x0))
-        return self.final(torch.cat(towers, dim=1))[:, 0]
+        """x0 ``[B, d_in]`` → f32 logits ``[B]`` (:func:`apply_dcn_from_x0`)."""
+        return apply_dcn_from_x0(self, x0, generator)
 
     def forward(self, user_ids, item_ids, cat_features, num_features,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         return self.tower(self.embed(user_ids, item_ids, cat_features, num_features), generator)
+
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}  # None: f32, no cast
+
+
+def apply_dcn_from_x0(model: DCNR, x0: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """The tower half of the forward pass, from an assembled x0 ``[B, d_in]``
+    → f32 logits ``[B]`` (counterpart of
+    ``hhrs_tpu/models/dcn.py::apply_dcn_from_x0``). x0 is cast to the
+    storage dtype; the deep tower's linears take ``compute_dtype`` operands
+    and give ``storage_dtype`` activations, BatchNorm runs in f32; the cross
+    stack runs on x0, w and b cast to ``compute_dtype`` (the bf16
+    instantiation of the cross kernels on a card); the final linear takes
+    ``compute_dtype`` operands and gives f32 logits. In train mode the
+    BatchNorm buffers update in place, in f32."""
+    cfg = model.cfg
+    compute, storage = _DTYPES[cfg.compute_dtype], _DTYPES[cfg.storage_dtype]
+    if storage is not None:
+        x0 = x0.to(storage)
+    rate = cfg.dropout
+    towers = []
+    if model.has_deep:
+        if model.training and rate > 0.0 and generator is None:
+            raise ValueError("train mode with dropout > 0 requires a generator")
+        deep = model.initial_deep(x0, compute, storage)
+        for block in model.res_blocks:
+            deep = block(deep, rate, generator, compute, storage)
+        towers.append(deep)
+    if model.has_cross:
+        towers.append(model.cross(x0, compute))
+    return model.final(torch.cat(towers, dim=1), compute)[:, 0]  # cat promotes bf16 beside f32 to f32

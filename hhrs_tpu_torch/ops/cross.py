@@ -16,6 +16,13 @@ stacked ``[L, d]``. Two variants:
   is what the model calls: the plain version on a CPU tensor, the kernels
   on a CUDA tensor. It never falls back from one to the other: a CUDA
   input that the kernels cannot take raises.
+
+Every function takes float32 or bfloat16 tensors (one dtype for all
+inputs) and computes in their dtype as the JAX stack and its VJP do:
+elementwise operations round to the dtype, a gate or row sum is summed in
+f32 and rounded once, dw and db are f32 batch sums rounded once. For f32
+the plain versions are the earlier ones, operation for operation; the
+kernels have an f32 and a bf16 instantiation of the same code.
 """
 
 from __future__ import annotations
@@ -39,12 +46,30 @@ def cross_stack_apply(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, varian
         raise ValueError(f"unknown cross variant {variant!r}")
     x = x0
     for l in range(w.shape[0]):
-        gate = (x * w[l]).sum(dim=1, keepdim=True)  # [B, 1] scalar gate per row
+        gate = _gate(x, w[l])
         if variant == "code":
             x = x + x * gate + b[l]
         else:
             x = x0 * gate + b[l] + x
     return x
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """bf16 → f32 for a sum; f32 and f64 as they are."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _gate(x: torch.Tensor, w_l: torch.Tensor) -> torch.Tensor:
+    """The ``[B, 1]`` gate ``x . w_l`` in x's dtype: products summed in f32
+    and rounded once (the product of two bf16 values is exact in f32), as
+    JAX's einsum of bf16 operands gives it."""
+    return (_wide(x) * _wide(w_l)).sum(dim=1, keepdim=True).to(x.dtype)
+
+
+def _row_sum(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``sum(a * c)`` over a row as the JAX VJP takes it: the product in the
+    operands' dtype, summed in f32, rounded once."""
+    return _wide(a * c).sum(dim=1, keepdim=True).to(a.dtype)
 
 
 def _walk_back(w, b, x0, dy, variant) -> tuple:
@@ -57,15 +82,17 @@ def _walk_back(w, b, x0, dy, variant) -> tuple:
     x = x0
     for l in range(w.shape[0]):
         xs.append(x)
-        gate = (x * w[l]).sum(dim=1, keepdim=True)
+        gate = _gate(x, w[l])
         gates.append(gate)
         x = x + x * gate + b[l] if variant == "code" else x0 * gate + b[l] + x
     terms, dxs = [], [dy]
     dx, dx0 = dy, torch.zeros_like(x0)
     for l in reversed(range(w.shape[0])):
-        s = (dx * (xs[l] if variant == "code" else x0)).sum(dim=1, keepdim=True)
+        s = _row_sum(dx, xs[l] if variant == "code" else x0)
         terms.append((l, xs[l], s, dx))
-        if variant == "code":
+        if variant == "code" and x0.dtype == torch.bfloat16:
+            dx = (dx + dx * gates[l]) + s * w[l]  # the VJP's own operations, each rounded to bf16
+        elif variant == "code":
             dx = dx * (1 + gates[l]) + s * w[l]
         else:
             dx0 = dx0 + dx * gates[l]
@@ -83,8 +110,8 @@ def cross_stack_backward_ref(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
     terms, dx0, _, _ = _walk_back(w, b, x0, dy, variant)
     dw, db = torch.empty_like(w), torch.empty_like(b)
     for l, x_l, s, dx in terms:
-        dw[l] = (s * x_l).sum(dim=0)
-        db[l] = dx.sum(dim=0)
+        dw[l] = (_wide(s) * _wide(x_l)).sum(dim=0)  # summed in f32, rounded once into dw's dtype
+        db[l] = _wide(dx).sum(dim=0)
     return dx0, dw, db
 
 
@@ -123,7 +150,7 @@ def assert_close_to_scale(got: torch.Tensor, want: torch.Tensor, scale: torch.Te
     returns the largest ``|got − want|`` and the largest share of the
     allowance that an entry used."""
     err = (got.double() - want.double()).abs()
-    share = err / (atol + rtol * scale)
+    share = torch.where(err == 0, 0.0, err / (atol + rtol * scale))  # 0, not 0/0, where both are 0
     bad = int((share > 1).sum())
     if bad or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: {bad} of {err.numel()} entries outside atol={atol} + "
@@ -145,12 +172,12 @@ def _kernels() -> _Kernels:
     points and its limits, read once."""
     lib = cuda_build.load(_LIB_NAME, _LIB_SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hhrs_cross_fwd.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.hhrs_cross_fwd.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.hhrs_cross_fwd.restype = i
-    lib.hhrs_cross_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.hhrs_cross_bwd.argtypes = [p] * 9 + [i] * 8 + [p]
     lib.hhrs_cross_bwd.restype = i
     lib.hhrs_cross_prepare.restype = i
-    lib.hhrs_cross_capacity.argtypes = [i, i]
+    lib.hhrs_cross_capacity.argtypes = [i, i, i]
     lib.hhrs_cross_capacity.restype = i
     lib.hhrs_cross_max_dim.restype = i
     lib.hhrs_cross_max_layers.restype = i
@@ -160,8 +187,9 @@ def _kernels() -> _Kernels:
 
 
 # The launch plan. csrc/cross_stack.cu runs 8 warps a block and takes tiles
-# of up to 48 rows (a multiple of 4: a bulk copy moves a multiple of 16
-# bytes), up to 3 tiles and 96 rows in flight per block. A plan takes as
+# of up to 48 rows (a multiple of ROW_ALIGN[dtype], 4 float32 rows or 8
+# bfloat16 rows: a bulk copy moves a multiple of 16 bytes at any width),
+# up to 3 tiles and 96 rows in flight per block. A plan takes as
 # many blocks as the card reports it runs at once, at the largest plan's
 # shared memory: for the forward at most 4 an SM; for the backward, with
 # its per-warp gradient sums in registers, at most 2 (up to d = 128; the
@@ -174,10 +202,11 @@ MAX_RING = 96
 FWD_BLOCKS_PER_SM = 4
 BWD_BLOCKS_PER_SM = 2
 CLUSTER = 8
+ROW_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 
 
 class CrossPlan(NamedTuple):
-    rows: int  # rows per tile, a multiple of 4
+    rows: int  # rows per tile, a multiple of the dtype's ROW_ALIGN
     grid: int  # blocks; block k walks tiles k, k + grid, …
     stages: int  # a block's tiles in flight (its ring of tile buffers)
 
@@ -193,17 +222,18 @@ def plan_capacity(sm_count: int, backward: bool) -> int:
 
 
 @functools.cache
-def cross_plan(B: int, blocks: int, cluster: int = 1) -> CrossPlan:
+def cross_plan(B: int, blocks: int, cluster: int = 1, align: int = 4) -> CrossPlan:
     """The plan of a kernel for ``B >= 1`` rows on a card that runs
     ``blocks`` blocks of it at once (a multiple of ``cluster``): tiles of
-    8 rows, or as many more (a multiple of 4, up to ``MAX_ROWS``) as put
+    8 rows, or as many more (a multiple of ``align``, the dtype's
+    ``ROW_ALIGN``, up to ``MAX_ROWS``) as put
     the whole batch in one wave of those blocks, so a small batch still
     spreads over the card and a large one leaves no block a second tile; a
     batch larger than one such wave keeps up to ``MAX_STAGES`` tiles in
     flight per block. The grid is a whole number of clusters; blocks past
     the last tile only join their cluster's sums."""
     per_block = -(-B // blocks)
-    rows = min(MAX_ROWS, max(WARPS, -(-per_block // 4) * 4))
+    rows = min(MAX_ROWS, max(WARPS, -(-per_block // align) * align))
     tiles = -(-B // rows)
     grid = -(-min(tiles, blocks) // cluster) * cluster
     return CrossPlan(rows, grid, min(MAX_STAGES, MAX_RING // rows, -(-tiles // grid)))
@@ -211,18 +241,19 @@ def cross_plan(B: int, blocks: int, cluster: int = 1) -> CrossPlan:
 
 def capacity(x0: torch.Tensor, backward: bool) -> int:
     """Blocks of the forward or backward kernel that the device of a CUDA
-    ``x0`` runs at once at x0's width, as its plans take them."""
-    return _capacity(x0.get_device(), x0.shape[1], backward)
+    ``x0`` runs at once at x0's width and dtype, as its plans take them."""
+    return _capacity(x0.get_device(), x0.shape[1], backward, x0.dtype)
 
 
 def plan_of(x0: torch.Tensor, backward: bool) -> CrossPlan:
     """The plan the forward or backward kernel takes for a CUDA ``x0``."""
-    return _plan(max(x0.shape[0], 1), x0.get_device(), x0.shape[1], backward)
+    return _plan(max(x0.shape[0], 1), x0.get_device(), x0.shape[1], backward, x0.dtype)
 
 
 @functools.cache
-def _plan(B: int, device_index: int, d: int, backward: bool) -> CrossPlan:
-    return cross_plan(B, _capacity(device_index, d, backward), CLUSTER if backward else 1)
+def _plan(B: int, device_index: int, d: int, backward: bool, dtype: torch.dtype) -> CrossPlan:
+    return cross_plan(B, _capacity(device_index, d, backward, dtype), CLUSTER if backward else 1,
+                      ROW_ALIGN[dtype])
 
 
 @functools.cache
@@ -237,14 +268,14 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.cache
-def _capacity(device_index: int, d: int, backward: bool) -> int:
-    """Blocks of the forward or backward for rows of width ``d`` that the
-    device runs at once (the backward in whole clusters), asked of the card
-    once, up to :func:`plan_capacity`."""
+def _capacity(device_index: int, d: int, backward: bool, dtype: torch.dtype) -> int:
+    """Blocks of the forward or backward for rows of width ``d`` and
+    ``dtype`` that the device runs at once (the backward in whole clusters),
+    asked of the card once, up to :func:`plan_capacity`."""
     most = plan_capacity(_sm_count(device_index), backward)
     lib = _kernels().lib
     with torch.cuda.device(device_index):
-        n = lib.hhrs_cross_capacity(d, backward)
+        n = lib.hhrs_cross_capacity(d, backward, dtype == torch.bfloat16)
     if n < 0:
         _raise_on(lib, -n, "asking for the cross kernels' occupancy")
     if n < (CLUSTER if backward else 1):
@@ -290,8 +321,8 @@ def _backward_scratch(device_index: int, stream: int) -> BackwardScratch:
 
 
 def _check_inputs(tensors: dict, variant: str) -> tuple:
-    """Device, dtype, shape, contiguity, alignment and size checks of CUDA
-    inputs → ``(B, d, L)``."""
+    """Device, dtype (float32 or bfloat16, one for all), shape, contiguity,
+    alignment and size checks of CUDA inputs → ``(B, d, L)``."""
     if variant not in CROSS_VARIANTS:
         raise ValueError(f"unknown cross variant {variant!r}")
     x0, w = tensors["x0"], tensors["w"]
@@ -302,8 +333,9 @@ def _check_inputs(tensors: dict, variant: str) -> tuple:
     for name, t in tensors.items():
         if t.get_device() != where:
             raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != x0.dtype or t.dtype not in ROW_ALIGN:
+            raise TypeError(f"the cross kernels take float32 or bfloat16 inputs of one dtype; {name} is "
+                            f"{t.dtype}, x0 {x0.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         want = (L, d) if name in ("w", "b") else (B, d)
@@ -319,8 +351,9 @@ def _check_inputs(tensors: dict, variant: str) -> tuple:
     return B, d, L
 
 
-def _check_plan(plan: CrossPlan, device_index: int, backward: bool) -> None:
-    if not (plan.rows % 4 == 0 and 4 <= plan.rows <= MAX_ROWS and 1 <= plan.stages <= MAX_STAGES
+def _check_plan(plan: CrossPlan, device_index: int, backward: bool, dtype: torch.dtype) -> None:
+    align = ROW_ALIGN[dtype]
+    if not (plan.rows % align == 0 and align <= plan.rows <= MAX_ROWS and 1 <= plan.stages <= MAX_STAGES
             and plan.stages * plan.rows <= MAX_RING
             and 1 <= plan.grid <= plan_capacity(_sm_count(device_index), backward)
             and not (backward and plan.grid % CLUSTER)):
@@ -344,12 +377,13 @@ def cross_stack_forward(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, vari
     """One launch of the forward kernel on CUDA tensors (current stream,
     asynchronous) → ``[B, d]``, with :func:`plan_of`'s plan unless one is
     given (any valid plan gives the same ``y`` bit for bit);
-    ``cross_stack_forward.launches`` counts the launches."""
+    ``cross_stack_forward.launches`` counts the float32 launches,
+    ``.launches_bf16`` the bfloat16 ones."""
     if not x0.is_cuda:
         raise ValueError(f"cross_stack_forward runs on cuda tensors, got {x0.device}")
     _check_inputs({"x0": x0, "w": w, "b": b}, variant)
     if plan is not None:
-        _check_plan(plan, x0.get_device(), False)
+        _check_plan(plan, x0.get_device(), False, x0.dtype)
     return _forward(w, b, x0, variant == "canonical", plan)
 
 
@@ -362,12 +396,16 @@ def _forward(w, b, x0, canonical: bool, plan: CrossPlan | None) -> torch.Tensor:
     B, d = x0.shape
     if B == 0:
         return y
-    p = plan or _plan(B, index, d, False)
+    p = plan or _plan(B, index, d, False, x0.dtype)
     lib = _kernels().lib
     err = lib.hhrs_cross_fwd(x0.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, d, w.shape[0],
-                             canonical, p.rows, p.grid, p.stages, _current_stream(index))
+                             canonical, p.rows, p.grid, p.stages, x0.dtype == torch.bfloat16,
+                             _current_stream(index))
     _raise_on(lib, err, "cross_stack forward kernel launch")
-    cross_stack_forward.launches += 1
+    if x0.dtype == torch.bfloat16:
+        cross_stack_forward.launches_bf16 += 1
+    else:
+        cross_stack_forward.launches += 1
     return y
 
 
@@ -378,12 +416,12 @@ def cross_stack_backward(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, dy:
     gives the same ``dx0`` bit for bit). dw and db are summed over the batch
     in an order fixed by the plan, so two calls on the same inputs give
     bit-identical gradients. ``cross_stack_backward.launches`` counts the
-    launches."""
+    float32 launches, ``.launches_bf16`` the bfloat16 ones."""
     if not x0.is_cuda:
         raise ValueError(f"cross_stack_backward runs on cuda tensors, got {x0.device}")
     _check_inputs({"x0": x0, "w": w, "b": b, "dy": dy}, variant)
     if plan is not None:
-        _check_plan(plan, x0.get_device(), True)
+        _check_plan(plan, x0.get_device(), True, x0.dtype)
     return _backward(w, b, x0, dy, variant == "canonical", plan)
 
 
@@ -396,20 +434,24 @@ def _backward(w, b, x0, dy, canonical: bool, plan: CrossPlan | None) -> tuple:
     (B, d), L = x0.shape, w.shape[0]
     if B == 0 or L == 0:
         return (dy.clone() if L == 0 else dx0), dw.zero_(), db.zero_()
-    p = plan or _plan(B, index, d, True)
+    p = plan or _plan(B, index, d, True, x0.dtype)
     stream = _current_stream(index)
     partial, counter = _backward_scratch(index, stream)
     lib = _kernels().lib
     err = lib.hhrs_cross_bwd(x0.data_ptr(), w.data_ptr(), b.data_ptr(), dy.data_ptr(), dx0.data_ptr(),
                              dw.data_ptr(), db.data_ptr(), partial.data_ptr(), counter.data_ptr(),
-                             B, d, L, canonical, p.rows, p.grid, p.stages, stream)
+                             B, d, L, canonical, p.rows, p.grid, p.stages, x0.dtype == torch.bfloat16, stream)
     _raise_on(lib, err, "cross_stack backward kernel launch")
-    cross_stack_backward.launches += 1
+    if x0.dtype == torch.bfloat16:
+        cross_stack_backward.launches_bf16 += 1
+    else:
+        cross_stack_backward.launches += 1
     return dx0, dw, db
 
 
-cross_stack_forward.launches = 0
-cross_stack_backward.launches = 0
+# Launches of each instantiation: ``launches`` float32, ``launches_bf16`` bfloat16.
+cross_stack_forward.launches = cross_stack_forward.launches_bf16 = 0
+cross_stack_backward.launches = cross_stack_backward.launches_bf16 = 0
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -462,8 +504,8 @@ class CrossBackwardFn(torch.autograd.Function):
         if not dy.is_cuda:
             return cross_stack_backward_ref(w, b, x0, dy, variant)
         dy = _aligned(dy)
-        if dy.dtype != torch.float32 or dy.shape != x0.shape or dy.device != x0.device:
-            raise ValueError(f"dy must be float32 {tuple(x0.shape)} on {x0.device}, got "
+        if dy.dtype != x0.dtype or dy.shape != x0.shape or dy.device != x0.device:
+            raise ValueError(f"dy must be {x0.dtype} {tuple(x0.shape)} on {x0.device}, got "
                              f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
         return _backward(w, b, _aligned(x0), dy, variant == "canonical", None)
 
@@ -501,5 +543,10 @@ class CrossStack(nn.Module):
         with torch.no_grad():
             self.w.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x0: torch.Tensor) -> torch.Tensor:
-        return cross_stack(self.w, self.b, x0, self.variant)
+    def forward(self, x0: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """x0 ``[B, d]`` → ``[B, d]``; with ``compute_dtype`` x0, w and b are
+        cast to it first (w and b keep f32 gradients through the cast)."""
+        w, b = self.w, self.b
+        if compute_dtype is not None:
+            x0, w, b = x0.to(compute_dtype), w.to(compute_dtype), b.to(compute_dtype)
+        return cross_stack(w, b, x0, self.variant)

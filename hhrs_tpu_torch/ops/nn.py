@@ -7,6 +7,13 @@ variance normalizes, the unbiased one updates the running variance
 (momentum 0.1 by default), and training on a batch of one raises.
 Initialization follows the same distributions: linear ~ U(±1/sqrt(fan_in)),
 embedding ~ N(0, 1), BatchNorm scale 1 / bias 0 / mean 0 / var 1.
+
+The dtype rules are the JAX package's: ``Linear`` casts its operands to
+``compute_dtype``, multiplies them with an f32 product and f32 sums
+(``preferred_element_type=f32``), adds the bias in f32 and only then casts
+to ``out_dtype``; ``BatchNorm`` computes its statistics and normalization in
+f32, keeps its running state f32 and casts only its output back;
+``dropout`` keeps its input's dtype. Parameters stay f32 throughout.
 """
 
 from __future__ import annotations
@@ -27,8 +34,16 @@ class Linear(nn.Module):
             self.kernel.uniform_(-bound, bound, generator=generator)
             self.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype | None = None,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+        k = self.kernel
+        if compute_dtype is not None:
+            x, k = x.to(compute_dtype), k.to(compute_dtype)
+        # A product of two bf16 values is exact in f32, so multiplying the
+        # upcast operands is JAX's bf16 product with f32 accumulation (up to
+        # summation order), on the CPU and on the card alike.
+        y = x.float() @ k.float() + self.bias
+        return y if out_dtype is None else y.to(out_dtype)
 
 
 def embedding_table(n_rows: int, dim: int, generator: torch.Generator | None = None) -> nn.Parameter:
@@ -52,27 +67,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if not self.training:
-            return (x - self.mean) * torch.rsqrt(self.var + self.eps) * self.scale + self.bias
+            return ((xf - self.mean) * torch.rsqrt(self.var + self.eps) * self.scale + self.bias).to(x.dtype)
         n = x.shape[0]
         if n <= 1:
             raise ValueError(
                 "BatchNorm training needs >1 example per batch (torch BatchNorm1d parity)"
             )
-        mean = x.mean(dim=0)
-        var_biased = (x - mean).square().mean(dim=0)
+        mean = xf.mean(dim=0)
+        var_biased = (xf - mean).square().mean(dim=0)
         var_unbiased = var_biased * (n / max(n - 1, 1))
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_((1 - m) * self.mean + m * mean)
             self.var.copy_((1 - m) * self.var + m * var_unbiased)
-        return (x - mean) * torch.rsqrt(var_biased + self.eps) * self.scale + self.bias
+        return ((xf - mean) * torch.rsqrt(var_biased + self.eps) * self.scale + self.bias).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
-    """Inverted dropout with an explicit generator (on ``x``'s device)."""
+    """Inverted dropout with an explicit generator (on ``x``'s device), in
+    ``x``'s dtype: the keep probability is rounded to it first, as JAX does."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    keep_x = torch.tensor(keep, dtype=x.dtype).item()
+    return torch.where(mask, x / keep_x, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,6 +1,7 @@
 """Residual block Linear→BN→ReLU→Dropout→Linear→BN (+identity)→ReLU, and
 the plain-MLP ablation block Linear→ReLU→Dropout (counterpart of
-``hhrs_tpu/ops/resblock.py`` and the ``dcn_mlp`` branch of ``models/dcn.py``)."""
+``hhrs_tpu/ops/resblock.py`` and the ``dcn_mlp`` branch of ``models/dcn.py``).
+Both pass ``compute_dtype`` and ``out_dtype`` on to their linears."""
 
 from __future__ import annotations
 
@@ -19,11 +20,12 @@ class ResBlock(nn.Module):
         self.layer2 = Linear(hidden, hidden, generator)
         self.bn2 = BatchNorm(hidden, momentum, eps)
 
-    def forward(self, x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
-        h = torch.relu(self.bn1(self.layer1(x)))
+    def forward(self, x: torch.Tensor, rate: float, generator: torch.Generator | None,
+                compute_dtype: torch.dtype | None = None, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+        h = torch.relu(self.bn1(self.layer1(x, compute_dtype, out_dtype)))
         if self.training:
             h = dropout(h, rate, generator)
-        h = self.bn2(self.layer2(h))
+        h = self.bn2(self.layer2(h, compute_dtype, out_dtype))
         return torch.relu(h + x)
 
 
@@ -32,6 +34,7 @@ class MLPBlock(nn.Module):
         super().__init__()
         self.layer = Linear(hidden, hidden, generator)
 
-    def forward(self, x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
-        h = torch.relu(self.layer(x))
+    def forward(self, x: torch.Tensor, rate: float, generator: torch.Generator | None,
+                compute_dtype: torch.dtype | None = None, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+        h = torch.relu(self.layer(x, compute_dtype, out_dtype))
         return dropout(h, rate, generator) if self.training else h

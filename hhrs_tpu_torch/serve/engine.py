@@ -22,7 +22,26 @@ Ranking covers only the request city's item rows by default (exact:
 candidates are a subset of the city's items by construction); with
 ``city_bounded=False`` every serve item is ranked. ``dcnr`` artifacts are
 scored by the fused tower kernel (``ops/tower.py::tower_eval``); the other
-architectures by ``DCNR.forward``. Edge semantics match the reference:
+architectures, and every model under ``bf16``, by ``DCNR.forward``.
+
+Options, with the JAX engine's meaning:
+
+* ``quantize_tables``: the model's embedding tables become per-row int8
+  (``ops/quant.py``); x0 is gathered and dequantized by the model's lookup,
+  then scored as before (the tower kernel for ``dcnr``). The retrieval-side
+  item embeddings stay f32, so candidate sets do not change;
+* ``bf16``: the model runs at ``compute_dtype=bfloat16`` through
+  ``DCNR.forward`` (bf16 operands, f32 BatchNorm and logits; on a card the
+  bf16 cross forward kernel), never through the f32 tower kernel;
+* ``candidate_cap``: a one-request ``recommend`` whose candidates fit the
+  cap ranks only its candidate rows, compacted in ascending serve order
+  into ``cap`` rows without a host sync (a cumulative sum and a scatter, so
+  the bucket's CUDA graph holds it). The host reads the count after the
+  copy back; a request with more candidates runs the full program instead.
+  ``recommend_many`` always runs the full program. The responses are the
+  uncapped engine's.
+
+Edge semantics match the reference:
 unknown user → model id ``n_users // 2``; no candidates → a message
 response; λ = 1.0 returns the full sorted candidate list, λ < 1 the MMR
 top-20.
@@ -30,6 +49,7 @@ top-20.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import threading
@@ -47,6 +67,7 @@ from hhrs_tpu_torch.data.table import first_occurrence, isna, take
 from hhrs_tpu_torch.device import capture_stream, resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax
 from hhrs_tpu_torch.ops.mmr import NEG_INF, mmr_rerank
+from hhrs_tpu_torch.ops.quant import quantize_embedding_params
 from hhrs_tpu_torch.ops.tower import build_x0, fold_eval_params, tower_eval
 from hhrs_tpu_torch.retrieval.candidates import CandidateGenerator, ServeUniverse
 from hhrs_tpu_torch.retrieval.graph import FriendGraph
@@ -58,16 +79,13 @@ log = logging.getLogger(__name__)
 # Serve options of the JAX engine that this port does not have yet, with
 # the ROADMAP item that brings each.
 _NOT_PORTED = {
-    "bf16": "ROADMAP A5b (bf16 serving)",
-    "quantize_tables": "ROADMAP A5b (int8 tables, ops/quant.py::QuantizedTable)",
-    "candidate_cap": "ROADMAP A5b (candidate-cap path, engine._rank_capped)",
     "mesh": "ROADMAP A11 (multi-device serving)",
     "retrieval_embeddings_path": "ROADMAP A10 (two-tower retriever)",
 }
 
 
 class _Bucket(NamedTuple):
-    """A batch size's CUDA graph and its static buffers."""
+    """A batch size's CUDA graph (full or capped) and its static buffers."""
 
     graph: torch.cuda.CUDAGraph
     host: torch.Tensor  # pinned int32 [Kp, S + 3], the upload's source
@@ -101,6 +119,9 @@ class RecommendationEngine:
         *,
         device: str | torch.device,
         city_bounded: bool = True,
+        bf16: bool = False,
+        quantize_tables: bool = False,
+        candidate_cap: int = 0,
         **options,
     ):
         _reject_unported(options)
@@ -137,14 +158,22 @@ class RecommendationEngine:
         self._reverse_item_map = {v: k for k, v in art.item_id_mapping.items()}
 
         cfg = bundle.model_cfg
-        self.model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, cfg, dev)
+        params = bundle.params
+        if quantize_tables:
+            params = quantize_embedding_params(params)
+        if bf16:
+            cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        self.model = dcnr_from_jax(params, bundle.bn_state, bundle.dims, cfg, dev)
         self._variant = cfg.cross_variant
-        if cfg.arch == "dcnr":
+        tables = "int8 tables" if quantize_tables else "f32 tables"
+        if cfg.arch == "dcnr" and not bf16:
             self._folded = fold_eval_params(self.model)
-            log.info("arch dcnr: scoring through the fused tower kernel (ops/tower.py)")
+            self.scoring = f"the fused f32 tower kernel (ops/tower.py) on x0 from {tables}"
         else:
             self._folded = None
-            log.info("arch %s: scoring through DCNR.forward", cfg.arch)
+            self.scoring = (f"DCNR.forward at compute {cfg.compute_dtype} / storage {cfg.storage_dtype} "
+                            f"from {tables}")
+        log.info("arch %s: scoring through %s", cfg.arch, self.scoring)
 
         # recommended_by source: positive review rows in table order, users
         # deduplicated per item with their first-appearance order kept.
@@ -166,8 +195,11 @@ class RecommendationEngine:
         W = int(self.gen.city_rows_np.shape[1])
         self._city_bounded = bool(city_bounded and W < self.gen.M)
         self._order_width = W if self._city_bounded else self.gen.M
+        # the cap applies where it is narrower than the rows ranked without it
+        self._cap = int(candidate_cap) if 0 < candidate_cap < self._order_width else 0
+        self.cap_branches = {"capped": 0, "full": 0}  # one-request calls answered by each branch
         self._all_rows = torch.arange(self.gen.M, dtype=torch.int64, device=dev)
-        self._buckets: dict = {}  # Kp -> _Bucket (on a card)
+        self._buckets: dict = {}  # (Kp, capped) -> _Bucket (on a card)
         self._graph_lock = threading.Lock()  # one replay at a time: buckets share buffers and a pool
         self._graph_pool = None
         self._graph_stream = capture_stream(self, dev) if dev.type == "cuda" else None
@@ -208,6 +240,23 @@ class RecommendationEngine:
         """Every serve item ranked (``city_bounded=False``)."""
         idx = self._all_rows.expand(cand.shape[0], -1)
         return self._rank_rows(cand, count, user_internal, lam, idx)
+
+    def _rank_capped(self, cand, count, user_internal, lam) -> torch.Tensor:
+        """The JAX engine's ``_rank_capped``: rank only the first ``cap``
+        candidate rows in ascending serve order (all of them when ``count <=
+        cap``, the only case whose output is read), padded with M, then pad
+        the order section back to the order width. ``nonzero`` would sync
+        with the host; a cumulative sum gives each candidate its slot and a
+        scatter puts it there, slot ``cap`` taking the overflow."""
+        M, cap = self.gen.M, self._cap
+        K = cand.shape[0]
+        slot = torch.cumsum(cand, dim=1) - 1
+        slot = torch.where(cand & (slot < cap), slot, cap)
+        idx = torch.full((K, cap + 1), M, dtype=torch.int64, device=cand.device)
+        idx.scatter_(1, slot, self._all_rows.expand(K, -1))
+        packed = self._rank_rows(cand, count, user_internal, lam, idx[:, :cap])
+        pad = torch.zeros((K, self._order_width - cap), dtype=packed.dtype, device=packed.device)
+        return torch.cat([packed[:, :cap], pad, packed[:, cap:]], dim=1)
 
     # ------------------------------------------------------------------ #
 
@@ -251,7 +300,10 @@ class RecommendationEngine:
 
     def recommend(self, user_id: int, city: str, mode: str = "friends",
                   lambda_param: float = 0.7) -> dict:
-        return self.recommend_many([(user_id, city, mode, lambda_param)])[0]
+        """One request: the one-request program, which takes the
+        ``candidate_cap`` branch when its candidates fit."""
+        req = [(user_id, city, mode, lambda_param)]
+        return self._recommend(req, None, graphed=self.device.type == "cuda", capped=bool(self._cap))[0]
 
     def recommend_many(self, requests: list, pad_to: int | None = None) -> list:
         """``[(user_id, city, mode, lambda_param), …]`` → responses. The batch
@@ -259,12 +311,13 @@ class RecommendationEngine:
         copy; on a card as one replay of the bucket's CUDA graph."""
         return self._recommend(requests, pad_to, graphed=self.device.type == "cuda")
 
-    def _recommend_eager(self, requests: list, pad_to: int | None = None) -> list:
-        """:meth:`recommend_many` with the same launches run one by one, no
-        graph: the reference that the graphed path is held to."""
-        return self._recommend(requests, pad_to, graphed=False)
+    def _recommend_eager(self, requests: list, pad_to: int | None = None, capped: bool = False) -> list:
+        """:meth:`recommend_many` (with ``capped``, one-request
+        :meth:`recommend`) with the same launches run one by one, no graph:
+        the reference that the graphed path is held to."""
+        return self._recommend(requests, pad_to, graphed=False, capped=capped and bool(self._cap))
 
-    def _recommend(self, requests: list, pad_to: int | None, graphed: bool) -> list:
+    def _recommend(self, requests: list, pad_to: int | None, graphed: bool, capped: bool = False) -> list:
         K = len(requests)
         if K == 0:
             return []
@@ -274,38 +327,48 @@ class RecommendationEngine:
             host[k, :S], host[k, S], host[k, S + 1] = self._host_inputs(u, c, mode)
         host[:K, S + 2] = np.asarray([r[3] for r in requests], np.float32).view(np.int32)
         host[K:] = host[K - 1]  # pad rows copy the last real row
-        if graphed:
-            packed = self._replay(host)
-        else:
-            packed = self._device_rank(torch.from_numpy(host).to(self.device)).cpu()  # the one copy back
-        packed = packed.numpy()
+
+        def run(capped: bool) -> np.ndarray:
+            if graphed:
+                return self._replay(host, capped).numpy()
+            return self._device_rank(torch.from_numpy(host).to(self.device), capped).cpu().numpy()  # the copy back
+
+        packed = run(capped)
+        if capped:
+            fits = packed[0, -1] <= self._cap
+            self.cap_branches["capped" if fits else "full"] += 1
+            if not fits:
+                packed = run(False)
         return [self._assemble(u, l, packed[k]) for k, (u, _c, _m, l) in enumerate(requests)]
 
     @torch.no_grad()
-    def _device_rank(self, inputs: torch.Tensor) -> torch.Tensor:
+    def _device_rank(self, inputs: torch.Tensor, capped: bool = False) -> torch.Tensor:
         """The device work of a batch: the packed int32 ``[Kp, S + 3]``
-        inputs → the packed int64 ``[Kp, W + top_k + 1]`` output."""
+        inputs → the packed int64 ``[Kp, W + top_k + 1]`` output; with
+        ``capped``, ranked on the compacted candidate rows."""
         S = self.gen.max_sources
         sources, city, user = inputs[:, :S].long(), inputs[:, S].long(), inputs[:, S + 1].long()
         lam = inputs.view(torch.float32)[:, S + 2]
         cand, _neg, count = self.gen.generate_batch(sources, city)
+        if capped:
+            return self._rank_capped(cand, count, user, lam)
         if self._city_bounded:
             rows = self.gen.dev["city_rows"][torch.clamp(city, max=len(self.gen.universe.cities))]
             return self._rank_rows(cand, count, user, lam, rows)
         return self._rank_full(cand, count, user, lam)
 
-    def _replay(self, host: np.ndarray) -> torch.Tensor:
-        """Run ``host`` through its bucket's CUDA graph (captured on first
-        use) → the packed output on the host."""
+    def _replay(self, host: np.ndarray, capped: bool) -> torch.Tensor:
+        """Run ``host`` through its bucket's CUDA graph, full or capped
+        (captured on first use) → the packed output on the host."""
         with self._graph_lock:
-            b = self._buckets.get(host.shape[0]) or self._capture(host)
+            b = self._buckets.get((host.shape[0], capped)) or self._capture(host, capped)
             b.host.numpy()[...] = host
             b.inputs.copy_(b.host, non_blocking=True)
             b.graph.replay()
             return b.out.cpu()  # the one device→host copy; it waits for the replay
 
-    def _capture(self, host: np.ndarray) -> _Bucket:
-        """Capture the bucket of ``host``'s row count. One eager run on the
+    def _capture(self, host: np.ndarray, capped: bool) -> _Bucket:
+        """Capture the bucket of ``host``'s row count (full or capped). One eager run on the
         capture stream first sets up what a capture cannot: the tower
         kernel's launch plan for Kp·W rows (timed with events and a
         synchronize at its first use), the kernels' libraries, cuBLAS's
@@ -314,16 +377,17 @@ class RecommendationEngine:
         inputs = torch.from_numpy(host).to(self.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            self._device_rank(inputs)
+            self._device_rank(inputs, capped)
         current.wait_stream(stream)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
-            out = self._device_rank(inputs)
+            out = self._device_rank(inputs, capped)
         b = _Bucket(graph, torch.empty(host.shape, dtype=torch.int32, pin_memory=True), inputs, out)
-        self._buckets[host.shape[0]] = b
-        log.info("captured the serving graph of a %d-request bucket", host.shape[0])
+        self._buckets[(host.shape[0], capped)] = b
+        log.info("captured the %s serving graph of a %d-request bucket", "capped" if capped else "full",
+                 host.shape[0])
         return b
 
     # ------------------------------------------------------------------ #
@@ -347,12 +411,15 @@ class RecommendationEngine:
             u, c = int(uni.user_ids[0]), uni.cities[0]
             self.recommend(u, c, "friends", 0.7)
             self.recommend(u, c, "personal", 1.0)
+            if self._cap:  # the full one-request program, which a request over the cap runs
+                self.recommend_many([(u, c, "friends", 0.7)])
             if batch_pad:
                 self.recommend_many([(u, c, "friends", 0.7)], pad_to=batch_pad)
 
     @classmethod
     def from_dirs(cls, artifacts_dir: str, data_dir: str, retrieval_cfg=None,
                   device: str | torch.device | None = None, city_bounded: bool = True,
+                  bf16: bool = False, quantize_tables: bool = False, candidate_cap: int = 0,
                   **options) -> "RecommendationEngine":
         """Load an artifact directory and the serve CSVs
         (``hackathon_augmented_data.csv``, ``friendships.csv``) from
@@ -364,5 +431,5 @@ class RecommendationEngine:
             load_reviews_csv(os.path.join(data_dir, "hackathon_augmented_data.csv"))
         )
         friendships = load_friendships_csv(os.path.join(data_dir, "friendships.csv"))
-        return cls(bundle, main, friendships, retrieval_cfg, device=device,
-                   city_bounded=city_bounded, **options)
+        return cls(bundle, main, friendships, retrieval_cfg, device=device, city_bounded=city_bounded,
+                   bf16=bf16, quantize_tables=quantize_tables, candidate_cap=candidate_cap, **options)

@@ -8,7 +8,14 @@ themselves are held to these plain versions on a card
 The bar is the JAX kernel's, rtol 1e-5 / atol 1e-6, with the rtol taken
 against the scale of the terms (``ops/cross.py::cross_stack_term_scale``):
 the two sides are float32 programs that add in different orders, so where
-terms cancel they differ by ulps of the terms, not of the result."""
+terms cancel they differ by ulps of the terms, not of the result.
+
+At bf16 (``model.compute_dtype=bfloat16``) the plain forward is JAX's bit
+for bit. The backward is held to the term-scale bar with bf16's unit
+roundoff in place of 1e-5: rtol ``BF16_VJP_RTOL`` = 8 · 2⁻⁸ against
+``jax.vjp``, whose bf16 row and batch sums XLA's CPU backend accumulates in
+bf16 where the port sums in f32, with dx0's scale widened by the row sums'
+terms (``_row_sum_scale``)."""
 
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from hhrs_tpu_torch.ops import cross
 from tests.test_torch_port_model import one_torch_thread  # noqa: F401 — module fixture
 
 TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX kernel's bar, tests/test_pallas_kernels.py
+BF16_U = 2.0 ** -8  # bf16's unit roundoff
+BF16_VJP_RTOL = 8 * BF16_U  # measured: up to 4.9 · 2⁻⁸ of the scale
 SHAPES = [(64, 57, 3), (300, 128, 1), (32, 33, 2)]
 
 
@@ -60,6 +69,96 @@ def test_plain_forward_and_backward_match_pallas_kernel(variant, B, d, L):
     scales = cross.cross_stack_term_scale(tw, tb, tx0, 2 * y, variant)
     for name, g, ref, scale in zip(("y", "dx0", "dw", "db"), got, want, scales):
         cross.assert_close_to_scale(g, torch.from_numpy(ref), scale, **TOL, what=name)
+
+
+def _bf16(*arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B,d,L", SHAPES + [(512, 113, 3)])
+def test_plain_bf16_forward_is_jaxs_bit_for_bit(variant, B, d, L):
+    """cross_stack_apply on bf16 tensors against the jnp stack at
+    compute_dtype=bfloat16 and cross_stack_pallas (interpret mode) on bf16
+    refs: equal bit for bit."""
+    x0, w, b = _inputs(B, d, L)
+    tw, tb, tx0 = _bf16(w, b, x0)
+    y = cross.cross_stack_apply(tw, tb, tx0, variant)
+    assert y.dtype == torch.bfloat16
+    bf = jnp.bfloat16
+    jnp_y = jax_cross_stack_apply({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x0), variant,
+                                  compute_dtype=bf)
+    pallas_y = cross_stack_pallas({"w": jnp.asarray(w).astype(bf), "b": jnp.asarray(b).astype(bf)},
+                                  jnp.asarray(x0).astype(bf), variant, True)
+    got = y.float().numpy()
+    np.testing.assert_array_equal(got, np.asarray(jnp_y.astype(jnp.float32)))
+    np.testing.assert_array_equal(got, np.asarray(pallas_y.astype(jnp.float32)))
+
+
+def _row_sum_scale(w, b, x0, dy, variant) -> torch.Tensor:
+    """dx0's share of the scale that a bf16 row sum's rounding reaches: the
+    row sum s_l = dx . x_l (code) or dx . x0 (canonical) enters dx as
+    s_l · w_l, so its terms' scale, sum |dx| |x|, times |w_l|, in float64.
+    The f32 term scale leaves it out: there a row sum's rounding is far
+    below 1e-5 of the scale, in bf16 it is not."""
+    w, b, x0, dy = (t.double() for t in (w, b, x0, dy))
+    terms, _, _, _ = cross._walk_back(w, b, x0, dy, variant)
+    out = torch.zeros_like(x0)
+    for l, x_l, _, dx in terms:
+        other = x_l if variant == "code" else x0
+        out = torch.maximum(out, (dx.abs() * other.abs()).sum(dim=1, keepdim=True) * w[l].abs())
+    return out
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B,d,L", SHAPES + [(512, 113, 3)])
+def test_plain_bf16_backward_matches_jax_vjp(variant, B, d, L, record_property):
+    """cross_stack_backward_ref on bf16 tensors against jax.vjp of the jnp
+    stack on bf16 inputs and the VJP of cross_stack_pallas (interpret
+    mode) on bf16 refs, at BF16_VJP_RTOL against the term scale."""
+    x0, w, b = _inputs(B, d, L)
+    dy = np.random.default_rng(7).standard_normal((B, d)).astype(np.float32)
+    bf = jnp.bfloat16
+    params = {"w": jnp.asarray(w).astype(bf), "b": jnp.asarray(b).astype(bf)}
+    jx0, jdy = jnp.asarray(x0).astype(bf), jnp.asarray(dy).astype(bf)
+    _, vjp = jax.vjp(lambda p, x: jax_cross_stack_apply(p, x, variant), params, jx0)
+    _, pallas_vjp = jax.vjp(lambda p, x: cross_stack_pallas(p, x, variant, True), params, jx0)
+    tw, tb, tx0, tdy = _bf16(w, b, x0, dy)
+    got = cross.cross_stack_backward_ref(tw, tb, tx0, tdy, variant)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    scales = list(cross.cross_stack_term_scale(tw, tb, tx0, tdy, variant)[1:])
+    scales[0] = torch.maximum(scales[0], _row_sum_scale(tw, tb, tx0, tdy, variant))
+    share = 0.0
+    for jgrads in (vjp(jdy), pallas_vjp(jdy)):
+        (jp, jx) = jgrads
+        want = [torch.tensor(np.asarray(a.astype(jnp.float32))) for a in (jx, jp["w"], jp["b"])]
+        for name, g, ref, scale in zip(("dx0", "dw", "db"), got, want, scales):
+            share = max(share, cross.assert_close_to_scale(g, ref, scale, rtol=BF16_VJP_RTOL, atol=0.0,
+                                                           what=name)[1])
+    record_property("largest_share_of_the_allowance", share)
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+def test_cross_stack_bf16_compute_keeps_f32_weight_gradients(variant):
+    """CrossStack at compute_dtype=bfloat16 casts x0, w and b as JAX does:
+    a bf16 output, and f32 gradients for w, b and x0 that are the bf16
+    gradients of its leaves, cast up."""
+    x0, w, b = (torch.from_numpy(a) for a in _inputs(48, 41, 3, seed=3))
+    dy = torch.from_numpy(np.random.default_rng(4).standard_normal((48, 41)).astype(np.float32))
+    layer = cross.CrossStack(3, 41, variant)
+    with torch.no_grad():
+        layer.w.copy_(w)
+        layer.b.copy_(b)
+    xin = x0.clone().requires_grad_()
+    y = layer(xin, torch.bfloat16)
+    assert y.dtype == torch.bfloat16
+    y.backward(dy.to(torch.bfloat16))
+    leaves = [t.to(torch.bfloat16).requires_grad_() for t in (w, b, x0)]
+    want = cross.cross_stack_apply(*leaves, variant)
+    assert torch.equal(y, want)
+    want.backward(dy.to(torch.bfloat16))
+    for got, leaf in zip((layer.w.grad, layer.b.grad, xin.grad), leaves):
+        assert got.dtype == torch.float32 and torch.equal(got, leaf.grad.float())
 
 
 @pytest.mark.parametrize("variant", ["code", "canonical"])
@@ -111,13 +210,15 @@ def test_model_cross_goes_through_the_wrapper(monkeypatch):
     assert calls == ["canonical", "canonical"]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("sm_count", [132, 114, 1])
 @pytest.mark.parametrize("B", [1, 3, 4, 5, 511, 512, 4487, 8192, 100000])
-def test_launch_plan_covers_every_row_once_in_16_byte_copies(B, sm_count, backward):
+def test_launch_plan_covers_every_row_once_in_16_byte_copies(B, sm_count, backward, dtype):
     blocks = cross.plan_capacity(sm_count, backward)
     cluster = cross.CLUSTER if backward else 1
-    plan = cross.cross_plan(B, blocks, cluster)
+    align, elem = cross.ROW_ALIGN[dtype], torch.finfo(dtype).bits // 8
+    plan = cross.cross_plan(B, blocks, cluster, align)
     rows, grid, stages = plan.rows, plan.grid, plan.stages
     tiles = -(-B // rows)
     # block k walks tiles k, k + grid, …: every row lies in exactly one tile
@@ -130,13 +231,17 @@ def test_launch_plan_covers_every_row_once_in_16_byte_copies(B, sm_count, backwa
     assert 1 <= grid <= blocks and grid % cluster == 0 and grid - cluster < tiles
     assert 1 <= stages <= min(cross.MAX_STAGES, -(-tiles // grid)) and stages * rows <= cross.MAX_RING
     last = B - (tiles - 1) * rows
+    copied = last & ~(align - 1)  # the kernel's bulk-copied prefix of the last tile
     for d in (1, 33, 113, 256):
-        assert rows * d * 4 % 16 == 0  # a full tile is one bulk copy, and every tile starts 16-byte aligned
-        assert (last & ~3) * d * 4 % 16 == 0  # so is the bulk-copied prefix of the last tile
-    assert 4 <= rows <= cross.MAX_ROWS and 0 <= last - (last & ~3) <= 3
-    # the plan is a function of B and the card's capacity alone: the sum order of dw/db follows it
-    assert list(inspect.signature(cross.cross_plan).parameters) == ["B", "blocks", "cluster"]
-    assert cross.cross_plan.__wrapped__(B, blocks, cluster) == plan
+        assert rows * d * elem % 16 == 0  # a full tile is one bulk copy, and every tile starts 16-byte aligned
+        assert copied * d * elem % 16 == 0  # so is the bulk-copied prefix of the last tile
+    assert align <= rows <= cross.MAX_ROWS and rows % align == 0 and 0 <= last - copied < align
+    # the plan is a function of B, the card's capacity and the dtype's row alignment alone: the
+    # sum order of dw/db follows it
+    assert list(inspect.signature(cross.cross_plan).parameters) == ["B", "blocks", "cluster", "align"]
+    assert cross.cross_plan.__wrapped__(B, blocks, cluster, align) == plan
+    if dtype == torch.float32:  # the float32 plans are the ones taken before bfloat16 existed
+        assert cross.cross_plan(B, blocks, cluster) == plan
 
 
 def hvp_inputs(B: int, d: int, L: int, seed: int):

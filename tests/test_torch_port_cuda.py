@@ -478,7 +478,7 @@ def test_cuda_serving_graphs_equal_the_eager_path():
     golden = json.loads(GOLDEN_SERVE.read_text())
     engine = RecommendationEngine.from_dirs(str(ARTIFACT), str(REPO / "data"), device="cuda")
     engine.warmup(batch_pad=8)
-    assert set(engine._buckets) == {1, 8}
+    assert set(engine._buckets) == {(1, False), (8, False)}
     for req, want in zip(golden["requests"], golden["responses"]):
         got = engine.recommend(*req)
         assert got == engine._recommend_eager([req])[0], req
@@ -488,7 +488,7 @@ def test_cuda_serving_graphs_equal_the_eager_path():
         got = engine.recommend_many(reqs, pad_to=pad_to)
         assert got == engine._recommend_eager(reqs, pad_to=pad_to)
         assert json.loads(json.dumps(got)) == [golden["responses"][i] for i in golden["many"]][:K]
-    assert set(engine._buckets) == {1, 4, 8}
+    assert set(engine._buckets) == {(1, False), (4, False), (8, False)}
 
 
 @pytest.mark.cuda
@@ -577,3 +577,115 @@ def test_cuda_fused_epoch_plateau_decay_meets_the_per_step_run():
     bars = [dict(rtol=2e-3, atol=2e-4)] + [dict(rtol=5e-3, atol=2e-4)] * 3
     for h, w, bar in zip(runs[True].history, runs[False].history, bars):
         assert h["val_loss"] == pytest.approx(w["val_loss"], rel=bar["rtol"], abs=bar["atol"])
+
+
+# ---- bf16 and the engine's options -----------------------------------------
+
+CROSS_BF16_TOL = dict(rtol=2.0 ** -8, atol=0.0)  # bf16's unit roundoff, against the term scale
+
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16).contiguous() for t in tensors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B,d,L", [(1, 113, 3), (7, 113, 3), (9, 33, 2), (512, 113, 3), (1000, 33, 1),
+                                   (4487, 113, 3), (8192, 113, 3), (77, 256, 6)])
+def test_cuda_bf16_cross_kernels_match_plain_versions(variant, B, d, L):
+    """The bf16 instantiation against the plain versions on the same bf16
+    tensors, each launch counted as a bf16 launch; repeats bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _bf16(*_cross_inputs(B, d, L, seed=5))
+    before = (cross.cross_stack_forward.launches_bf16, cross.cross_stack_backward.launches_bf16,
+              cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
+    y = cross.cross_stack_forward(w, b, x0, variant)
+    grads = cross.cross_stack_backward(w, b, x0, dy, variant)
+    again = cross.cross_stack_backward(w, b, x0, dy, variant)
+    torch.cuda.synchronize()
+    assert (cross.cross_stack_forward.launches_bf16, cross.cross_stack_backward.launches_bf16,
+            cross.cross_stack_forward.launches, cross.cross_stack_backward.launches) == (
+        before[0] + 1, before[1] + 2, before[2], before[3])
+    assert all(t.dtype == torch.bfloat16 for t in (y, *grads))
+    ref = (cross.cross_stack_apply(w, b, x0, variant), *cross.cross_stack_backward_ref(w, b, x0, dy, variant))
+    scale = cross.cross_stack_term_scale(w, b, x0, dy, variant)
+    for name, got, want, sc in zip(("y", "dx0", "dw", "db"), (y, *grads), ref, scale):
+        cross.assert_close_to_scale(got, want, sc, **CROSS_BF16_TOL, what=name)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_cross_graph_replay_and_mixed_dtypes():
+    """bf16 forward and backward replayed from a CUDA graph equal the eager
+    calls bit for bit; inputs of two dtypes raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _bf16(*_cross_inputs(512, 113, 3, seed=6))
+    want = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        outs = (cross.cross_stack_forward(w, b, x0, "code"), *cross.cross_stack_backward(w, b, x0, dy, "code"))
+    for _ in range(2):
+        for t in outs:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, want))
+    with pytest.raises(TypeError, match="one dtype"):
+        cross.cross_stack_forward(w.float(), b, x0, "code")
+
+
+def _option_golden(name: str) -> dict:
+    return json.loads((REPO / f"hhrs_tpu_torch/testdata/serve_golden_hpo_r5_{name}.json").read_text())
+
+
+def _swaps(got: dict, want: dict, logits: list, tol: float) -> int:
+    """Tie swaps of ``got`` against ``want``; raises outside the rule."""
+    assert json.loads(json.dumps(got)).keys() == want.keys() and got.get("message") == want.get("message")
+    g, w = json.loads(json.dumps(got))["ranked_hotels"], want["ranked_hotels"]
+    assert len(g) == len(w)
+    logit = {h["hotel_id"]: x for h, x in zip(w, logits)}
+    payload = {h["hotel_id"]: h for h in w}
+    swaps = 0
+    for gh, wh in zip(g, w):
+        assert gh == payload[gh["hotel_id"]]
+        if gh["hotel_id"] != wh["hotel_id"]:
+            assert abs(logit[gh["hotel_id"]] - logit[wh["hotel_id"]]) < tol
+            swaps += 1
+    return swaps
+
+
+@pytest.mark.cuda
+def test_cuda_option_engines_meet_their_golden_files():
+    """quantize_tables against its golden file with 0 tie swaps (tower
+    kernel); bf16 against its golden file under the bf16 swap bar, scored
+    through the bf16 cross forward kernel; candidate_cap=16, city-bounded
+    and not, equal to the uncapped engine, both branches taken; graphed
+    equal to eager for each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    build = lambda **kw: RecommendationEngine.from_dirs(str(ARTIFACT), str(REPO / "data"), device="cuda", **kw)  # noqa: E731
+    golden = json.loads(GOLDEN_SERVE.read_text())
+    int8, bf16 = _option_golden("int8"), _option_golden("bf16")
+    dev = max(abs(a - c) for xs, ys in zip(bf16["logits"], bf16["logits_f32"]) for a, c in zip(xs, ys))
+    for engine, want, tol, no_swaps in ((build(quantize_tables=True), int8, 1e-4, True),
+                                        (build(bf16=True), bf16, 0.05 * dev, False)):
+        before = (tower.tower_eval.launches, cross.cross_stack_forward.launches_bf16)
+        swaps = 0
+        for req, resp, logits in zip(want["requests"], want["responses"], want["logits"]):
+            got = engine.recommend(*req)
+            assert got == engine._recommend_eager([req])[0], req
+            swaps += _swaps(got, resp, logits, tol)
+        assert swaps == 0 or not no_swaps
+        grew = (tower.tower_eval.launches > before[0], cross.cross_stack_forward.launches_bf16 > before[1])
+        assert grew == ((True, False) if no_swaps else (False, True))
+    for cb in (True, False):
+        capped, full = build(candidate_cap=16, city_bounded=cb), build(city_bounded=cb)
+        for req in golden["requests"]:
+            got = capped.recommend(*req)
+            assert got == full.recommend(*req) == capped._recommend_eager([req], capped=True)[0], req
+        assert min(capped.cap_branches.values()) > 0
+        assert set(capped._buckets) == {(1, True), (1, False)}

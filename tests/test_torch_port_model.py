@@ -1,9 +1,18 @@
 """Model parity: the port's DCNR module (weights moved in by the weight
-carrier) against hhrs_tpu's apply_dcn, plus the msgpack decoder and the
-artifact loader against flax."""
+carrier) against hhrs_tpu's apply_dcn, in f32 and at bf16 compute and
+storage, plus the msgpack decoder and the artifact loader against flax.
+
+The bf16 bar is relative to bf16 itself: ``max |port − JAX bf16|`` against
+``dev = max |JAX bf16 − JAX f32|`` on the same inputs, both measured in the
+test (``BF16_BAR``). Both sides round to bf16 at the same operations; they
+differ where an f32 value that both round lies within f32 summation noise
+of a bf16 rounding boundary (XLA and torch sum in different orders), and
+one such flip moves a logit by one bf16 rounding of one activation."""
 
 from __future__ import annotations
 
+import dataclasses
+import re
 from pathlib import Path
 
 import jax
@@ -14,10 +23,11 @@ from flax import serialization
 
 from hhrs_tpu.config import ModelConfig as JaxModelConfig
 from hhrs_tpu.models.dcn import ModelDims as JaxModelDims
-from hhrs_tpu.models.dcn import apply_dcn, init_dcn
+from hhrs_tpu.models.dcn import apply_dcn, apply_dcn_from_x0, init_dcn
 from hhrs_tpu.train.artifacts import load_artifact_bundle as jax_load_bundle
 from hhrs_tpu_torch.config import ModelConfig
 from hhrs_tpu_torch.models.convert import dcnr_from_jax, flatten_tree
+from hhrs_tpu_torch.models import dcn
 from hhrs_tpu_torch.models.dcn import ARCHS, DCNR, ModelDims
 from hhrs_tpu_torch.ops.nn import BatchNorm
 from hhrs_tpu_torch.train.artifacts import load_artifact_bundle
@@ -50,6 +60,10 @@ def _inputs(seed: int, B: int):
         np.stack([rng.integers(0, 6, B), rng.integers(0, 5, B)], axis=1),
         rng.standard_normal((B, 11)).astype(np.float32),
     )
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
 
 
 def _jax_model(arch: str, variant: str, seed: int = 0):
@@ -109,9 +123,116 @@ def test_train_mode_dropout_needs_generator():
     assert out.shape == (8,) and torch.isfinite(out).all()
 
 
-def test_bf16_config_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DCNR(DIMS, ModelConfig(compute_dtype="bfloat16"))
+@pytest.mark.parametrize("compute,storage,message", [
+    ("float16", "float32", "unknown model.compute_dtype 'float16'"),
+    ("float32", "int8", "unknown model.storage_dtype 'int8'"),
+    ("float32", "bfloat16", "requires model.compute_dtype='bfloat16'"),
+])
+def test_dtype_validation_errors_are_jaxs(compute, storage, message):
+    """The dtype rules of apply_dcn_from_x0, raised with its wording."""
+    params, state, jcfg, _ = _jax_model("dcnr", "code")
+    bad = dict(compute_dtype=compute, storage_dtype=storage)
+    with pytest.raises(ValueError, match=re.escape(message)) as jax_err:
+        apply_dcn(params, state, *_inputs(0, 4), cfg=dataclasses.replace(jcfg, **bad))
+    with pytest.raises(ValueError, match=re.escape(message)) as port_err:
+        DCNR(DIMS, ModelConfig(**bad))
+    assert str(port_err.value) == str(jax_err.value)
+
+
+BF16_BAR = 0.05  # max |port − JAX bf16| <= BF16_BAR · max |JAX bf16 − JAX f32|
+# Train mode on the small random model: XLA and torch sum the BatchNorm
+# statistics in different orders, so a few bf16 roundings of the normalized
+# activations flip; one flip moved a logit by up to 0.104 · dev (deep_only,
+# f32 storage). The 99th percentile is held to BF16_BAR, the largest to
+# BF16_FLIP_BAR.
+BF16_FLIP_BAR = 0.25
+STORAGE = [("bfloat16", "float32"), ("bfloat16", "bfloat16")]
+
+
+def _bf16_bar(got, want, want_f32, what: str, flips: bool = False) -> float:
+    """Hold ``got`` to ``want`` (JAX bf16) at the bar against ``dev``;
+    returns the ratio of the largest |Δ| to ``dev``."""
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    dev = float(np.abs(np.asarray(want, np.float64) - np.asarray(want_f32, np.float64)).max())
+    assert dev > 0, f"{what}: JAX bf16 equals JAX f32"
+    if flips:
+        assert np.quantile(err, 0.99) <= BF16_BAR * dev, (what, np.quantile(err, 0.99), dev)
+        assert err.max() <= BF16_FLIP_BAR * dev, (what, err.max(), dev)
+    else:
+        assert err.max() <= BF16_BAR * dev, (what, err.max(), dev)
+    return float(err.max() / dev)
+
+
+@pytest.mark.parametrize("compute,storage", STORAGE)
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_dcnr_matches_apply_dcn(arch, variant, compute, storage, record_property):
+    """Eval and train logits, the new BN state (f32) and x0 → logits
+    (apply_dcn_from_x0) at bf16 compute and at bf16 compute + storage,
+    against apply_dcn at the same dtypes."""
+    params, state, jcfg, cfg = _jax_model(arch, variant)
+    jcfg16 = dataclasses.replace(jcfg, compute_dtype=compute, storage_dtype=storage)
+    model = dcnr_from_jax(params, state, DIMS, dataclasses.replace(cfg, compute_dtype=compute,
+                                                                   storage_dtype=storage))
+    u, i, c, n = _inputs(3, 96)
+    tin = [torch.from_numpy(a) for a in (u, i, c, n)]
+    ratios = {}
+    for train in (False, True):
+        want, new_state = apply_dcn(params, state, u, i, c, n, cfg=jcfg16, train=train)
+        want32, state32 = apply_dcn(params, state, u, i, c, n, cfg=jcfg, train=train)
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in flatten_tree(state).items()},
+                              strict=False)  # the running statistics as they were before the pass
+        model.train(train)
+        with torch.no_grad():
+            got = model(*tin)
+        assert got.dtype == torch.float32
+        ratios[f"{'train' if train else 'eval'}_logits"] = _bf16_bar(got.numpy(), want, want32, "logits", train)
+        if train:
+            want_s, want_s32 = flatten_tree(np_tree(new_state)), flatten_tree(np_tree(state32))
+            for k, v in want_s.items():
+                buf = dict(model.named_buffers())[k]
+                assert buf.dtype == torch.float32
+                ratios[k] = _bf16_bar(buf.numpy(), v, want_s32[k], k, flips=True)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in flatten_tree(state).items()},
+                          strict=False)  # undo the train pass's update of the running statistics
+    with torch.no_grad():
+        x0 = model.eval().embed(*tin)
+    want, _ = apply_dcn_from_x0(params, state, x0.numpy(), cfg=jcfg16)
+    want32, _ = apply_dcn_from_x0(params, state, x0.numpy(), cfg=jcfg)
+    with torch.no_grad():
+        ratios["x0_logits"] = _bf16_bar(dcn.apply_dcn_from_x0(model, x0).numpy(), want, want32, "x0 → logits")
+    record_property("max_ratio_to_dev", max(ratios.values()))
+
+
+@pytest.fixture(scope="module")
+def hpo_r5_rows():
+    """4,096 rows of data/'s train split (the port's Preprocessor) and the
+    hpo_r5 artifact: the configuration and inputs the engine and trainer run."""
+    from hhrs_tpu_torch.config import Config
+    from hhrs_tpu_torch.train.cli import build_dataset
+
+    splits, _ = build_dataset(str(REPO / "data"), Config())
+    rows = np.random.default_rng(0).permutation(splits.n_train)[:4096]
+    feats = [getattr(splits, f"train_{k}")[rows] for k in ("user", "item", "cat", "num")]
+    return jax_load_bundle(str(ARTIFACT)), load_artifact_bundle(str(ARTIFACT)), feats
+
+
+@pytest.mark.parametrize("compute,storage", STORAGE)
+def test_bf16_hpo_r5_matches_apply_dcn(hpo_r5_rows, compute, storage, record_property):
+    """The hpo_r5 model on real rows, eval and train, at BF16_BAR on the
+    largest |Δ| (no flip allowance)."""
+    jb, bundle, feats = hpo_r5_rows
+    jcfg32 = dataclasses.replace(jb.model_cfg, dropout=0.0)
+    jcfg = dataclasses.replace(jcfg32, compute_dtype=compute, storage_dtype=storage)
+    cfg = dataclasses.replace(bundle.model_cfg, dropout=0.0, compute_dtype=compute, storage_dtype=storage)
+    model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, cfg)
+    tin = [torch.from_numpy(a) for a in feats]
+    for train in (False, True):
+        want, _ = apply_dcn(jb.params, jb.bn_state, *feats, cfg=jcfg, train=train)
+        want32, _ = apply_dcn(jb.params, jb.bn_state, *feats, cfg=jcfg32, train=train)
+        with torch.no_grad():
+            got = model.train(train)(*tin)
+        record_property(f"{'train' if train else 'eval'}_ratio", _bf16_bar(got.numpy(), want, want32, "logits"))
 
 
 def test_weight_carrier_rejects_a_mismatched_tree():

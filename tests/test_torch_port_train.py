@@ -370,6 +370,85 @@ def test_training_steps_track_jax_leaf_by_leaf(record_property):
             assert max(held.values()) <= 1e-5, sorted(held.items(), key=lambda kv: -kv[1])[:5]
 
 
+# bf16 training (compute + storage bf16). XLA's CPU reductions of bf16
+# tensors (the VJP's bias and row sums) accumulate in bf16, the port's in
+# f32 as the card's do, so the two bf16 backward passes differ by a share
+# of the bf16 effect itself: measured on the hpo_r5 step below, up to 0.90
+# of |JAX bf16 − JAX f32| per leaf (0.04 to 0.90), while the port's bf16
+# gradients are no farther from JAX's f32 ones than JAX's bf16 ones are
+# (0.52 to 1.04 of it).
+BF16_GRAD_BAR = 1.0  # rel(port, JAX bf16) <= BF16_GRAD_BAR · rel(JAX bf16, JAX f32)
+BF16_GRAD_F32_BAR = 1.25  # rel(port, JAX f32) <= BF16_GRAD_F32_BAR · rel(JAX bf16, JAX f32)
+BF16_VAL_RTOL = 1e-2  # epoch 0's val loss against JAX's bf16 trainer (one bf16 ulp is 2^-7 relative)
+
+
+def test_bf16_step_gradients_track_jax_leaf_by_leaf(record_property):
+    """One step's gradients at compute + storage bf16 from the hpo_r5
+    weights on a batch of data/, dropout 0, against jax.grad of the same
+    loss through apply_dcn, leaf by leaf (relative, in norm), except the
+    pre-BN biases (zero exact gradient, C1)."""
+    from hhrs_tpu.models.dcn import apply_dcn
+
+    model_cfg, train_cfg = golden_configs()
+    B = train_cfg.batch_size
+    jb, bundle = jax_load_bundle(str(ARTIFACT)), load_artifact_bundle(str(ARTIFACT))
+    splits, _ = port_splits(str(DATA / REVIEWS))
+    rows = np.random.default_rng(train_cfg.seed).permutation(splits.n_train)[:B]
+    batch = {k: getattr(splits, f"train_{k}")[rows] for k in ("user", "item", "cat", "num", "y")}
+
+    def jax_grads(cfg):
+        def loss(p):
+            x, _ = apply_dcn(p, jb.bn_state, batch["user"], batch["item"], batch["cat"], batch["num"],
+                             cfg=cfg, train=True)
+            y = batch["y"]
+            return jax.numpy.mean(jax.numpy.maximum(x, 0) - x * y + jax.numpy.log1p(jax.numpy.exp(-abs(x))))
+        return flatten_tree(np_tree(jax.grad(loss)(jax.tree.map(jax.numpy.asarray, jb.params))))
+
+    bf16 = dict(compute_dtype="bfloat16", storage_dtype="bfloat16")
+    jcfg = JaxModelConfig(**dataclasses.asdict(model_cfg))
+    want32, want = jax_grads(jcfg), jax_grads(dataclasses.replace(jcfg, **bf16))
+    model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, dataclasses.replace(model_cfg, **bf16),
+                          "cpu", train=True)
+    t = {k: torch.from_numpy(v) for k, v in batch.items()}
+    logits = model(t["user"], t["item"], t["cat"], t["num"])
+    assert logits.dtype == torch.float32
+    torch.nn.functional.binary_cross_entropy_with_logits(logits, t["y"]).backward()
+    got = {n: p.grad.double().numpy() for n, p in model.named_parameters()}
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert got.keys() == want.keys()
+    held = [k for k in want if not PRE_BN_BIAS.fullmatch("params." + k)]
+    assert len(want) - len(held) == 2 * model_cfg.n_res_blocks
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    to_jax = {k: rel(got[k], want[k]) / rel(want[k], want32[k]) for k in held}
+    to_f32 = {k: rel(got[k], want32[k]) / rel(want[k], want32[k]) for k in held}
+    record_property("largest_share_to_jax_bf16", _largest(to_jax))
+    record_property("largest_share_to_jax_f32", _largest(to_f32))
+    assert max(to_jax.values()) <= BF16_GRAD_BAR, _largest(to_jax)
+    assert max(to_f32.values()) <= BF16_GRAD_F32_BAR, _largest(to_f32)
+
+
+def test_bf16_train_dcn_two_epochs_per_step_and_fused(synthetic):
+    """train_dcn at compute + storage bf16, per step and under
+    train.fused_epoch (bit-identical on the CPU): finite losses, f32
+    exported params and BN state, and epoch 0's val loss within
+    BF16_VAL_RTOL of JAX's bf16 trainer from the same weights."""
+    splits, art = jax_splits(os.path.join(synthetic, REVIEWS))
+    jdims = JaxModelDims.from_artifacts(art)
+    bf16 = dict(SMALL_MODEL, compute_dtype="bfloat16", storage_dtype="bfloat16")
+    tkw = dict(lr=0.01, batch_size=256, n_epochs=2, seed=3, eval_batch_size=1024, early_stop_patience=10)
+    params, bn_state = np_tree(init_dcn(jax.random.PRNGKey(5), jdims, JaxModelConfig(**SMALL_MODEL)))
+    want = jax_train_dcn(splits, jdims, JaxModelConfig(**bf16), JaxTrainConfig(**tkw), init_state=(params, bn_state))
+    runs = [train_dcn(splits, port_dims(jdims), ModelConfig(**bf16), TrainConfig(**tkw, fused_epoch=fused),
+                      init_state=(params, bn_state), device="cpu") for fused in (False, True)]
+    assert runs[0].history == runs[1].history
+    assert_same_weights(runs[0], runs[1])
+    got = runs[0]
+    assert len(got.history) == 2 and all(np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in got.history)
+    leaves = {**flatten_tree(got.params), **flatten_tree(got.bn_state)}
+    assert all(v.dtype == np.float32 for v in leaves.values())
+    assert got.history[0]["val_loss"] == pytest.approx(want.history[0]["val_loss"], rel=BF16_VAL_RTOL)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reverse_carrier_inverts_dcnr_from_jax(arch):
     jdims = JaxModelDims(n_users=30, n_items=20, cat_dims=(("city", 6), ("hotel_type", 5)),
