@@ -101,7 +101,28 @@ Phases (any failure exits non-zero and prints no result line):
    calls, which must show one cross kernel a call: a missing device time,
    more than 50 cross-kernel launches, or fewer than the profiler's
    ``PROFILE_DROPS`` allow fails the phase; the same for the bf16
-   instantiation, in the same run.
+   instantiation, in the same run;
+9. the HTTP server and its serving stack: builds the port's CLI stack
+   (``serve/cli.py::build_stack``: the engine on cuda from a registry, the
+   dynamic batcher at a 2 ms window and 8 requests, the registry and data
+   pollers, buckets 1, 8 and 64 captured before traffic) and serves it on
+   127.0.0.1 from a thread, beside a server of the bare engine. The golden
+   sweep through ``POST /recommendations``, one keep-alive client, in turns
+   through both: 0 tie swaps, every body equal. The sweep as
+   ``/recommendations/batch`` chunks of 64, equal to the single bodies; 16
+   concurrent clients through each server, all 200 and equal;
+   ``/similar_items`` against the golden answers; ``/healthz`` and
+   ``/metrics`` must count the requests sent. Then, under 8 clients, a
+   registry hot swap to phase 7's artifact and three data swaps: every
+   answer 200, after the registry swap every body equal to the new engine's
+   direct answer, and the card's memory after the data swaps (old stacks
+   closed) no more than 8 MiB above that after the registry swap. The tower
+   kernel's launches are set to 0 just before the stack is built and must be
+   > 0 after the phase. Prints the p50 and p99 at one client, requests/s at
+   16 clients with and without the batcher (clients in this process, and
+   again from a client process: ``chip_smoke.py --http-client``), the
+   batch endpoint's p50 at 64 requests, the engine's own p50s on the same
+   sweep, and (a diagnostic) the one-client p50 with Nagle's algorithm on.
 
 The last lines are one JSON object of kernel measurements, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -115,6 +136,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1197,6 +1219,390 @@ def bf16_training(splits, preproc, model_cfg, train_cfg, dev, card: str) -> dict
     return {"per_step": runs["per-step"][1], "fused": runs["fused-epoch"][1]}
 
 
+class _Client:
+    """One keep-alive HTTP/1.1 connection to a server on 127.0.0.1."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+
+    def call(self, method: str, path: str, payload=None) -> tuple[int, bytes]:
+        body = None if payload is None else json.dumps(payload)
+        self.conn.request(method, path, body=body,
+                          headers={"Content-Type": "application/json"} if body is not None else {})
+        r = self.conn.getresponse()
+        return r.status, r.read()
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _payload(req: list) -> dict:
+    u, c, m, lam = req
+    return {"user_id": u, "city": c, "type": m, "lambda_param": lam}
+
+
+def http_client_main(argv: list) -> int:
+    """``chip_smoke.py --http-client PORT CLIENTS PER_CLIENT``: a client
+    process for phase 9, so the server's host work is timed without its
+    clients in the same interpreter. CLIENTS threads each send PER_CLIENT
+    golden requests over one keep-alive connection; prints one JSON line
+    of the latencies (s) and the wall time; exits 1 on any answer but 200."""
+    port, clients, per_client = (int(x) for x in argv)
+    reqs = json.loads((REPO / GOLDEN).read_text())["requests"]
+
+    def run(c: int) -> list:
+        cl, lat = _Client(port), []
+        for k in range(per_client):
+            t0 = time.perf_counter()
+            status, _ = cl.call("POST", "/recommendations", _payload(reqs[(c * 7 + k) % len(reqs)]))
+            lat.append(time.perf_counter() - t0)
+            if status != 200:
+                raise SmokeFailure(f"the client process got {status}")
+        cl.close()
+        return lat
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        lats = list(pool.map(run, range(clients)))
+    print(json.dumps({"latencies": [x for lat in lats for x in lat], "wall": time.perf_counter() - t0}))
+    return 0
+
+
+def _append_review(path: Path, user_id: int) -> None:
+    """Append a copy of the CSV's first review row under a new guest id."""
+    lines = path.read_text().splitlines()
+    header, first = lines[0].split(","), lines[1].split(",")
+    first[header.index("guest_id")] = str(user_id)
+    with open(path, "a") as f:
+        f.write(",".join(first) + "\n")
+
+
+def http_phase(golden: dict, trained_dir: str, dev, card: str) -> dict:
+    """Phase 9: the port's CLI stack (``serve/cli.py::build_stack``: the
+    engine on the card, the dynamic batcher, the hot-reload pollers, every
+    bucket captured) served on 127.0.0.1 from a thread, with a second server
+    of the bare engine beside it. The golden sweep through both; the sweep
+    as /recommendations/batch chunks of 64; 16 concurrent clients; the read
+    routes and the request count; a registry hot swap and three data swaps
+    under traffic, then the card's memory. Returns the tower kernel's
+    launches and the timings. Runs on the CPU too (no memory check there),
+    to rehearse it."""
+    import gc
+    import shutil
+
+    import torch
+
+    from hhrs_tpu_torch.db.registry import ModelRegistry
+    from hhrs_tpu_torch.ops import tower
+    from hhrs_tpu_torch.serve import cli, reload
+    from hhrs_tpu_torch.serve.http import make_server
+    from hhrs_tpu_torch.serve.schemas import HTTP_BATCH_PAD
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_http"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "data").mkdir(parents=True)
+    for name in ("hackathon_augmented_data.csv", "friendships.csv"):
+        shutil.copy2(REPO / "data" / name, work / "data" / name)
+    db = str(work / "registry.sqlite")
+    ModelRegistry(db, create=True).register("shipped", str(REPO / ARTIFACT))
+    reload.OLD_STACK_CLOSE_GRACE_S = 0.5  # a swapped-out stack closes half a second after its swap
+    reqs, n_req = golden["requests"], len(golden["requests"])
+    servers, stack = [], None
+    on_card = dev.type == "cuda"
+
+    def memory() -> int:
+        """Card memory allocated, after a collection and a synchronize."""
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    try:
+        mem0 = memory()
+        tower.tower_eval.launches = 0
+        t0 = time.perf_counter()
+        args = cli.build_parser().parse_args(
+            ["--artifacts", f"registry:{db}", "--data", str(work / "data"), "--device", str(dev),
+             "--batch-window-ms", "2", "--max-batch", "8", "--warm-http-batch",
+             "--reload-poll-s", "3600", "--data-poll-s", "3600"])
+        stack = cli.build_stack(args)
+        build_s = time.perf_counter() - t0
+        engine = stack.engine.current._engine  # holder -> batcher -> engine
+        buckets = sorted(engine._buckets)
+        mem1 = memory()
+        if on_card and buckets != [(1, False), (8, False), (HTTP_BATCH_PAD, False)]:
+            raise SmokeFailure(f"the CLI stack captured buckets {buckets}, not 1, 8 and {HTTP_BATCH_PAD}")
+        for target in (stack.engine, engine):  # the CLI stack (batcher on), the bare engine
+            server = make_server(target, "127.0.0.1", 0)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            servers.append(server)
+        port = {"batched": servers[0].server_address[1], "unbatched": servers[1].server_address[1]}
+        print(f"[http] CLI stack built and warmed in {build_s:.2f} s: buckets {buckets}, "
+              f"batcher window 2 ms / max 8, registry and data pollers on; card memory "
+              f"{(mem1 - mem0) / 2**20:.1f} MiB")
+
+        # The golden sweep through a socket, one client, in turns.
+        sent = 0
+        single, lat = {}, {"batched": [], "unbatched": []}
+        for label in ("unbatched", "batched", "batched", "unbatched"):
+            client, swaps = _Client(port[label]), 0
+            for i, (req, want, logits) in enumerate(zip(reqs, golden["responses"], golden["logits"])):
+                t0 = time.perf_counter()
+                status, body = client.call("POST", "/recommendations", _payload(req))
+                lat[label].append(time.perf_counter() - t0)
+                got = json.loads(body)
+                n = compare_response(got, want, logits) if status == 200 else None
+                if n is None or n:
+                    raise SmokeFailure(f"POST /recommendations {req} ({label}) gave {status} and not the golden "
+                                       f"response with 0 tie swaps")
+                if single.setdefault(i, got) != got:
+                    raise SmokeFailure(f"POST /recommendations {req}: the {label} body differs from an earlier one")
+            client.close()
+            sent += n_req
+        q = lambda xs, p: sorted(xs)[min(int(len(xs) * p), len(xs) - 1)] * 1e3  # noqa: E731
+        timings = {f"{k}_1client_{name}": q(v, p) for k, v in lat.items()
+                   for name, p in (("p50_ms", 0.5), ("p99_ms", 0.99))}
+        for label in ("unbatched", "batched"):
+            print(f"[time] http POST /recommendations, 1 client, {label}: p50 "
+                  f"{timings[f'{label}_1client_p50_ms']:.3f} ms, p99 {timings[f'{label}_1client_p99_ms']:.3f} ms "
+                  f"over {2 * n_req} requests (host clock, keep-alive socket) on {card}")
+        print(f"[http] golden sweep: {4 * n_req} POST /recommendations match the golden file with 0 tie swaps")
+        # The same server with Nagle's algorithm on, as the JAX package's handler has it: the body of each
+        # response may wait for the client's delayed ACK of the headers.
+        nagle = make_server(engine, "127.0.0.1", 0)
+        nagle.RequestHandlerClass = type("NagleOn", (nagle.RequestHandlerClass,), {"disable_nagle_algorithm": False})
+        threading.Thread(target=nagle.serve_forever, daemon=True).start()
+        client, lat_nagle = _Client(nagle.server_address[1]), []
+        for req in reqs[:40]:
+            t0 = time.perf_counter()
+            if client.call("POST", "/recommendations", _payload(req))[0] != 200:
+                raise SmokeFailure("the server with Nagle's algorithm on did not answer 200")
+            lat_nagle.append(time.perf_counter() - t0)
+        client.close()
+        nagle.shutdown()
+        nagle.server_close()
+        sent += 40
+        timings["unbatched_1client_nagle_on_p50_ms"] = statistics.median(lat_nagle) * 1e3
+        print(f"[time] http POST /recommendations, 1 client, unbatched, Nagle's algorithm on (a diagnostic): p50 "
+              f"{timings['unbatched_1client_nagle_on_p50_ms']:.3f} ms over 40 requests on {card}")
+
+        # The sweep as /recommendations/batch chunks of 64, equal to the single bodies.
+        client = _Client(port["batched"])
+        for start in range(0, n_req, HTTP_BATCH_PAD):
+            chunk = list(range(start, min(start + HTTP_BATCH_PAD, n_req)))
+            status, body = client.call("POST", "/recommendations/batch", {"requests": [_payload(reqs[i]) for i in chunk]})
+            if status != 200 or json.loads(body)["responses"] != [single[i] for i in chunk]:
+                raise SmokeFailure(f"POST /recommendations/batch of requests {chunk[0]}..{chunk[-1]} differs from "
+                                   f"the single-request bodies")
+            sent += len(chunk)
+        batch64 = {"requests": [_payload(r) for r in reqs[:HTTP_BATCH_PAD]]}
+        lat64 = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            status, _ = client.call("POST", "/recommendations/batch", batch64)
+            lat64.append(time.perf_counter() - t0)
+            if status != 200:
+                raise SmokeFailure(f"POST /recommendations/batch gave {status}")
+            sent += HTTP_BATCH_PAD
+        timings["batch64_p50_ms"] = statistics.median(lat64) * 1e3
+        print(f"[time] http POST /recommendations/batch of 64 requests: p50 {timings['batch64_p50_ms']:.3f} ms "
+              f"over 20 calls on {card}")
+
+        # 16 concurrent clients, with the batcher and without, in turns.
+        def hammer(label: str, per_client: int = 30) -> float:
+            def client_run(c: int) -> list:
+                cl, out = _Client(port[label]), []
+                for k in range(per_client):
+                    i = (c * 7 + k) % n_req
+                    status, body = cl.call("POST", "/recommendations", _payload(reqs[i]))
+                    out.append((i, status, body))
+                cl.close()
+                return out
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=16) as pool:
+                results = [r for rs in pool.map(client_run, range(16)) for r in rs]
+            wall = time.perf_counter() - t0
+            bad = [(i, s) for i, s, b in results if s != 200 or json.loads(b) != single[i]]
+            if bad:
+                raise SmokeFailure(f"16 concurrent clients ({label}): {len(bad)} responses not 200 or not equal to "
+                                   f"the unbatched bodies, first {bad[:3]}")
+            return len(results) / wall
+
+        rps = {"batched": [], "unbatched": []}
+        for label in ("unbatched", "batched", "batched", "unbatched"):
+            rps[label].append(hammer(label))
+            sent += 16 * 30
+        timings.update({f"{k}_16clients_rps": v for k, v in rps.items()})
+        for label, xs in rps.items():
+            print(f"[time] http 16 concurrent clients, {label}: {', '.join(f'{x:.1f}' for x in xs)} requests/s "
+                  f"(2 rounds of 480 requests, keep-alive sockets; all 200 and equal to the unbatched bodies) "
+                  f"on {card}")
+
+        # The same traffic from a client process: the server's interpreter serves alone.
+        def client_process(label: str, clients: int, per_client: int) -> dict:
+            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--http-client", str(port[label]),
+                                  str(clients), str(per_client)], capture_output=True, text=True, timeout=300)
+            if out.returncode:
+                raise SmokeFailure(f"the client process failed: {out.stderr[-2000:]}")
+            return json.loads(out.stdout.strip().splitlines()[-1])
+
+        oop = {"batched": {"one": [], "rps": []}, "unbatched": {"one": [], "rps": []}}
+        for label in ("unbatched", "batched", "batched", "unbatched"):
+            oop[label]["one"] += client_process(label, 1, n_req)["latencies"]
+            r = client_process(label, 16, 30)
+            oop[label]["rps"].append(len(r["latencies"]) / r["wall"])
+            sent += n_req + 16 * 30
+        for label, r in oop.items():
+            timings.update({f"{label}_1client_process_p50_ms": q(r["one"], 0.5),
+                            f"{label}_1client_process_p99_ms": q(r["one"], 0.99),
+                            f"{label}_16clients_process_rps": r["rps"]})
+            print(f"[time] http from a client process, {label}: 1 client p50 {q(r['one'], 0.5):.3f} ms, p99 "
+                  f"{q(r['one'], 0.99):.3f} ms over {len(r['one'])} requests; 16 clients "
+                  f"{', '.join(f'{x:.1f}' for x in r['rps'])} requests/s (2 rounds of 480) on {card}")
+
+        # The read routes, and the request count: the traffic sent.
+        for item, n, want in golden["similar"]:
+            status, body = client.call("GET", f"/similar_items?item_id={item}&n={n}")
+            got = json.loads(body)
+            if (want is None and status != 404) or (want is not None and (status, got) != (200, {"similar_item_ids": want})):
+                raise SmokeFailure(f"GET /similar_items?item_id={item}&n={n} gave {status} {got}")
+        status, body = client.call("GET", "/healthz")
+        health = json.loads(body)
+        status_m, metrics = client.call("GET", "/metrics")
+        count_line = f"hhrs_recommend_requests_total {sent}"
+        if (status, status_m) != (200, 200) or health["latency"]["count"] != sent or \
+                count_line not in metrics.decode().splitlines() or health["model"] != str(REPO / ARTIFACT):
+            raise SmokeFailure(f"/healthz or /metrics disagree with the {sent} requests sent: {health}, "
+                               f"{metrics.decode()[:200]}")
+        client.close()
+        print(f"[http] /similar_items match the golden answers; /healthz and /metrics count the {sent} requests "
+              f"sent; hot swaps so far {health['hot_swaps']}")
+
+        # The engine alone on the same sweep: the HTTP layer's own cost is the difference.
+        eng_one = []
+        for req in reqs:
+            t0 = time.perf_counter()
+            engine.recommend(*req)
+            eng_one.append(time.perf_counter() - t0)
+        eng_8, eng_64 = [], []
+        for k in range(20):
+            t0 = time.perf_counter()
+            engine.recommend_many(reqs[8 * k % n_req:][:8], pad_to=8)
+            eng_8.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            engine.recommend_many(reqs[:HTTP_BATCH_PAD], pad_to=HTTP_BATCH_PAD)
+            eng_64.append(time.perf_counter() - t0)
+        timings.update(engine_recommend_p50_ms=statistics.median(eng_one) * 1e3,
+                       engine_recommend_p99_ms=q(eng_one, 0.99),
+                       engine_many8_p50_ms=statistics.median(eng_8) * 1e3,
+                       engine_many64_p50_ms=statistics.median(eng_64) * 1e3)
+        print(f"[time] engine alone on the same sweep: recommend p50 {timings['engine_recommend_p50_ms']:.3f} ms, "
+              f"p99 {timings['engine_recommend_p99_ms']:.3f} ms; recommend_many(8, pad_to=8) p50 "
+              f"{timings['engine_many8_p50_ms']:.3f} ms; recommend_many(64, pad_to=64) p50 "
+              f"{timings['engine_many64_p50_ms']:.3f} ms (host clock) on {card}")
+        bare = servers.pop()  # from here on only the CLI stack serves: the swaps may free the bare engine
+        bare.shutdown()
+        bare.server_close()
+        del engine, bare
+
+        # A registry hot swap and three data swaps under traffic.
+        stop, statuses = threading.Event(), []
+
+        def traffic(c: int) -> None:
+            cl, k = _Client(port["batched"]), 0
+            while not stop.is_set():
+                if c == 7:
+                    status, _ = cl.call("GET", f"/similar_items?item_id={golden['similar'][0][0]}&n=10")
+                else:
+                    status, _ = cl.call("POST", "/recommendations", _payload(reqs[(c * 17 + k) % n_req]))
+                statuses.append(status)
+                k += 1
+            cl.close()
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            futures = [pool.submit(traffic, c) for c in range(8)]
+            try:
+                time.sleep(0.3)
+                ModelRegistry(db).register("trained", trained_dir)
+                t0 = time.perf_counter()
+                if not stack.reloader.check_once():
+                    raise SmokeFailure("the registry poller did not swap in the newly activated model")
+                swap_s = [time.perf_counter() - t0]
+                time.sleep(0.3)
+                new_engine = stack.engine.current._engine
+                streams = [new_engine._graph_stream.cuda_stream] if on_card else []
+                client = _Client(port["batched"])
+                for req in reqs[:24]:
+                    status, body = client.call("POST", "/recommendations", _payload(req))
+                    want = json.loads(json.dumps(new_engine.recommend_many([req], pad_to=8)[0]))
+                    if (status, json.loads(body)) != (200, want):
+                        raise SmokeFailure(f"after the swap, POST /recommendations {req} differs from the new "
+                                           f"engine's direct answer")
+                health = json.loads(client.call("GET", "/healthz")[1])
+                client.close()
+                del new_engine
+                if health["model"] != trained_dir or health["hot_swaps"] != 1:
+                    raise SmokeFailure(f"/healthz after the registry swap: {health}")
+                time.sleep(reload.OLD_STACK_CLOSE_GRACE_S + 0.5)  # the old stack closes
+                mem_swap1 = memory()
+                data_csv = work / "data" / "hackathon_augmented_data.csv"
+                for n in range(3):
+                    _append_review(data_csv, 90_000_000 + n)
+                    t0 = time.perf_counter()
+                    if stack.data_reloader.check_once() or not stack.data_reloader.check_once():
+                        raise SmokeFailure(f"data swap {n + 1} did not debounce once and then swap")
+                    swap_s.append(time.perf_counter() - t0)
+                    if on_card:
+                        streams.append(stack.engine.current._engine._graph_stream.cuda_stream)
+                    time.sleep(reload.OLD_STACK_CLOSE_GRACE_S + 0.2)  # the old stack closes, its stream is free
+            finally:
+                stop.set()
+                for f in futures:
+                    f.result()
+        mem_swap4 = memory()
+        live = stack.engine.current._engine
+        bad = [s for s in statuses if s != 200]
+        print(f"[http] hot swaps under 8 clients (7 POST /recommendations, 1 GET /similar_items): "
+              f"{len(statuses)} requests, {len(bad)} not 200; the registry swap took {swap_s[0]:.2f} s and each "
+              f"data swap {', '.join(f'{x:.2f}' for x in swap_s[1:])} s (build, capture, swap); after the registry "
+              f"swap POST /recommendations equals the new engine's direct answers; live engine buckets "
+              f"{sorted(live._buckets)}, serving {live.gen.universe.n_users} users")
+        print(f"[http] card memory allocated: {mem0 / 2**20:.1f} MiB before the stack, {mem1 / 2**20:.1f} MiB with "
+              f"it, {mem_swap1 / 2**20:.1f} MiB after the registry swap, {mem_swap4 / 2**20:.1f} MiB after 3 more "
+              f"data swaps (old stacks closed); capture streams of the engines after each swap: {streams} "
+              f"({len(set(streams))} distinct)")
+        if bad or not statuses:
+            raise SmokeFailure(f"{len(bad)} requests under the hot swaps were not answered 200: {bad[:5]}")
+        if 90_000_002 not in {int(u) for u in live.gen.universe.user_ids}:
+            raise SmokeFailure("the data swaps did not reach the live engine")
+        if mem_swap4 > mem_swap1 + 8 * 2**20:
+            raise SmokeFailure(f"card memory grew with the data swaps: {mem_swap1} -> {mem_swap4} bytes")
+        memory()
+        launches = tower.tower_eval.launches
+        if on_card and launches <= 0:
+            raise SmokeFailure("the HTTP phase never launched the tower kernel")
+        print(f"[http] tower_eval launches over the phase: {launches} (the eager run and the capture of each "
+              f"bucket of each stack built; requests replay the graphs); phase took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return {"launches": launches, "timings": timings, "memory_mib": {
+            "before": mem0 / 2**20, "stack": mem1 / 2**20, "after_registry_swap": mem_swap1 / 2**20,
+            "after_3_data_swaps": mem_swap4 / 2**20}, "swaps_under_traffic": len(statuses)}
+    finally:
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+        if stack is not None:
+            for poller in (stack.reloader, stack.data_reloader):
+                poller.stop()
+            stack.engine.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1412,6 +1818,9 @@ def main() -> int:
     cross_rows = cross_timings(cross, dev, card)
     cross_rows_bf16 = cross_timings(cross, dev, card, torch.bfloat16)
 
+    # ---- phase 9: the HTTP server and its serving stack ------------------
+    http = http_phase(golden, str(OUT_DIR / "train_smoke_artifact"), dev, card)
+
     r = rows[128]
     kernels.append({
         "name": "tower_eval", "route": "cuda", "source": "hhrs_tpu_torch/csrc/tower_eval.cu",
@@ -1421,6 +1830,7 @@ def main() -> int:
         "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
         "by_batch": [rows[B] for B, _ in TOWER_TIMED_B if B != 128],
         "launches_by_option": {k: options[k]["launches"]["tower"] for k in ("int8", "cap16", "cap16_all_rows")},
+        "http_launches": http["launches"], "http_timings": http["timings"], "http_memory_mib": http["memory_mib"],
     })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
                            ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):
@@ -1457,6 +1867,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(http_client_main(sys.argv[2:]) if sys.argv[1:2] == ["--http-client"] else main())
     except SmokeFailure as e:
         sys.exit(fail(str(e)))

@@ -1,9 +1,10 @@
-"""Hyperparameters of the model, the trainer, the data and retrieval, plus
-shared shape arithmetic.
+"""Hyperparameters of the model, the trainer, the data, retrieval and
+serving, plus shared shape arithmetic.
 
 Copies of ``hhrs_tpu/config.py``'s ``ModelConfig``, ``TrainConfig``,
-``DataConfig`` and ``RetrievalConfig`` (same fields and defaults) and of
-the ``section.field=value`` overrides of ``Config.apply_overrides``, and of
+``DataConfig``, ``RetrievalConfig`` and ``ServeConfig`` (same fields and
+defaults) and of the ``section.field=value`` overrides of
+``Config.apply_overrides``, and of
 ``hhrs_tpu/utils/shapes.py::round_up``. An artifact manifest's
 ``model_config`` loads into :class:`ModelConfig` field for field;
 :func:`check_dtypes` holds its dtypes to the JAX model's rules. Trainer
@@ -154,11 +155,32 @@ class RetrievalConfig:
 
 
 @dataclass
+class ServeConfig:
+    """Serving knobs (same fields and defaults as the JAX package; the
+    serve CLI's flags override them)."""
+
+    host: str = "0.0.0.0"
+    port: int = 8000
+    artifacts_dir: str = "artifacts"
+    data_dir: str = "data"
+    batch_window_ms: float = 0.0  # > 0: dynamic batching (serve/batcher.py)
+    max_batch: int = 8
+    quantize_tables: bool = False
+    candidate_cap: int = 0
+    cache_entries: int = 0  # > 0: LRU response cache (serve/cache.py)
+    cache_ttl_s: float = 0.0
+    data_poll_s: float = 0.0  # > 0: data hot reload (serve/reload.py)
+    city_bounded: bool = True
+    use_pallas: bool = False  # retired in the JAX engine; a no-op
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
 
     def apply_overrides(self, overrides: list) -> "Config":
         """Apply ``section.field=value`` overrides in place."""

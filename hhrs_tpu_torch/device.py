@@ -4,6 +4,7 @@ graphs are captured on."""
 
 from __future__ import annotations
 
+import threading
 import weakref
 
 import torch
@@ -21,6 +22,8 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 _POOL_STREAMS = 32  # the streams of each priority in PyTorch's pool, handed out round robin
 _capture_owners: dict = {}  # (device index, stream handle) -> a weak reference to the stream's owner
+_capture_streams: dict = {}  # (device index, stream handle) -> the stream
+_owners_lock = threading.Lock()
 
 
 def capture_stream(owner: object, device: torch.device) -> torch.cuda.Stream:
@@ -32,14 +35,23 @@ def capture_stream(owner: object, device: torch.device) -> torch.cuda.Stream:
     stream, replayed at the same time, would write one workspace at once.
     An owner replays its own graphs one at a time; graphs of different
     owners may replay at once, so no two owners share a capture stream.
-    Raises when every pool stream has a live owner."""
+    A stream whose owner was collected is handed out again before a new
+    one, so a server that swaps engines reuses their streams (and the
+    cuBLAS workspaces PyTorch keeps for each stream) instead of taking a
+    new workspace at every swap. Raises when every pool stream has a live
+    owner."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    for priority in (0, -1):
-        for _ in range(_POOL_STREAMS):
-            stream = torch.cuda.Stream(index, priority=priority)
-            key = (index, stream.cuda_stream)
-            holder = _capture_owners.get(key)
-            if holder is None or holder() is None:
+    with _owners_lock:
+        for key, holder in _capture_owners.items():
+            if key[0] == index and holder() is None:
                 _capture_owners[key] = weakref.ref(owner)
-                return stream
+                return _capture_streams[key]
+        for priority in (0, -1):
+            for _ in range(_POOL_STREAMS):
+                stream = torch.cuda.Stream(index, priority=priority)
+                key = (index, stream.cuda_stream)
+                if key not in _capture_owners:
+                    _capture_owners[key] = weakref.ref(owner)
+                    _capture_streams[key] = stream
+                    return stream
     raise RuntimeError(f"every stream of PyTorch's pool on cuda:{index} captures for a live owner")

@@ -1,0 +1,271 @@
+"""Serving entry point: ``python -m hhrs_tpu_torch.serve.cli``.
+
+Counterpart of ``hhrs_tpu/serve/cli.py``, with its flags plus
+``--device``: load the artifacts and CSVs, build the engine on the card
+(``--device cpu`` only when asked; no card and no ``--device`` raises),
+capture the buckets it will serve, and serve the REST contract
+(``serve/http.py``). The stack is built in the JAX CLI's order: engine →
+dynamic batcher → swappable holder and hot-reload pollers → canary →
+response cache → shadow. Exits non-zero on any startup failure; SIGTERM
+drains in-flight requests and exits 0.
+
+Configuration: ``ServeConfig`` defaults ← ``section.field=value``
+overrides ← flags. The JAX CLI's ``HHRS_*`` environment layer and presets
+are not ported yet (ROADMAP A7); ``--mesh`` (A11) and
+``--retrieval-embeddings`` (A10) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import sys
+import threading
+
+from hhrs_tpu_torch.config import Config
+from hhrs_tpu_torch.device import resolve_device
+from hhrs_tpu_torch.utils.logging import LatencyHistogram, setup_logging
+
+log = logging.getLogger("hhrs_tpu_torch.serve")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Serve the hybrid recommender with the PyTorch port")
+    p.add_argument("--artifacts", default=None,
+                   help="artifact dir, or 'registry:<db>' to use the active registered model")
+    p.add_argument("--data", default=None)
+    p.add_argument("--host", default=None)
+    p.add_argument("--port", type=int, default=None)
+    p.add_argument("--no-warmup", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="score at compute bfloat16 through DCNR.forward (f32 BatchNorm and "
+                        "logits; near-tied rankings may differ from f32)")
+    p.add_argument("--quantize-tables", action="store_true",
+                   help="hold the model's embedding tables as per-row int8 on the card "
+                        "(near-tied rankings may differ from f32)")
+    p.add_argument("--retrieval-embeddings", default=None, metavar="NPY",
+                   help="learned retrieval vectors for the similarity surfaces "
+                        "(not ported yet: ROADMAP A10)")
+    p.add_argument("--batch-window-ms", type=float, default=None,
+                   help=">0: coalesce concurrent requests into one bucket replay within "
+                        "this window (dynamic batching)")
+    p.add_argument("--max-batch", type=int, default=None)
+    p.add_argument("--warm-http-batch", action="store_true",
+                   help="capture the POST /recommendations/batch bucket before serving")
+    p.add_argument("--candidate-cap", type=int, default=None,
+                   help=">0: a one-request program that ranks only the candidate rows when "
+                        "they fit (exact; more candidates run the full program)")
+    p.add_argument("--cache-entries", type=int, default=None,
+                   help=">0: LRU response cache (identical requests skip the card; hot "
+                        "reload invalidates; serve.cache_ttl_s adds expiry)")
+    p.add_argument("--shadow", default=None, metavar="ARTIFACT_DIR",
+                   help="mirror live traffic onto this candidate model off the request "
+                        "path and report agreement in /healthz and /metrics")
+    p.add_argument("--canary", default=None, metavar="ARTIFACT_DIR",
+                   help="route a sticky user-hash slice of live traffic to this candidate "
+                        "model on the request path (errors fall back to the primary)")
+    p.add_argument("--canary-fraction", type=float, default=0.1,
+                   help="fraction of users (by stable id hash) the --canary model answers "
+                        "(default 0.1, range (0, 1])")
+    p.add_argument("--canary-salt", default="",
+                   help="salt folded into the canary routing hash: rotates which users "
+                        "form the slice per rollout")
+    p.add_argument("--reload-poll-s", type=float, default=0.0,
+                   help="with --artifacts registry:<db>: poll the registry every N seconds "
+                        "and hot-swap to a newly activated model (0 disables)")
+    p.add_argument("--data-poll-s", type=float, default=None,
+                   help=">0: poll the data CSVs every N seconds and rebuild and hot-swap "
+                        "the serving stack when they change")
+    p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                   help="serve over a device mesh (not ported yet: ROADMAP A11)")
+    p.add_argument("--device", default=None,
+                   help="torch device to serve on (default cuda, which raises without a "
+                        "card; cpu only when asked)")
+    p.add_argument("overrides", nargs="*", help="section.field=value config overrides")
+    return p
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet: ROADMAP A11 (multi-device serving)")
+    if args.retrieval_embeddings:
+        raise NotImplementedError("--retrieval-embeddings is not ported yet: ROADMAP A10 (two-tower retriever)")
+
+
+@dataclasses.dataclass
+class ServeStack:
+    """What :func:`build_stack` built: the outermost engine to serve, where
+    to serve it, and the hot-reload pollers it started (None when off)."""
+
+    engine: object
+    host: str
+    port: int
+    reloader: object = None
+    data_reloader: object = None
+
+
+def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None = None) -> ServeStack:
+    """Build the serving stack of parsed flags (:func:`build_parser`), every
+    bucket it serves captured unless ``--no-warmup``; raises on a startup
+    failure."""
+    parser = parser or build_parser()
+    _refuse_unported(args)
+    bad = [t for t in args.overrides if "=" not in t]
+    if bad:
+        parser.error(f"invalid config override(s) {bad}: use section.field=value")
+
+    from hhrs_tpu_torch.db.registry import resolve_artifacts_dir
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine, load_frames
+    from hhrs_tpu_torch.serve.reload import data_fingerprint
+    from hhrs_tpu_torch.serve.schemas import HTTP_BATCH_PAD
+
+    device = resolve_device(args.device)
+    cfg_all = Config().apply_overrides(args.overrides)
+    cfg = cfg_all.serve
+    artifacts = args.artifacts if args.artifacts is not None else cfg.artifacts_dir
+    data_dir = args.data if args.data is not None else cfg.data_dir
+    window_ms = args.batch_window_ms if args.batch_window_ms is not None else cfg.batch_window_ms
+    max_batch = args.max_batch if args.max_batch is not None else cfg.max_batch
+    cap = args.candidate_cap if args.candidate_cap is not None else cfg.candidate_cap
+    quantize = args.quantize_tables or cfg.quantize_tables
+    stack = ServeStack(None, args.host if args.host is not None else cfg.host,
+                       args.port if args.port is not None else cfg.port)
+
+    artifacts_dir = resolve_artifacts_dir(artifacts)
+    want_batching = window_ms > 0
+
+    # Fingerprint before the parse: the data reloader's baseline must
+    # describe the files this startup read. The tables are parsed once and
+    # shared by the primary, canary and shadow engines.
+    fp0 = data_fingerprint(data_dir)
+    frames = load_frames(data_dir)
+
+    def new_engine(adir: str, frames: tuple | None, batch_pad: int | None, http_batch: bool = True):
+        """An engine with every bucket it will serve captured: 1, and
+        ``batch_pad`` and (with ``--warm-http-batch``) ``HTTP_BATCH_PAD``
+        where asked."""
+        eng = RecommendationEngine.from_dirs(
+            adir, data_dir, retrieval_cfg=cfg_all.retrieval, device=device,
+            city_bounded=cfg.city_bounded, bf16=args.bf16, quantize_tables=quantize,
+            candidate_cap=cap, use_pallas=cfg.use_pallas, frames=frames)
+        if not args.no_warmup:
+            log.info("warming up: capturing the serving buckets...")
+            eng.warmup(batch_pad=batch_pad)
+            if args.warm_http_batch and http_batch:
+                uni = eng.gen.universe
+                if uni.n_users and uni.cities:
+                    eng.recommend_many([(int(uni.user_ids[0]), uni.cities[0], "friends", 0.7)],
+                                       pad_to=HTTP_BATCH_PAD)
+                eng.latency = LatencyHistogram()
+        return eng
+
+    def build_primary(adir: str, frames: tuple | None = None):
+        """The primary stack for one artifact dir, at startup and verbatim on
+        every hot reload."""
+        eng = new_engine(adir, frames, max_batch if want_batching else None)
+        if want_batching:
+            from hhrs_tpu_torch.serve.batcher import BatchingEngine
+
+            eng = BatchingEngine(eng, max_batch=max_batch, window_ms=window_ms)
+            log.info("dynamic batching on: window %.1fms, max %d", window_ms, max_batch)
+        return eng
+
+    engine = build_primary(artifacts_dir, frames=frames)
+    data_poll_s = args.data_poll_s if args.data_poll_s is not None else cfg.data_poll_s
+    registry_reload = args.reload_poll_s > 0
+    if registry_reload and not artifacts.startswith("registry:"):
+        log.warning("--reload-poll-s needs --artifacts registry:<db>; ignoring it")
+        registry_reload = False
+    if registry_reload or data_poll_s > 0:
+        from hhrs_tpu_torch.serve.reload import DataReloader, FramesCache, RegistryReloader, SwappableEngine
+
+        holder = SwappableEngine(engine)
+        # One lock serializes both pollers' build and swap; the shared frames
+        # cache lets a model-only promotion skip a re-parse.
+        swap_lock = threading.Lock()
+        frames_cache = FramesCache(fp0, frames)
+        if registry_reload:
+            stack.reloader = RegistryReloader(holder, artifacts, build_primary, args.reload_poll_s,
+                                              artifacts_dir, swap_lock=swap_lock, data_dir=data_dir,
+                                              frames_loader=load_frames, frames_cache=frames_cache)
+            stack.reloader.start()
+            log.info("registry hot reload on: polling every %.1fs", args.reload_poll_s)
+        if data_poll_s > 0:
+            reloader = stack.reloader
+            current_dir_fn = (lambda: reloader.current_dir) if reloader is not None else (lambda: artifacts_dir)
+            stack.data_reloader = DataReloader(holder, data_dir, build_primary, data_poll_s, current_dir_fn,
+                                               swap_lock=swap_lock, frames_loader=load_frames,
+                                               baseline_fp=fp0, frames_cache=frames_cache)
+            if reloader is not None:
+                reloader.data_reloader = stack.data_reloader
+            stack.data_reloader.start()
+            log.info("data hot reload on: polling %s every %.1fs (shadow/canary arms keep the "
+                     "startup data)", data_dir, data_poll_s)
+            if args.shadow or args.canary:
+                log.warning("--data-poll-s with --shadow/--canary: after a data reload the candidate "
+                            "arm keeps the startup data, so its comparison mixes data drift into the "
+                            "model comparison")
+        engine = holder
+    if args.canary:
+        from hhrs_tpu_torch.serve.canary import CanaryEngine
+
+        canary_dir = resolve_artifacts_dir(args.canary)
+        if canary_dir == artifacts_dir:
+            parser.error("--canary is the same artifact dir as the primary")
+        # a bare engine: it answers its slice one request at a time, and its
+        # part of a /recommendations/batch call in bucket HTTP_BATCH_PAD
+        canary_eng = new_engine(canary_dir, frames, None)
+        try:
+            engine = CanaryEngine(engine, canary_eng, args.canary_fraction,
+                                  canary_dir=canary_dir, salt=args.canary_salt)
+        except ValueError as e:
+            parser.error(str(e))
+        log.info("canary serving on: %s answers %.1f%% of users", canary_dir, 100 * args.canary_fraction)
+    cache_entries = args.cache_entries if args.cache_entries is not None else cfg.cache_entries
+    if cache_entries > 0:
+        from hhrs_tpu_torch.serve.cache import CachedEngine
+
+        engine = CachedEngine(engine, cache_entries, cfg.cache_ttl_s)
+        log.info("response cache on: %d entries, ttl %.1fs", cache_entries, cfg.cache_ttl_s)
+    if args.shadow:
+        from hhrs_tpu_torch.serve.shadow import ShadowEngine
+
+        if args.canary:
+            log.warning("--shadow with --canary: shadow agreement is computed against mixed "
+                        "primary/canary responses")
+        shadow_dir = resolve_artifacts_dir(args.shadow)
+        if shadow_dir == artifacts_dir:
+            parser.error("--shadow is the same artifact dir as the primary")
+        # a bare engine that replays one request at a time on the shadow's worker
+        shadow_eng = new_engine(shadow_dir, frames, None, http_batch=False)
+        engine = ShadowEngine(engine, shadow_eng, shadow_dir=shadow_dir)
+        log.info("shadow serving on: mirroring traffic to %s", shadow_dir)
+    stack.engine = engine
+    log.info("Artifacts loaded successfully. Server is ready on %s.", device)
+    return stack
+
+
+def main(argv=None) -> int:
+    setup_logging()
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    _refuse_unported(args)
+    resolve_device(args.device)  # no card and no --device: raises, never falls back to the CPU
+    try:
+        stack = build_stack(args, parser)
+    except Exception as e:
+        log.critical("CRITICAL ERROR during startup: %s", e)
+        import traceback
+
+        traceback.print_exc()
+        return 1
+
+    from hhrs_tpu_torch.serve.http import serve_forever
+
+    serve_forever(stack.engine, stack.host, stack.port)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

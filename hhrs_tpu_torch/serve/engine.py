@@ -15,8 +15,16 @@ On a card every bucket runs as a CUDA graph, the counterpart of the JAX
 engine's ``jit``: captured at the bucket's first request (or by
 ``warmup(batch_pad=)``) after one eager run on the engine's capture
 stream (no other owner captures there: :func:`device.capture_stream`), all
-buckets in one memory pool, then one replay a batch, one at a time. The
-CPU runs the same code without a graph.
+buckets in one memory pool, then one replay a batch, one at a time. A
+capture takes the process's capture lock, so no two run at once, and is
+made in ``thread_local`` mode: other threads may go on replaying, copying
+and allocating on the card while it runs (a server's request threads,
+while a hot reload warms a new engine). :meth:`close` frees the graphs.
+The CPU runs the same code without a graph.
+
+``latency`` holds the wall time of every ``recommend`` and, once per
+request, of every ``recommend_many`` batch (``/metrics``); ``warmup``
+leaves it empty.
 
 Ranking covers only the request city's item rows by default (exact:
 candidates are a subset of the city's items by construction); with
@@ -53,6 +61,7 @@ import dataclasses
 import logging
 import os
 import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -73,6 +82,7 @@ from hhrs_tpu_torch.retrieval.candidates import CandidateGenerator, ServeUnivers
 from hhrs_tpu_torch.retrieval.graph import FriendGraph
 from hhrs_tpu_torch.retrieval.similarity import cosine_topk, normalize_rows, require_full_f32_matmul
 from hhrs_tpu_torch.train.artifacts import ArtifactBundle, load_artifact_bundle
+from hhrs_tpu_torch.utils.logging import LatencyHistogram
 
 log = logging.getLogger(__name__)
 
@@ -82,6 +92,11 @@ _NOT_PORTED = {
     "mesh": "ROADMAP A11 (multi-device serving)",
     "retrieval_embeddings_path": "ROADMAP A10 (two-tower retriever)",
 }
+
+# Held by every CUDA-graph capture of the process: torch.cuda.graph
+# synchronizes the card and empties the allocator's cache as it starts,
+# which must not happen inside another thread's capture.
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _Bucket(NamedTuple):
@@ -122,9 +137,14 @@ class RecommendationEngine:
         bf16: bool = False,
         quantize_tables: bool = False,
         candidate_cap: int = 0,
+        use_pallas: bool = False,
         **options,
     ):
         _reject_unported(options)
+        if use_pallas:
+            log.warning("use_pallas is retired in the JAX engine and a no-op here: "
+                        "scoring does not change")
+        self.latency = LatencyHistogram()
         self.device = dev = torch.device(device)
         require_full_f32_matmul(dev)
         self.bundle = bundle
@@ -198,6 +218,7 @@ class RecommendationEngine:
         # the cap applies where it is narrower than the rows ranked without it
         self._cap = int(candidate_cap) if 0 < candidate_cap < self._order_width else 0
         self.cap_branches = {"capped": 0, "full": 0}  # one-request calls answered by each branch
+        self._count_lock = threading.Lock()
         self._all_rows = torch.arange(self.gen.M, dtype=torch.int64, device=dev)
         self._buckets: dict = {}  # (Kp, capped) -> _Bucket (on a card)
         self._graph_lock = threading.Lock()  # one replay at a time: buckets share buffers and a pool
@@ -302,14 +323,22 @@ class RecommendationEngine:
                   lambda_param: float = 0.7) -> dict:
         """One request: the one-request program, which takes the
         ``candidate_cap`` branch when its candidates fit."""
+        t0 = time.perf_counter()
         req = [(user_id, city, mode, lambda_param)]
-        return self._recommend(req, None, graphed=self.device.type == "cuda", capped=bool(self._cap))[0]
+        out = self._recommend(req, None, graphed=self.device.type == "cuda", capped=bool(self._cap))[0]
+        self.latency.observe(time.perf_counter() - t0)
+        return out
 
     def recommend_many(self, requests: list, pad_to: int | None = None) -> list:
         """``[(user_id, city, mode, lambda_param), …]`` → responses. The batch
         runs at :func:`bucket_size` rows with one upload and one device→host
         copy; on a card as one replay of the bucket's CUDA graph."""
-        return self._recommend(requests, pad_to, graphed=self.device.type == "cuda")
+        t0 = time.perf_counter()
+        out = self._recommend(requests, pad_to, graphed=self.device.type == "cuda")
+        dt = time.perf_counter() - t0
+        for _ in out:
+            self.latency.observe(dt)  # the whole batch's wall time, once per request
+        return out
 
     def _recommend_eager(self, requests: list, pad_to: int | None = None, capped: bool = False) -> list:
         """:meth:`recommend_many` (with ``capped``, one-request
@@ -336,7 +365,8 @@ class RecommendationEngine:
         packed = run(capped)
         if capped:
             fits = packed[0, -1] <= self._cap
-            self.cap_branches["capped" if fits else "full"] += 1
+            with self._count_lock:
+                self.cap_branches["capped" if fits else "full"] += 1
             if not fits:
                 packed = run(False)
         return [self._assemble(u, l, packed[k]) for k, (u, _c, _m, l) in enumerate(requests)]
@@ -382,13 +412,25 @@ class RecommendationEngine:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+        with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
+                                             capture_error_mode="thread_local"):
             out = self._device_rank(inputs, capped)
         b = _Bucket(graph, torch.empty(host.shape, dtype=torch.int32, pin_memory=True), inputs, out)
         self._buckets[(host.shape[0], capped)] = b
         log.info("captured the %s serving graph of a %d-request bucket", "capped" if capped else "full",
                  host.shape[0])
         return b
+
+    def close(self) -> None:
+        """Free the card memory of the engine's CUDA graphs and their
+        buffers (a hot reload closes the engine it swapped out once its
+        last requests are done); a later request captures its bucket
+        again."""
+        with self._graph_lock:
+            for b in self._buckets.values():
+                b.graph.reset()
+            self._buckets.clear()
+            self._graph_pool = None
 
     # ------------------------------------------------------------------ #
 
@@ -405,7 +447,8 @@ class RecommendationEngine:
     def warmup(self, batch_pad: int | None = None) -> None:
         """Serve one request of each kind before traffic (builds the kernels
         and, on a card, captures the one-request graph); ``batch_pad`` also
-        runs, and captures, the bucket of that many rows."""
+        runs, and captures, the bucket of that many rows. Ends with an empty
+        ``latency``: warm-up samples never reach ``/metrics``."""
         uni = self.gen.universe
         if uni.n_users and uni.cities:
             u, c = int(uni.user_ids[0]), uni.cities[0]
@@ -415,21 +458,35 @@ class RecommendationEngine:
                 self.recommend_many([(u, c, "friends", 0.7)])
             if batch_pad:
                 self.recommend_many([(u, c, "friends", 0.7)], pad_to=batch_pad)
+        self.latency = LatencyHistogram()
 
     @classmethod
     def from_dirs(cls, artifacts_dir: str, data_dir: str, retrieval_cfg=None,
                   device: str | torch.device | None = None, city_bounded: bool = True,
                   bf16: bool = False, quantize_tables: bool = False, candidate_cap: int = 0,
+                  use_pallas: bool = False, frames: tuple | None = None,
                   **options) -> "RecommendationEngine":
         """Load an artifact directory and the serve CSVs
         (``hackathon_augmented_data.csv``, ``friendships.csv``) from
-        ``data_dir``. ``device`` defaults to ``cuda`` and raises without one."""
+        ``data_dir``, or take them parsed as ``frames=(main, friendships)``
+        (:func:`load_frames`), which skips the parse. ``device`` defaults to
+        ``cuda`` and raises without one. The engine's ``artifacts_dir`` names
+        what it serves (``/healthz``, the hot-reload poller)."""
         _reject_unported(options)
         device = resolve_device(device)
         bundle = load_artifact_bundle(artifacts_dir)
-        main = add_engineered_features(
-            load_reviews_csv(os.path.join(data_dir, "hackathon_augmented_data.csv"))
-        )
-        friendships = load_friendships_csv(os.path.join(data_dir, "friendships.csv"))
-        return cls(bundle, main, friendships, retrieval_cfg, device=device, city_bounded=city_bounded,
-                   bf16=bf16, quantize_tables=quantize_tables, candidate_cap=candidate_cap, **options)
+        main, friendships = frames if frames is not None else load_frames(data_dir)
+        eng = cls(bundle, main, friendships, retrieval_cfg, device=device, city_bounded=city_bounded,
+                  bf16=bf16, quantize_tables=quantize_tables, candidate_cap=candidate_cap,
+                  use_pallas=use_pallas, **options)
+        eng.artifacts_dir = artifacts_dir
+        return eng
+
+
+def load_frames(data_dir: str) -> tuple:
+    """``(main, friendships)`` tables parsed from a data directory's serve
+    CSVs, the reviews with their engineered features."""
+    return (
+        add_engineered_features(load_reviews_csv(os.path.join(data_dir, "hackathon_augmented_data.csv"))),
+        load_friendships_csv(os.path.join(data_dir, "friendships.csv")),
+    )

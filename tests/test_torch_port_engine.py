@@ -365,7 +365,7 @@ def test_option_engines_score_through_the_stated_path(option_engines):
     assert "DCNR.forward at compute bfloat16" in option_engines[("bf16", True)][1].scoring
 
 
-FORBIDDEN = {"jax", "flax", "optax", "hhrs_tpu", "pandas", "msgpack"}
+FORBIDDEN = {"jax", "flax", "optax", "hhrs_tpu", "pandas", "msgpack", "pydantic"}
 
 
 @pytest.mark.parametrize("path", sorted(
