@@ -2,19 +2,23 @@
 serving, plus shared shape arithmetic.
 
 Copies of ``hhrs_tpu/config.py``'s ``ModelConfig``, ``TrainConfig``,
-``DataConfig``, ``RetrievalConfig`` and ``ServeConfig`` (same fields and
-defaults) and of the ``section.field=value`` overrides of
-``Config.apply_overrides``, and of
-``hhrs_tpu/utils/shapes.py::round_up``. An artifact manifest's
-``model_config`` loads into :class:`ModelConfig` field for field;
-:func:`check_dtypes` holds its dtypes to the JAX model's rules. Trainer
-options whose paths are not ported yet are rejected by
-:func:`unported_train_options`.
+``MeshConfig``, ``DataConfig``, ``RetrievalConfig`` and ``ServeConfig``
+(same fields and defaults), of the ``section.field=value`` overrides of
+``Config.apply_overrides``, of the layered assembly the CLIs use
+(``PRESETS``, ``apply_preset``, ``apply_env_overrides``,
+``check_overrides``, ``build_config``: defaults → preset → ``HHRS_*``
+environment → CLI tokens), and of ``hhrs_tpu/utils/shapes.py::round_up``.
+An artifact manifest's ``model_config`` loads into :class:`ModelConfig`
+field for field; :func:`check_dtypes` holds its dtypes to the JAX model's
+rules. Options whose paths are not ported yet (the ``mesh`` section and
+``train.mesh_resident_data``, ROADMAP A11) are rejected by
+:func:`unported_train_options` and :func:`unported_mesh_options`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -93,13 +97,7 @@ class TrainConfig:
 # Trainer options whose paths are not ported yet: (field, value that is
 # ported, the ROADMAP item that brings the rest).
 _UNPORTED_TRAIN = (
-    ("lazy_table_updates", False, "ROADMAP A7 (lazy sparse-row table updates)"),
-    ("stream_slab_steps", 0, "ROADMAP A6c (out-of-core slab streaming)"),
     ("mesh_resident_data", False, "ROADMAP A11 (multi-device training)"),
-    ("moment_dtype", "float32", "ROADMAP A6c (bfloat16 Adam moments)"),
-    ("rng_impl", "threefry2x32", "ROADMAP A6c (rng_impl: the port draws dropout from a torch.Generator)"),
-    ("debug_nans", False, "ROADMAP A6c (NaN checks)"),
-    ("eval_catalog_recall", False, "ROADMAP A7 (train/eval_retrieval.py)"),
 )
 
 
@@ -110,6 +108,29 @@ def unported_train_options(cfg: TrainConfig) -> None:
         value = getattr(cfg, name)
         if value != ported:
             raise NotImplementedError(f"train.{name}={value!r} is not ported yet: {item}")
+
+
+@dataclass
+class MeshConfig:
+    """The JAX package's device-mesh layout (same fields and defaults). The
+    port has no mesh: every field set away from its default is refused by
+    :func:`unported_mesh_options`."""
+
+    data_axis: int = -1
+    model_axis: int = 1
+    axis_names: tuple = ("data", "model")
+    explicit_exchange: str = ""
+    exchange_capacity_factor: float = 1.25
+
+
+def unported_mesh_options(cfg: MeshConfig) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A11 for the first
+    ``mesh`` field set away from its default."""
+    for f in dataclasses.fields(cfg):
+        value = getattr(cfg, f.name)
+        if value != f.default:
+            raise NotImplementedError(
+                f"mesh.{f.name}={value!r} is not ported yet: ROADMAP A11 (multi-device training)")
 
 
 @dataclass
@@ -178,6 +199,7 @@ class ServeConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     data: DataConfig = field(default_factory=DataConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
@@ -210,3 +232,92 @@ def _coerce(raw: str, like: Any) -> Any:
     if isinstance(like, tuple):
         return tuple(x.strip() for x in raw.split(","))
     return raw
+
+
+def check_overrides(tokens: list) -> list:
+    """Every positional token must be ``section.field=value``: a typo'd token
+    fails loudly instead of running with defaults."""
+    bad = [t for t in tokens if "=" not in t]
+    if bad:
+        raise SystemExit(f"invalid config override(s) {bad}: use section.field=value")
+    return tokens
+
+
+# Named presets, applied before the environment and the CLI tokens (which
+# win over them): ``tuned`` is the JAX package's fastest measured trainer
+# stack, ``reference`` the defaults by name.
+PRESETS: dict[str, dict[str, Any]] = {
+    "tuned": {
+        "train.batch_size": 32768,
+        "train.rng_impl": "rbg",
+        "model.compute_dtype": "bfloat16",
+        "model.storage_dtype": "bfloat16",
+    },
+    "reference": {},
+}
+
+
+def apply_preset(cfg: Config, name: str) -> list[str]:
+    """Apply a named preset in place → the changes, for the log."""
+    if name not in PRESETS:
+        raise ValueError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
+    changed = []
+    for key, value in PRESETS[name].items():
+        section_name, _, field_name = key.partition(".")
+        section = getattr(cfg, section_name)
+        old = getattr(section, field_name)
+        setattr(section, field_name, value)
+        changed.append(f"{key}: {old!r} -> {value!r}")
+    return changed
+
+
+_ENV_PREFIX = "HHRS_"
+
+
+def apply_env_overrides(cfg: Config, environ=None) -> list[str]:
+    """Apply ``HHRS_<SECTION>_<FIELD>=value`` environment overrides in place
+    → the applied overrides, for the log. The section is the longest known
+    prefix (field names hold underscores); an unknown ``HHRS_*`` variable
+    raises ``ValueError``; ``HHRS_PRESET`` (read by :func:`build_config`)
+    and ``HHRS_BENCH_*`` (the JAX benchmark's knobs) are exempt."""
+    environ = os.environ if environ is None else environ
+    sections = {f.name for f in dataclasses.fields(cfg)}
+    applied = []
+    for var in sorted(environ):
+        if not var.startswith(_ENV_PREFIX):
+            continue
+        rest = var[len(_ENV_PREFIX):].lower()
+        if rest == "preset" or rest.startswith("bench_"):
+            continue
+        section_name = next((s for s in sorted(sections, key=len, reverse=True) if rest.startswith(s + "_")),
+                            None)
+        if section_name is None:
+            raise ValueError(f"unknown config environment variable {var} (sections: {sorted(sections)})")
+        field_name = rest[len(section_name) + 1:]
+        section = getattr(cfg, section_name)
+        if not hasattr(section, field_name):
+            raise ValueError(f"{var}: section {section_name!r} has no field {field_name!r}")
+        setattr(section, field_name, _coerce(environ[var], getattr(section, field_name)))
+        applied.append(f"{section_name}.{field_name}={environ[var]}")
+    return applied
+
+
+def build_config(overrides: list | None = None, preset: str | None = None, environ=None, log=None) -> Config:
+    """The CLIs' config: defaults → preset (``preset`` or ``HHRS_PRESET``)
+    → ``HHRS_*`` environment → ``section.field=value`` tokens (last wins)."""
+    environ = os.environ if environ is None else environ
+    cfg = Config()
+    preset = preset or environ.get("HHRS_PRESET") or ""
+    if preset:
+        changed = apply_preset(cfg, preset)
+        if log is not None:
+            for c in changed:
+                log.info("preset %r: %s", preset, c)
+            if not changed:
+                log.info("preset %r: no changes (reference defaults)", preset)
+    applied = apply_env_overrides(cfg, environ)
+    if log is not None:
+        for a in applied:
+            log.info("env override: %s", a)
+    cfg.apply_overrides(check_overrides(list(overrides or [])))
+    return cfg

@@ -2,7 +2,7 @@
 the saved artifacts and per-item featurization.
 
 Counterpart of ``MinMaxStats``, ``PreprocessArtifacts``, ``DatasetSplits``,
-``Preprocessor`` and ``encode_item_features`` in
+``Preprocessor``, ``transform_with_artifacts`` and ``encode_item_features`` in
 ``hhrs_tpu/data/preprocess.py``, on the port's column tables
 (:mod:`hhrs_tpu_torch.data.table`) in place of pandas frames. The fit keeps
 the reference's semantics:
@@ -33,7 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from hhrs_tpu_torch.data import schema
-from hhrs_tpu_torch.data.table import isna, map_fill, take, unique_first
+from hhrs_tpu_torch.data.table import isna, map_fill, n_rows, take, unique_first
 
 
 @dataclass
@@ -268,6 +268,49 @@ class Preprocessor:
         return perm[n_test:], perm[:n_test]
 
 
+def scaled_numericals(artifacts: PreprocessArtifacts, table: dict, n: int) -> np.ndarray:
+    """Numericals filled with the train medians, then min-max scaled with
+    the train scaler → ``[n, F]`` f32."""
+    raw = np.stack(
+        [table[c].astype(np.float64) for c in artifacts.numerical_cols], axis=1
+    ).reshape(n, len(artifacts.numerical_cols))
+    med = np.asarray([artifacts.medians[c] for c in artifacts.numerical_cols])
+    raw = np.where(np.isnan(raw), med, raw)
+    return artifacts.scaler.transform(raw).astype(np.float32)
+
+
+def drop_missing_categories(table: dict, categorical_cols) -> dict:
+    """The rows with every categorical present (``df.dropna(subset=…)``)."""
+    keep = np.ones(n_rows(table), dtype=bool)
+    for col in categorical_cols:
+        keep &= ~np.array([isna(v) for v in table[col].tolist()], dtype=bool)
+    return take(table, keep)
+
+
+def transform_with_artifacts(artifacts: PreprocessArtifacts, table: dict) -> dict:
+    """Encode a labelled review table with saved artifacts, no refit (the
+    standalone evaluation path): rows with a missing categorical dropped,
+    the train vocabularies with the serving fallbacks (unknown user →
+    ``n_users // 2``, unknown item or category → 0), numericals filled with
+    the train medians and scaled with the train scaler → ``{"user", "item",
+    "cat", "num"}`` arrays, and ``"y"`` where the target column is present."""
+    table = drop_missing_categories(table, artifacts.categorical_cols)
+    n = n_rows(table)
+    users = map_fill(table[schema.USER_COL], artifacts.user_id_mapping, artifacts.unknown_user_id)
+    items = map_fill(table[schema.ITEM_COL], artifacts.item_id_mapping, 0)
+    cats = [map_fill(table[col], artifacts.cat_encoders[col], 0).astype(np.int32)
+            for col in artifacts.categorical_cols]
+    out = {
+        "user": users.astype(np.int32).reshape(n),
+        "item": items.astype(np.int32).reshape(n),
+        "cat": np.stack(cats, axis=1) if cats else np.zeros((n, 0), np.int32),
+        "num": scaled_numericals(artifacts, table, n),
+    }
+    if schema.TARGET_COL in table:
+        out["y"] = table[schema.TARGET_COL].astype(np.float32)
+    return out
+
+
 def encode_item_features(
     artifacts: PreprocessArtifacts, items: dict
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -280,10 +323,4 @@ def encode_item_features(
         for col in artifacts.categorical_cols
     ]
     x_cat = np.stack(cats, axis=1) if cats else np.zeros((n, 0), np.int32)
-    raw = np.stack(
-        [items[c].astype(np.float64) for c in artifacts.numerical_cols], axis=1
-    ).reshape(n, len(artifacts.numerical_cols))
-    med = np.asarray([artifacts.medians[c] for c in artifacts.numerical_cols])
-    raw = np.where(np.isnan(raw), med, raw)
-    x_num = artifacts.scaler.transform(raw).astype(np.float32)
-    return item_codes, x_cat, x_num
+    return item_codes, x_cat, scaled_numericals(artifacts, items, n)

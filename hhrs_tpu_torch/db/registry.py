@@ -1,9 +1,8 @@
-"""sqlite3 schema and the model registry (counterpart of
-``hhrs_tpu/db/registry.py``: the same five-table schema and ``ml_models``
-rows, so a database written by either package is read by the other).
-
-``seed_database``, the JAX module's one use of pandas, is not ported yet
-(ROADMAP A7, with ``db/cli.py``).
+"""sqlite3 schema, seeding and the model registry (counterpart of
+``hhrs_tpu/db/registry.py``: the same five-table schema, seed rows and
+``ml_models`` rows, so a database written by either package is read by the
+other). ``seed_database`` reads the CSVs with the port's column tables in
+place of pandas.
 """
 
 from __future__ import annotations
@@ -13,6 +12,9 @@ import logging
 import os
 import sqlite3
 import time
+
+from hhrs_tpu_torch.data import schema as dschema
+from hhrs_tpu_torch.data.table import first_occurrence, isna, read_csv
 
 log = logging.getLogger(__name__)
 
@@ -86,6 +88,64 @@ def create_schema(conn: sqlite3.Connection, drop: bool = True,
     cur.execute("PRAGMA foreign_keys = ON")
     if commit:
         conn.commit()
+
+
+def seed_database(db_path: str, data_dir: str) -> dict:
+    """Idempotent drop, create and seed from the two CSVs, rolled back on an
+    error → the row count of each table. users = the review and friendship
+    ids, hotels = the first review row of each hotel id, friendships =
+    sorted unique pairs without self-pairs (the reference's seeding)."""
+    reviews = read_csv(os.path.join(data_dir, "hackathon_augmented_data.csv"))
+    friends = read_csv(os.path.join(data_dir, "friendships.csv"))
+    users = reviews[dschema.RAW_USER_COL].astype(int).tolist()
+    hotels = reviews[dschema.RAW_ITEM_COL].astype(int).tolist()
+
+    def _text(v):  # a NaN cell is SQL NULL
+        return None if isna(v) else str(v)
+
+    def _col(name, cast):
+        return [cast(v) for v in reviews[name].tolist()]
+
+    # Convert every row before the destructive drop: a malformed CSV fails
+    # here, while the previously seeded tables are intact.
+    user_rows = [(u,) for u in sorted(set(users) | set(friends["user_id_1"].astype(int).tolist())
+                                      | set(friends["user_id_2"].astype(int).tolist()))]
+    city, htype = _col("city", _text), _col("hotel_type", _text)
+    price, stars, count = _col("price_rub", float), _col("stars", float), _col("user_reviews_count", float)
+    hotel_rows = [(hotels[r], city[r], htype[r], price[r], stars[r], count[r])
+                  for r in first_occurrence(reviews[dschema.RAW_ITEM_COL]).tolist()]
+    ratings = [_col(c, float) for c in ("rating_overall", "rating_location", "rating_cleanliness",
+                                         "rating_food", "rating_service")]
+    review_rows = list(zip(users, hotels, *ratings, _col(dschema.TARGET_COL, int)))
+    pairs = sorted({
+        (min(int(a), int(b)), max(int(a), int(b)))
+        for a, b in zip(friends["user_id_1"].tolist(), friends["user_id_2"].tolist())
+        if int(a) != int(b)
+    })
+
+    conn = connect(db_path)
+    try:
+        conn.execute("BEGIN")
+        create_schema(conn, drop=True, commit=False)
+        cur = conn.cursor()
+        cur.executemany("INSERT INTO users (user_id) VALUES (?)", user_rows)
+        cur.executemany("INSERT INTO hotels VALUES (?,?,?,?,?,?)", hotel_rows)
+        cur.executemany(
+            "INSERT INTO reviews (user_id, hotel_id, rating_overall, rating_location,"
+            " rating_cleanliness, rating_food, rating_service, was_booked)"
+            " VALUES (?,?,?,?,?,?,?,?)",
+            review_rows,
+        )
+        cur.executemany("INSERT INTO friendships VALUES (?,?)", pairs)
+        conn.commit()
+        counts = {t: cur.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0] for t in TABLES}
+        log.info("seeded %s: %s", db_path, counts)
+        return counts
+    except Exception:
+        conn.rollback()
+        raise
+    finally:
+        conn.close()
 
 
 def _auto_version(cur) -> str:

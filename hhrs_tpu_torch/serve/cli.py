@@ -9,10 +9,11 @@ dynamic batcher → swappable holder and hot-reload pollers → canary →
 response cache → shadow. Exits non-zero on any startup failure; SIGTERM
 drains in-flight requests and exits 0.
 
-Configuration: ``ServeConfig`` defaults ← ``section.field=value``
-overrides ← flags. The JAX CLI's ``HHRS_*`` environment layer and presets
-are not ported yet (ROADMAP A7); ``--mesh`` (A11) and
-``--retrieval-embeddings`` (A10) raise ``NotImplementedError``.
+Configuration, as in the JAX CLI (``config.py::build_config``): the
+defaults, then the preset named by ``HHRS_PRESET``, then
+``HHRS_<SECTION>_<FIELD>`` environment variables (``HHRS_SERVE_PORT``, …),
+then ``section.field=value`` overrides, then the flags. ``--mesh`` (A11)
+and ``--retrieval-embeddings`` (A10) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import logging
 import sys
 import threading
 
-from hhrs_tpu_torch.config import Config
+from hhrs_tpu_torch.config import build_config
 from hhrs_tpu_torch.device import resolve_device
 from hhrs_tpu_torch.utils.logging import LatencyHistogram, setup_logging
 
@@ -114,6 +115,7 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
     bad = [t for t in args.overrides if "=" not in t]
     if bad:
         parser.error(f"invalid config override(s) {bad}: use section.field=value")
+    cfg_all = build_config(args.overrides, log=log)
 
     from hhrs_tpu_torch.db.registry import resolve_artifacts_dir
     from hhrs_tpu_torch.serve.engine import RecommendationEngine, load_frames
@@ -121,7 +123,6 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
     from hhrs_tpu_torch.serve.schemas import HTTP_BATCH_PAD
 
     device = resolve_device(args.device)
-    cfg_all = Config().apply_overrides(args.overrides)
     cfg = cfg_all.serve
     artifacts = args.artifacts if args.artifacts is not None else cfg.artifacts_dir
     data_dir = args.data if args.data is not None else cfg.data_dir

@@ -15,9 +15,30 @@ best state by val loss, and a per-epoch prune hook for HPO. Mechanics:
 * the val loss is the BCE over the full val split, scored in
   ``eval_batch_size`` chunks in eval mode; ``eval_every`` skips it (and
   every decision that reads it) on the epochs between;
-* dropout draws from one ``torch.Generator`` on the device, seeded from
-  ``train_cfg.seed``. It cannot give JAX's bits, so runs meant to match the
-  JAX trainer use dropout 0;
+* dropout draws from one ``torch.Generator`` on the device (Philox on a
+  card), seeded from ``train_cfg.seed``. It cannot give JAX's bits, so runs
+  meant to match the JAX trainer use dropout 0. ``train.rng_impl`` is
+  checked as JAX checks it (``threefry2x32`` or ``rbg``), and both draw
+  that one stream: the JAX package's ``rbg`` picks a faster TPU generator,
+  and the port has no second one;
+* ``train.stream_slab_steps = K`` keeps the train split on the host (a
+  ``np.memmap`` too) and uploads ``[K, B, ·]`` slabs of the epoch's
+  batches, double-buffered from pinned staging buffers on a copy stream
+  (:class:`SlabStream`); the batches and the dropout draws are the
+  resident run's, so the run is the resident run bit for bit;
+* ``train.lazy_table_updates`` updates only the table rows a batch touches
+  (``train/lazy.py``); ``train.moment_dtype=bfloat16`` stores Adam's first
+  moment in bf16 (``train/optimizers.py::AdamBf16Moment``);
+* ``train.debug_nans`` raises ``FloatingPointError`` when a step leaves a
+  NaN in the loss, the parameters, the optimizer's moments or the
+  BatchNorm state, or an eval gives one; under ``fused_epoch`` the graph
+  gathers a NaN flag and the host reads it once after each replay (the
+  granularity at which ``jax_debug_nans`` sees the JAX trainer's fused
+  ``lax.scan``). Off by default: a check after every step syncs the host;
+* ``train.eval_catalog_recall`` adds ``catalog_recall_at_100``
+  (``train/eval_retrieval.py``) to the final metrics, and a
+  ``metrics_logger`` (``utils/logging.py::MetricsLogger``) gets one JSONL
+  record an eval epoch;
 * ``train.fused_epoch`` runs each epoch as one function over static
   device buffers (:class:`FusedEpoch`, the JAX trainer's ``lax.scan``
   epoch): on a card one CUDA-graph replay an epoch, with the same batches
@@ -48,8 +69,13 @@ from hhrs_tpu_torch.models.convert import dcnr_from_jax, jax_from_dcnr
 from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
 from hhrs_tpu_torch.retrieval.similarity import require_full_f32_matmul
 from hhrs_tpu_torch.train.checkpoint import TrainCheckpointer
+from hhrs_tpu_torch.train.lazy import LazyTableOptimizer, dense_parameters, lazy_train_step
 from hhrs_tpu_torch.train.metrics import auc_score, bce_with_logits, recall_at_k, rmse_of_probs
 from hhrs_tpu_torch.train.optimizers import PlateauScheduler, make_optimizer, set_learning_rate
+
+RNG_IMPLS = ("threefry2x32", "rbg")
+SPLIT_DTYPES = {"user": torch.int64, "item": torch.int64, "cat": torch.int64, "num": torch.float32,
+                 "y": torch.float32}
 
 log = logging.getLogger(__name__)
 
@@ -74,14 +100,8 @@ class TrainResult:
 
 def split_tensors(splits: DatasetSplits, prefix: str, device: torch.device) -> dict:
     """One split's arrays as tensors on ``device`` (indices int64)."""
-    get = lambda name: getattr(splits, f"{prefix}_{name}")  # noqa: E731
-    return {
-        "user": torch.as_tensor(get("user"), dtype=torch.int64, device=device),
-        "item": torch.as_tensor(get("item"), dtype=torch.int64, device=device),
-        "cat": torch.as_tensor(get("cat"), dtype=torch.int64, device=device),
-        "num": torch.as_tensor(get("num"), dtype=torch.float32, device=device),
-        "y": torch.as_tensor(get("y"), dtype=torch.float32, device=device),
-    }
+    return {name: torch.as_tensor(getattr(splits, f"{prefix}_{name}"), dtype=dtype, device=device)
+            for name, dtype in SPLIT_DTYPES.items()}
 
 
 @torch.no_grad()
@@ -98,16 +118,105 @@ def eval_logits(model: DCNR, data: dict, eval_batch: int) -> torch.Tensor:
     return torch.cat(chunks) if chunks else torch.zeros(0, device=data["y"].device)
 
 
-def train_step(model: DCNR, opt: torch.optim.Optimizer, batch: dict,
-               generator: torch.Generator | None) -> torch.Tensor:
+def train_step(model: DCNR, opt, batch: dict, generator: torch.Generator | None) -> torch.Tensor:
     """One optimizer step on a batch (``user``, ``item``, ``cat``, ``num``,
-    ``y`` tensors) with the model in train mode → the detached loss."""
+    ``y`` tensors) with the model in train mode → the detached loss. ``opt``
+    is a ``torch.optim`` optimizer, or a ``train/lazy.py::
+    LazyTableOptimizer`` for the lazy table updates."""
+    if isinstance(opt, LazyTableOptimizer):
+        return lazy_train_step(model, opt, batch, generator)
     logits = model(batch["user"], batch["item"], batch["cat"], batch["num"], generator=generator)
     loss = bce_with_logits(logits, batch["y"])
     opt.zero_grad(set_to_none=True)
     loss.backward()
     opt.step()
     return loss.detach()
+
+
+def _optimizer_tensors(opt) -> list:
+    if isinstance(opt, LazyTableOptimizer):
+        return opt.state_tensors()
+    return [t for state in opt.state.values() for k, t in state.items() if k != "step" and torch.is_tensor(t)]
+
+
+def nan_flag(model: DCNR, opt, loss: torch.Tensor) -> torch.Tensor:
+    """A device bool: whether the loss, a parameter, a buffer (the
+    BatchNorm state) or an optimizer moment holds a NaN (a NaN element
+    makes its tensor's norm NaN; an inf does not)."""
+    tensors = [loss, *model.parameters(), *model.buffers(), *_optimizer_tensors(opt)]
+    norms = torch._foreach_norm([t for t in tensors if t.is_floating_point()])
+    return torch.isnan(torch.stack([n.float() for n in norms]).sum())
+
+
+def _raise_on_nan(flag: torch.Tensor, where: str) -> None:
+    if bool(flag):
+        raise FloatingPointError(f"NaN in the training state {where} (train.debug_nans)")
+
+
+class SlabStream:
+    """The train split kept on the host (numpy arrays, or ``np.memmap``)
+    and an epoch's batches uploaded as ``[k, B, ·]`` slabs of up to ``K``
+    steps (``train.stream_slab_steps``; counterpart of the JAX trainer's
+    out-of-core branch). :meth:`epoch` yields the slabs in order, each
+    ready to read on the current stream.
+
+    On a card each slab is gathered on the host into one of two pinned
+    staging buffers and copied on a copy stream of its own; slab ``j + 1``
+    is gathered and copied after slab ``j``'s steps are enqueued, so its
+    copy overlaps them. A staging buffer is refilled only after its last
+    copy has finished (host wait on that copy's event); a slab read on the
+    compute stream waits for its copy's event there and is marked with
+    ``record_stream``, so the caching allocator keeps its memory until the
+    compute stream has used it. On the CPU the same code gathers each slab
+    into tensors, with no streams. Either way a slab's step ``s`` holds the
+    rows and dtypes the resident path gathers for that step."""
+
+    def __init__(self, splits: DatasetSplits, batch_size: int, slab_steps: int, device: torch.device):
+        self.host = {name: getattr(splits, f"train_{name}") for name in SPLIT_DTYPES}
+        self.B, self.K, self.device = batch_size, slab_steps, device
+        self.on_card = device.type == "cuda"
+        if self.on_card:
+            self.copy_stream = torch.cuda.Stream(device)
+            self.staging = [
+                {name: torch.empty((slab_steps * batch_size, *a.shape[1:]), dtype=SPLIT_DTYPES[name],
+                                   pin_memory=True) for name, a in self.host.items()}
+                for _ in range(2)]
+            self.copied = [None, None]  # the event of each staging buffer's last copy
+
+    def _upload(self, perm: np.ndarray, j: int, steps: int):
+        i0, i1 = j * self.K, min((j + 1) * self.K, steps)
+        rows = perm[i0 * self.B:i1 * self.B]
+        shape = lambda a: (i1 - i0, self.B, *a.shape[1:])  # noqa: E731
+        if not self.on_card:
+            return {name: torch.as_tensor(np.asarray(a[rows]), dtype=SPLIT_DTYPES[name]).reshape(shape(a))
+                    for name, a in self.host.items()}, None
+        buf, done = self.staging[j % 2], self.copied[j % 2]
+        if done is not None:
+            done.synchronize()  # its previous copy has left the buffer
+        n = len(rows)
+        for name, a in self.host.items():
+            buf[name].numpy()[:n] = a[rows]
+        with torch.cuda.stream(self.copy_stream):
+            slab = {name: buf[name][:n].to(self.device, non_blocking=True).view(shape(a))
+                    for name, a in self.host.items()}
+            event = torch.cuda.Event()
+            event.record(self.copy_stream)
+        self.copied[j % 2] = event
+        return slab, event
+
+    def epoch(self, perm: np.ndarray, steps: int):
+        """Yield the slabs of one epoch's ``steps`` batches of ``perm``."""
+        n_slabs = -(-steps // self.K)
+        slab, event = self._upload(perm, 0, steps)
+        for j in range(n_slabs):
+            if event is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(event)
+                for t in slab.values():
+                    t.record_stream(compute)
+            yield slab
+            if j + 1 < n_slabs:
+                slab, event = self._upload(perm, j + 1, steps)
 
 
 class FusedEpoch:
@@ -124,15 +233,18 @@ class FusedEpoch:
     captured there into one CUDA graph, and every later epoch is one
     replay. A capture that fails raises. Dropout draws from ``generator``,
     which the graph advances on every replay; the optimizer's LR is a
-    tensor the graph reads, so a plateau decay between epochs reaches it."""
+    tensor the graph reads, so a plateau decay between epochs reaches it.
+    With ``debug_nans`` every step ORs :func:`nan_flag` into ``self.nan``,
+    which the caller reads after the run."""
 
-    def __init__(self, model: DCNR, opt: torch.optim.Optimizer, data: dict, batch_size: int,
-                 steps: int, generator: torch.Generator):
+    def __init__(self, model: DCNR, opt, data: dict, batch_size: int,
+                 steps: int, generator: torch.Generator, debug_nans: bool = False):
         self.model, self.opt, self.data, self.generator = model, opt, data, generator
-        self.batch_size, self.steps = batch_size, steps
+        self.batch_size, self.steps, self.debug_nans = batch_size, steps, debug_nans
         dev = data["y"].device
         self.perm = torch.zeros(steps * batch_size, dtype=torch.int64, device=dev)
         self.losses = torch.zeros(steps, device=dev)
+        self.nan = torch.zeros((), dtype=torch.bool, device=dev)
         self.graph = None
         if dev.type == "cuda":
             self.stream = capture_stream(self, dev)
@@ -144,12 +256,15 @@ class FusedEpoch:
             loss = train_step(self.model, self.opt, {k: v[idx] for k, v in self.data.items()},
                               self.generator)
             self.losses[s].copy_(loss)
+            if self.debug_nans:
+                self.nan.logical_or_(nan_flag(self.model, self.opt, loss))
 
     def run(self, perm: np.ndarray) -> torch.Tensor:
         """Train one epoch on the batches of ``perm`` (host, ``[steps·B]``)
         → the mean loss, a device scalar. On a card the first run also
         captures the graph."""
         self.perm.copy_(torch.from_numpy(np.ascontiguousarray(perm, dtype=np.int64)))
+        self.nan.zero_()
         self.model.train()
         if self.perm.device.type != "cuda":
             self._epoch()
@@ -181,6 +296,23 @@ def _new_model(dims: ModelDims, model_cfg: ModelConfig, seed: int, init_state,
     return DCNR(dims, model_cfg, generator=torch.Generator().manual_seed(seed)).to(device).train()
 
 
+def make_train_optimizer(model: DCNR, train_cfg: TrainConfig, capturable_on: torch.device | None = None):
+    """The trainer's optimizer for ``model``: Adam/AdamW over every parameter
+    (its first moment in ``train.moment_dtype``), or with
+    ``train.lazy_table_updates`` a :class:`LazyTableOptimizer` of that
+    optimizer over the non-table parameters and the tables' row-wise
+    state (f32, as in the JAX package). ``capturable_on``: the card whose
+    CUDA graph replays the step."""
+    lazy = train_cfg.lazy_table_updates
+    dense = make_optimizer(train_cfg.optimizer, dense_parameters(model) if lazy else model.parameters(),
+                           train_cfg.lr, train_cfg.weight_decay, capturable_on=capturable_on,
+                           moment_dtype=train_cfg.moment_dtype)
+    if not lazy:
+        return dense
+    return LazyTableOptimizer(model, dense, train_cfg.optimizer, train_cfg.weight_decay,
+                              capturable=capturable_on is not None)
+
+
 def train_dcn(
     splits: DatasetSplits,
     dims: ModelDims,
@@ -192,10 +324,12 @@ def train_dcn(
     checkpoint_dir: str | None = None,
     init_state: tuple | None = None,
     device: str | torch.device | None = None,
+    metrics_logger=None,
 ) -> TrainResult:
     """Full training run; returns the best state (by val loss) and history.
 
-    ``report_fn(epoch, val_loss) -> should_prune`` is the HPO pruning hook.
+    ``report_fn(epoch, val_loss) -> should_prune`` is the HPO pruning hook;
+    ``metrics_logger`` gets one record per evaluated epoch.
     ``init_state=(params, bn_state)`` (JAX-layout numpy trees) replaces the
     fresh initialization; the optimizer moments start at zero and the
     shuffle and dropout streams are those of a fresh run. With
@@ -210,6 +344,8 @@ def train_dcn(
                          "scans a device-resident dataset, slab streaming exists so the dataset is NOT "
                          "device-resident")
     unported_train_options(train_cfg)
+    if train_cfg.rng_impl not in RNG_IMPLS:
+        raise ValueError(f"unknown train.rng_impl {train_cfg.rng_impl!r}; expected 'threefry2x32' or 'rbg'")
     if train_cfg.eval_every < 1:
         raise ValueError(f"train.eval_every must be >= 1, got {train_cfg.eval_every}")
     dev = resolve_device(device)
@@ -217,11 +353,16 @@ def train_dcn(
 
     model = _new_model(dims, model_cfg, train_cfg.seed, init_state, dev)
     graphed = train_cfg.fused_epoch and dev.type == "cuda"
-    opt = make_optimizer(train_cfg.optimizer, model.parameters(), train_cfg.lr,
-                         train_cfg.weight_decay, capturable_on=dev if graphed else None)
+    opt = make_train_optimizer(model, train_cfg, capturable_on=dev if graphed else None)
     dropout_gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
-    train_data = split_tensors(splits, "train", dev)
+    slabs = None
+    if train_cfg.stream_slab_steps > 0:  # the train split stays on the host
+        slabs = SlabStream(splits, train_cfg.batch_size, train_cfg.stream_slab_steps, dev)
+        train_data = None
+    else:
+        train_data = split_tensors(splits, "train", dev)
     val_data = split_tensors(splits, "val", dev)
+    debug_nans = train_cfg.debug_nans
 
     B = train_cfg.batch_size
     n_train = splits.n_train
@@ -261,11 +402,24 @@ def train_dcn(
             log.info("resumed run had already stopped; skipping the training loop")
             start_epoch = train_cfg.n_epochs
 
-    fused = FusedEpoch(model, opt, train_data, B, steps_per_epoch, dropout_gen) if train_cfg.fused_epoch else None
+    fused = (FusedEpoch(model, opt, train_data, B, steps_per_epoch, dropout_gen, debug_nans=debug_nans)
+             if train_cfg.fused_epoch else None)
     cur_lr = plateau.lr
     epoch_times: list = []
     timed = dev.type == "cuda"
     epochs_run = 0
+
+    def step(batch: dict, where: str) -> torch.Tensor:
+        loss = train_step(model, opt, batch, dropout_gen)
+        if debug_nans:
+            _raise_on_nan(nan_flag(model, opt, loss), where)
+        return loss
+
+    def eval_loss() -> torch.Tensor:
+        logits = eval_logits(model, val_data, train_cfg.eval_batch_size)
+        if debug_nans:
+            _raise_on_nan(torch.isnan(logits).any(), "in the val logits")
+        return bce_with_logits(logits, val_data["y"])
 
     for epoch in range(start_epoch, train_cfg.n_epochs):
         t_epoch = time.perf_counter()
@@ -279,30 +433,40 @@ def train_dcn(
             marks.append(_mark(timed))
             mean_loss = fused.run(perm_host)
             marks.append(_mark(timed))
+            if debug_nans:
+                _raise_on_nan(fused.nan, f"during epoch {epoch} (checked once a fused epoch)")
         else:
-            perm = torch.as_tensor(perm_host, dtype=torch.int64, device=dev)
             model.train()
             losses = []
-            for s in range(steps_per_epoch):
-                marks.append(_mark(timed))
-                idx = perm[s * B:(s + 1) * B]
-                losses.append(train_step(model, opt, {k: v[idx] for k, v in train_data.items()},
-                                         dropout_gen))
+            if slabs is not None:
+                for slab in slabs.epoch(perm_host, steps_per_epoch):
+                    for k in range(slab["y"].shape[0]):
+                        marks.append(_mark(timed))
+                        s = len(losses)
+                        losses.append(step({name: t[k] for name, t in slab.items()},
+                                           f"after step {s} of epoch {epoch}"))
+            else:
+                perm = torch.as_tensor(perm_host, dtype=torch.int64, device=dev)
+                for s in range(steps_per_epoch):
+                    marks.append(_mark(timed))
+                    idx = perm[s * B:(s + 1) * B]
+                    losses.append(step({k: v[idx] for k, v in train_data.items()},
+                                       f"after step {s} of epoch {epoch}"))
             marks.append(_mark(timed))
             mean_loss = torch.stack(losses).mean()
 
         is_eval = (epoch + 1) % train_cfg.eval_every == 0 or epoch + 1 == train_cfg.n_epochs
         pruned_now = False
         if is_eval:
-            val_loss = bce_with_logits(eval_logits(model, val_data, train_cfg.eval_batch_size),
-                                       val_data["y"])
-            val_loss, train_loss = (float(v) for v in torch.stack([val_loss, mean_loss]).tolist())
+            val_loss, train_loss = (float(v) for v in torch.stack([eval_loss(), mean_loss]).tolist())
             lr = plateau.step(val_loss)
             if lr != cur_lr:
                 set_learning_rate(opt, lr)
                 cur_lr = lr
             rec = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss, "lr": lr}
             result.history.append(rec)
+            if metrics_logger is not None:
+                metrics_logger.log(**rec)
             log.info("epoch %d: train_loss %.4f val_loss %.4f lr %.2e", epoch, train_loss, val_loss, lr)
             if val_loss < result.best_val_loss:
                 result.best_val_loss = val_loss
@@ -354,6 +518,8 @@ def train_dcn(
 
     # Final eval with the best state.
     val_logits = eval_logits(model, val_data, train_cfg.eval_batch_size)
+    if debug_nans:
+        _raise_on_nan(torch.isnan(val_logits).any(), "in the final val logits")
     logloss = float(bce_with_logits(val_logits, val_data["y"]))
     val_logits = val_logits.cpu().numpy()
     y_val = splits.val_y
@@ -363,6 +529,10 @@ def train_dcn(
         "val_rmse": rmse_of_probs(y_val, val_logits),
         "val_recall_at_100": recall_at_k(splits.val_user, y_val, val_logits, 100),
     }
+    if train_cfg.eval_catalog_recall:
+        from hhrs_tpu_torch.train.eval_retrieval import catalog_recall_at_k
+
+        result.final_metrics["catalog_recall_at_100"] = catalog_recall_at_k(model, splits, k=100)
     result.params, result.bn_state = jax_from_dcnr(model)
     return result
 

@@ -689,3 +689,169 @@ def test_cuda_option_engines_meet_their_golden_files():
             assert got == full.recommend(*req) == capped._recommend_eager([req], capped=True)[0], req
         assert min(capped.cap_branches.values()) > 0
         assert set(capped._buckets) == {(1, True), (1, False)}
+
+
+# ---- the retraining path: the trainer's options and the tuned batch ---------
+
+RETRAIN_MODEL = dict(emb_dim=16, hidden_dim=64, n_cross_layers=2, n_res_blocks=1, dropout=0.3)
+RETRAIN_TRAIN = dict(batch_size=256, n_epochs=3, seed=7, eval_batch_size=1024, early_stop_patience=10)
+CATALOG_RECALL_TOL = 0.01  # chip_smoke.py's bar: card against CPU on the same weights
+
+
+@pytest.fixture(scope="module")
+def retrain_data(tmp_path_factory):
+    from hhrs_tpu_torch.config import Config
+    from hhrs_tpu_torch.data.synthetic import write_synthetic_dataset
+    from hhrs_tpu_torch.train.cli import build_dataset
+
+    d = tmp_path_factory.mktemp("retrain")
+    write_synthetic_dataset(str(d), n_users=400, n_items=300, n_reviews=12000, seed=21)
+    splits, art = build_dataset(str(d), Config())
+    return splits, ModelDims.from_artifacts(art)
+
+
+def _retrain(splits, dims, **kw):
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    return train_dcn(splits, dims, ModelConfig(**RETRAIN_MODEL), TrainConfig(**{**RETRAIN_TRAIN, **kw}),
+                     device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_slab_streaming_is_the_resident_run_bitwise(retrain_data):
+    """Slabs of K steps copied from pinned buffers on a copy stream: the
+    resident run's history and weights bit for bit, a ragged last slab too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    splits, dims = retrain_data
+    resident = _retrain(splits, dims)
+    for K in (3, 8):
+        slab = _retrain(splits, dims, stream_slab_steps=K)
+        assert slab.history == resident.history
+        for a, b in zip(slab.model.state_dict().values(), resident.model.state_dict().values()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_lazy_tables_train_through_the_cross_kernels(retrain_data):
+    """Lazy table updates on the card: the cross kernels carry the row
+    gradients; per step and from a CUDA graph (capturable row step) the
+    runs meet each other at the trainer's bars and learn."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    splits, dims = retrain_data
+    before = (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
+    per_step = _retrain(splits, dims, lazy_table_updates=True)
+    assert cross.cross_stack_forward.launches > before[0] and cross.cross_stack_backward.launches > before[1]
+    fused = _retrain(splits, dims, lazy_table_updates=True, fused_epoch=True)
+    bars = [dict(rel=2e-3, abs=2e-4)] + [dict(rel=5e-3, abs=2e-4)] * 2
+    for a, b, bar in zip(fused.history, per_step.history, bars):
+        assert a["val_loss"] == pytest.approx(b["val_loss"], **bar)
+    assert per_step.history[-1]["val_loss"] < per_step.history[0]["val_loss"]
+
+
+@pytest.mark.cuda
+def test_cuda_lazy_row_step_is_deterministic(retrain_data):
+    """The lazy row step sums a batch's duplicate rows in one order on the
+    card (``index_add_``'s atomics would not): a row step with heavy
+    duplicates, and a whole lazy run, repeat bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.train.lazy import row_adam_
+
+    gen = np.random.default_rng(5)
+    table0 = torch.as_tensor(gen.standard_normal((50, 16)), dtype=torch.float32, device="cuda")
+    ids = torch.as_tensor(gen.integers(0, 10, 4096), device="cuda")  # ~400 copies of each id
+    g_rows = torch.as_tensor(gen.standard_normal((4096, 16)), dtype=torch.float32, device="cuda")
+    outs = []
+    for _ in range(2):
+        table, m, v = table0.clone(), torch.zeros_like(table0), torch.zeros_like(table0)
+        row_adam_(table, m, v, ids, g_rows, 1, 1e-2, 0.1, True)
+        outs.append((table, m, v))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert torch.equal(outs[0][0][10:], table0[10:])  # untouched rows frozen
+    splits, dims = retrain_data
+    a, b = (_retrain(splits, dims, lazy_table_updates=True) for _ in range(2))
+    assert a.history == b.history
+    for x, y in zip(a.model.state_dict().values(), b.model.state_dict().values()):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_moments_per_step_and_fused(retrain_data, tmp_path):
+    """moment_dtype=bfloat16 on the card: the fused (capturable) run meets
+    the per-step run at the trainer's bars, and the checkpoint holds bf16
+    first moments and f32 second moments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.train.checkpoint import TrainCheckpointer
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    splits, dims = retrain_data
+    per_step = _retrain(splits, dims, moment_dtype="bfloat16")
+    fused = _retrain(splits, dims, moment_dtype="bfloat16", fused_epoch=True)
+    bars = [dict(rel=2e-3, abs=2e-4)] + [dict(rel=5e-3, abs=2e-4)] * 2
+    for a, b, bar in zip(fused.history, per_step.history, bars):
+        assert a["val_loss"] == pytest.approx(b["val_loss"], **bar)
+    train_dcn(splits, dims, ModelConfig(**RETRAIN_MODEL),
+              TrainConfig(**{**RETRAIN_TRAIN, "n_epochs": 1}, moment_dtype="bfloat16", fused_epoch=True),
+              checkpoint_dir=str(tmp_path), device="cuda")
+    state, _ = TrainCheckpointer(str(tmp_path)).restore(0, torch.device("cpu"))
+    for st in state["optimizer"]["state"].values():
+        assert st["exp_avg"].dtype == torch.bfloat16 and st["exp_avg_sq"].dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_debug_nans_raises_on_a_poisoned_batch(retrain_data, fused):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import dataclasses
+
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    splits, dims = retrain_data
+    num = splits.train_num.copy()
+    num[5, 1] = np.nan
+    tcfg = TrainConfig(**{**RETRAIN_TRAIN, "n_epochs": 1}, debug_nans=True, fused_epoch=fused)
+    with pytest.raises(FloatingPointError):
+        train_dcn(dataclasses.replace(splits, train_num=num), dims, ModelConfig(**RETRAIN_MODEL), tcfg, device="cuda")
+    clean = train_dcn(splits, dims, ModelConfig(**RETRAIN_MODEL), tcfg, device="cuda")
+    assert np.isfinite(clean.best_val_loss)
+
+
+@pytest.mark.cuda
+def test_cuda_catalog_recall_matches_the_cpu_on_the_same_weights(retrain_data):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.models.convert import dcnr_from_jax
+    from hhrs_tpu_torch.train.eval_retrieval import catalog_recall_at_k
+
+    splits, dims = retrain_data
+    run = _retrain(splits, dims, eval_catalog_recall=True, n_epochs=2)
+    cpu = catalog_recall_at_k(dcnr_from_jax(run.params, run.bn_state, dims, ModelConfig(**RETRAIN_MODEL)), splits)
+    assert 0.0 < cpu < 1.0
+    assert abs(run.final_metrics["catalog_recall_at_100"] - cpu) <= CATALOG_RECALL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+def test_cuda_cross_kernels_at_the_tuned_batch(dtype, variant):
+    """B = 32768, the tuned preset's batch: both instantiations against the
+    plain versions at their bars, a repeated backward bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _cross_inputs(32768, 113, 3, seed=9)
+    tol = CROSS_TOL
+    if dtype == "bfloat16":
+        w, b, x0, dy = _bf16(w, b, x0, dy)
+        tol = CROSS_BF16_TOL
+    y = cross.cross_stack_forward(w, b, x0, variant)
+    grads = cross.cross_stack_backward(w, b, x0, dy, variant)
+    again = cross.cross_stack_backward(w, b, x0, dy, variant)
+    ref = (cross.cross_stack_apply(w, b, x0, variant), *cross.cross_stack_backward_ref(w, b, x0, dy, variant))
+    scale = cross.cross_stack_term_scale(w, b, x0, dy, variant)
+    for name, got, want, sc in zip(("y", "dx0", "dw", "db"), (y, *grads), ref, scale):
+        cross.assert_close_to_scale(got, want, sc, **tol, what=name)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))

@@ -532,13 +532,7 @@ def test_cli_rejects_an_unknown_section(synthetic, tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("lazy_table_updates", True, "ROADMAP A7"),
-    ("stream_slab_steps", 4, "ROADMAP A6c"),
     ("mesh_resident_data", True, "ROADMAP A11"),
-    ("moment_dtype", "bfloat16", "ROADMAP A6c"),
-    ("rng_impl", "rbg", "ROADMAP A6c"),
-    ("debug_nans", True, "ROADMAP A6c"),
-    ("eval_catalog_recall", True, "ROADMAP A7"),
     ("mesh", object(), "ROADMAP A11"),
     ("explicit_exchange", "all_to_all", "ROADMAP A11"),
 ])
