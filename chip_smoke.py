@@ -145,7 +145,29 @@ Phases (any failure exits non-zero and prints no result line):
    drop, both recorded ``ok``, then an engine on the card from the
    registry's active artifact answers one request through the tower
    kernel. Prints each run's step p50 and ``examples_per_s``, each cycle's
-   train and gate seconds, and the phase's time.
+   train and gate seconds, and the phase's time;
+11. the tuning operator's path and the rest of serve: (a) the trial-axis
+   cross kernels at K = 8 (the hpo_r5 shape, B = 512, d = 113, L = 3; the
+   search space's widest, B = 4096, d = 145, L = 6): every lane's y, dx0,
+   dw and db bit for bit the single-trial kernels' on its inputs and within
+   the term-scale bar of the plain versions; the trial launch, K
+   single-trial launches and the plain version timed (CUDA-event means,
+   torch.profiler device time, and device time inside a CUDA graph); (b)
+   ``run_group`` of 8 lanes at trial 139's architecture (lanes from
+   ``Study.ask(fixed=…)``), 3 epochs on ``data/``, its trial-axis launches
+   counted from 0 (one a step and an eval chunk, not K times that), lanes 0
+   and 7 against their sequential ``train_dcn`` (val loss within C1's bars
+   or twice a one-ulp twin's gap, LR decisions and best epoch equal),
+   ``group_examples_per_s`` beside the sequential ``examples_per_s``; (c)
+   the HPO CLI as subprocesses (16 trials at ``--vectorize 8``, with
+   ``--reclaim-lanes``, 2 sequential): each journal holds its trials, each
+   best artifact serves a request through the tower kernel, and the
+   port's Study resumes ``hpo_r5/journal.jsonl`` and asks 8 more; (d) the
+   hpo_r5 ranker exported and loaded in a fresh process (``--export-check``)
+   that imports no model code: B = 1, 128, 8192 bit for bit ``tower_eval``,
+   one tower launch a call, timed against ``build_x0`` + ``tower_eval``; (e)
+   the batch CLI over every user of ``data/`` in chunks of 64, each line
+   equal to ``engine.recommend``, users/s and tower launches.
 
 The last lines are one JSON object of kernel measurements, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -1916,6 +1938,413 @@ def retrain_phase(cross, splits, preproc, model_cfg, train_cfg, dev, card: str) 
     return out
 
 
+# Phase 11: the tuning operator's path (vectorized HPO on the trial-axis cross
+# kernels) and the rest of serve (the exported ranker, the batch CLI).
+TRIALS_K = 8
+# (B, d, L, calls, w bound): the hpo_r5 shape; the reference space's widest
+# (emb 64: d = 2·64 + 6 + 11, 6 layers) at B = 4096. w is drawn as the JAX
+# init draws it, U(±bound/sqrt(d)), at a quarter of its bound for 6 layers:
+# there the init's gates make some rows grow doubly exponentially (|y| to
+# 6e14 on these inputs), where no float32 program meets the term-scale bar
+# (the plain version itself, against float64: y 14.5x outside it; at half the
+# bound dx0 2.7x; at a quarter every output within 0.07 of the allowance).
+TRIAL_SHAPES = ((512, 113, 3, 500, 1.0), (4096, 145, 6, 100, 0.25))
+PHASE11_DIR = REPO / "build" / "phase11"
+HPO_R5_JOURNAL = REPO / "benchmarks/results/hpo_r5/journal.jsonl"
+EXPORT_B = (1, 128, 8192)
+
+
+def _trial_counts(cross) -> dict:
+    f, b = cross.cross_stack_forward_trials, cross.cross_stack_backward_trials
+    return {"fwd": f.launches, "bwd": b.launches, "fwd_bf16": f.launches_bf16, "bwd_bf16": b.launches_bf16}
+
+
+def trial_axis_phase(cross, dev, card: str) -> dict:
+    """Phase 11a: the trial-axis cross kernels at K = 8 against the
+    single-trial kernels lane by lane (y, dx0, dw, db bit for bit) and
+    against their plain versions (term-scale bar); then the trial-axis
+    launch, K single-trial launches and the plain version timed (CUDA-event
+    means, device time from torch.profiler), with the bound of K stacks."""
+    import numpy as np
+    import torch
+
+    gen = np.random.default_rng(SEED + 11)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    K, rows, errs = TRIALS_K, {}, {"fwd": 0.0, "bwd": 0.0}
+    for B, d, L, calls, w_bound in TRIAL_SHAPES:
+        x0, dy = f32(gen.standard_normal((K, B, d))), f32(gen.standard_normal((K, B, d)))
+        w, b = f32(gen.uniform(-w_bound, w_bound, (K, L, d)) / np.sqrt(d)), f32(0.1 * gen.standard_normal((K, L, d)))
+        y = cross.cross_stack_forward_trials(w, b, x0, "code")
+        grads = cross.cross_stack_backward_trials(w, b, x0, dy, "code")
+        torch.cuda.synchronize()
+        for k in range(K):
+            single = (cross.cross_stack_forward(w[k], b[k], x0[k], "code"),
+                      *cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code"))
+            for name, got, want in zip(("y", "dx0", "dw", "db"), (y[k], *(g[k] for g in grads)), single):
+                if not torch.equal(got, want):
+                    raise SmokeFailure(f"trial-axis {name} of lane {k} at B={B}, d={d}, L={L} is not the "
+                                       f"single-trial kernel's bit for bit")
+            ref = (cross.cross_stack_apply(w[k], b[k], x0[k], "code"),
+                   *cross.cross_stack_backward_ref(w[k], b[k], x0[k], dy[k], "code"))
+            scale = cross.cross_stack_term_scale(w[k], b[k], x0[k], dy[k], "code")
+            for i, (name, got) in enumerate(zip(("y", "dx0", "dw", "db"), (y[k], *(g[k] for g in grads)))):
+                err, _ = cross.assert_close_to_scale(got, ref[i], scale[i], **CROSS_TOL,
+                                                     what=f"trial-axis {name} lane {k} B={B}")
+                kind = "fwd" if name == "y" else "bwd"
+                errs[kind] = max(errs[kind], err)
+        print(f"[trials] K={K} B={B} d={d} L={L}: every lane's y, dx0, dw, db bit for bit the single-trial "
+              f"kernels' (plan {tuple(cross.plan_of(x0[0], False))} / {tuple(cross.plan_of(x0[0], True))}), and "
+              f"within the term-scale bar of the plain versions")
+        with torch.no_grad():
+            timed = {
+                "fwd": (lambda: cross.cross_stack_forward_trials(w, b, x0, "code"),
+                        lambda: [cross.cross_stack_forward(w[k], b[k], x0[k], "code") for k in range(K)],
+                        lambda: cross.cross_stack_apply_trials(w, b, x0, "code")),
+                "bwd": (lambda: cross.cross_stack_backward_trials(w, b, x0, dy, "code"),
+                        lambda: [cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code") for k in range(K)],
+                        lambda: cross.cross_stack_backward_ref_trials(w, b, x0, dy, "code")),
+            }
+            for kind, (trial, singles, plain) in timed.items():
+                ms, single_ms = time_cuda(trial, calls), time_cuda(singles, calls)
+                plain_ms = time_cuda(plain, max(calls // 20, 5))
+                device_ms = device_ms_per_call(trial, 50, "cross_")
+                single_device_ms = device_ms_per_call(singles, 20, "cross_", launches=K)
+                graph_ms, single_graph_ms = graph_ms_per_call(trial, 20), graph_ms_per_call(singles, 20)
+                flops, nbytes = cross_work(B, d, L, kind)
+                bound_ms, bound_by = bound(K * flops, K * nbytes)
+                rows[(kind, B)] = dict(K=K, B=B, d=d, L=L, ms=ms, device_ms=device_ms, graph_ms=graph_ms,
+                                       k_single_launch_ms=single_ms, k_single_device_ms=single_device_ms,
+                                       k_single_graph_ms=single_graph_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by)
+                print(f"[time] trial-axis cross {kind} K={K} B={B} d={d} L={L}: one launch {ms:.4f} ms (device "
+                      f"{ms_text(device_ms, 1e3, 2)} us, in a graph {graph_ms * 1e3:.2f} us); {K} single-trial "
+                      f"launches {single_ms:.4f} ms (device {ms_text(single_device_ms, 1e3, 2)} us, in a graph "
+                      f"{single_graph_ms * 1e3:.2f} us); plain {plain_ms:.4f} ms; bound "
+                      f"{bound_ms * 1e3:.3f} us ({bound_by}; {K * flops / 1e6:.3f} MFLOP, {K * nbytes / 1e6:.3f} MB) "
+                      f"on {card}")
+    return {"rows": rows, "errs": errs}
+
+
+def graph_ms_per_call(fn, calls: int) -> float:
+    """Device time of one call of ``fn`` without the host's launch path:
+    ``calls`` calls captured in one CUDA graph (after a warm-up), the graph
+    replayed 5 times between CUDA events, the mean per call. The profiler's
+    counterpart where it loses kernel events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * calls)
+
+
+def _journal_record(number: int) -> dict:
+    for line in HPO_R5_JOURNAL.read_text().splitlines():
+        rec = json.loads(line)
+        if rec["number"] == number:
+            return rec
+    raise SmokeFailure(f"trial {number} is not in {HPO_R5_JOURNAL}")
+
+
+def _one_ulp_init(dims, mcfg, seed: int) -> tuple:
+    """The initialization of ``seed`` as JAX-layout trees, with one ulp
+    added to one weight of the final layer: a twin run's start."""
+    import numpy as np
+    import torch
+
+    from hhrs_tpu_torch.models.convert import jax_from_dcnr
+    from hhrs_tpu_torch.models.dcn import DCNR
+
+    params, bn_state = jax_from_dcnr(DCNR(dims, mcfg, generator=torch.Generator().manual_seed(seed)))
+    kernel = params["final"]["kernel"]
+    kernel.flat[0] = np.nextafter(kernel.flat[0], np.float32(np.inf))
+    return params, bn_state
+
+
+def run_group_phase(cross, splits, preproc, dev, card: str) -> dict:
+    """Phase 11b: ``run_group`` on the card at the hpo_r5 architecture, K = 8
+    lanes asked of a Study with trial 139's architecture fixed, 3 epochs on
+    ``data/``, the trial-axis launches counted from 0; lanes 0 and 7 held to
+    the sequential ``train_dcn`` of their trials."""
+    from hhrs_tpu_torch.config import Config
+    from hhrs_tpu_torch.hpo.cli import model_cfg_from_params, train_cfg_from_params
+    from hhrs_tpu_torch.hpo.space import reference_search_space
+    from hhrs_tpu_torch.hpo.study import Study
+    from hhrs_tpu_torch.hpo.vectorized import ARCH_KEYS, run_group
+    from hhrs_tpu_torch.models.dcn import ModelDims
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    dims = ModelDims.from_artifacts(preproc)
+    fixed = {k: _journal_record(139)["params"][k] for k in ARCH_KEYS}
+    trials = [t.params for t in Study(seed=0).ask(reference_search_space(), TRIALS_K, fixed=fixed)]
+    cfg = Config()
+    cfg.train.n_epochs = 3
+    mcfg, tcfg = model_cfg_from_params(trials[0], cfg.model), train_cfg_from_params(trials[0], cfg.train)
+    reset_cross_counts(cross)
+    for fn in (cross.cross_stack_forward_trials, cross.cross_stack_backward_trials):
+        fn.launches = fn.launches_bf16 = 0
+    t0 = time.perf_counter()
+    group = run_group(splits, dims, mcfg, tcfg, trials, device=dev)
+    group_s = time.perf_counter() - t0
+    counts, singles = _trial_counts(cross), cross_counts(cross)
+    steps = splits.n_train // tcfg.batch_size
+    chunks = -(-splits.n_val // tcfg.eval_batch_size)
+    want = {"fwd": 3 * (steps + chunks) + chunks, "bwd": 3 * steps}
+    lrs = ", ".join(f"{t['lr']:.3g}" for t in trials)
+    drops = ", ".join(f"{t['dropout']:.2f}" for t in trials)
+    print(f"[hpo] run_group K={TRIALS_K} (hpo_r5 architecture, trial 139's; lr {lrs}; dropout {drops}): "
+          f"3 epochs in {group_s:.2f} s; trial-axis launches fwd "
+          f"{counts['fwd']} bwd {counts['bwd']} (want {want['fwd']} / {want['bwd']}: one a step, one an eval chunk "
+          f"of each epoch and of the final eval, not {TRIALS_K}x that); single-trial launches {singles}")
+    if (counts["fwd"], counts["bwd"]) != (want["fwd"], want["bwd"]) or singles["fwd"] or singles["bwd"]:
+        raise SmokeFailure(f"run_group launched {counts} trial-axis and {singles} single-trial cross kernels, "
+                           f"not {want}")
+    held = {}
+    for k in (0, TRIALS_K - 1):
+        mk, tk = model_cfg_from_params(trials[k], cfg.model), train_cfg_from_params(trials[k], cfg.train)
+        seq = train_dcn(splits, dims, mk, tk, device=dev)
+        twin = train_dcn(splits, dims, mk, tk, device=dev, init_state=_one_ulp_init(dims, mk, tk.seed))
+        lane, c1_held = group[k], True
+        if len(lane.history) != len(seq.history):
+            raise SmokeFailure(f"lane {k} ran {len(lane.history)} epochs, its sequential trial {len(seq.history)}")
+        for e, (a, b, t) in enumerate(zip(lane.history, seq.history, twin.history)):
+            c1 = VAL_TOL if e == 0 else LATER_EPOCH_TOL
+            gap, twin_gap = abs(a["val_loss"] - b["val_loss"]), abs(t["val_loss"] - b["val_loss"])
+            bar = max(c1["atol"] + c1["rtol"] * abs(b["val_loss"]), 2 * twin_gap)
+            c1_held &= gap <= c1["atol"] + c1["rtol"] * abs(b["val_loss"])
+            print(f"[hpo] lane {k} epoch {e}: val {a['val_loss']:.6f}, sequential {b['val_loss']:.6f} (rel gap "
+                  f"{gap / b['val_loss']:.2e}), its one-ulp twin {t['val_loss']:.6f} (rel gap "
+                  f"{twin_gap / b['val_loss']:.2e}); bar {bar / b['val_loss']:.2e} rel; lr {a['lr']:.4g} / "
+                  f"{b['lr']:.4g}")
+            if gap > bar or a["lr"] != b["lr"]:
+                raise SmokeFailure(f"lane {k} epoch {e} is not its sequential trial's: {a} against {b}")
+        if lane.best_epoch != seq.best_epoch:
+            raise SmokeFailure(f"lane {k} best epoch {lane.best_epoch}, sequential {seq.best_epoch}")
+        held[k] = c1_held
+        print(f"[hpo] lane {k}: best epoch {lane.best_epoch} both; final val logloss {lane.final_metrics['val_logloss']:.6f} "
+              f"/ {seq.final_metrics['val_logloss']:.6f}, AUC {lane.final_metrics['val_auc']:.5f} / "
+              f"{seq.final_metrics['val_auc']:.5f}; the C1 bars alone {'held' if c1_held else 'did NOT hold'}; "
+              f"sequential examples_per_s {seq.examples_per_s:.1f} on {card}")
+    print(f"[hpo] group_examples_per_s {group[0].group_examples_per_s:.1f} ({TRIALS_K} lanes, "
+          f"{group[0].examples_per_s:.1f} each) against the sequential trainer's {seq.examples_per_s:.1f} on the "
+          f"same architecture on {card}")
+    return {"launches": counts, "group_examples_per_s": group[0].group_examples_per_s,
+            "examples_per_s": group[0].examples_per_s, "sequential_examples_per_s": seq.examples_per_s,
+            "group_s": group_s, "c1_bars_held": held}
+
+
+def hpo_cli_phase(dev, card: str) -> dict:
+    """Phase 11c: the HPO CLI as subprocesses on the card (vectorized K = 8,
+    with lane reclamation, sequential); each journal holds the asked trials,
+    the best artifact serves a request through the tower kernel; the port's
+    Study resumes JAX's hpo_r5 journal and asks its next 8 trials."""
+    import shutil
+
+    import torch
+
+    from hhrs_tpu_torch.hpo.space import reference_search_space
+    from hhrs_tpu_torch.hpo.study import Study
+    from hhrs_tpu_torch.ops import tower
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    root = PHASE11_DIR / "hpo"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {"vectorized": (["--trials", "16", "--vectorize", "8"], 16),
+            "reclaim": (["--trials", "16", "--vectorize", "8", "--reclaim-lanes"], 16),
+            "sequential": (["--trials", "2"], 2)}
+    golden = json.loads((REPO / GOLDEN).read_text())
+    out = {}
+    for label, (extra, asked) in runs.items():
+        d = root / label
+        cmd = [sys.executable, "-m", "hhrs_tpu_torch.hpo.cli", "--data", str(REPO / "data"), "--epochs", "2",
+               "--out", str(d), "--journal", str(d / "j.jsonl"), *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        (OUT_DIR / f"hpo_cli_{label}.log").write_text(proc.stdout[-20000:] + proc.stderr[-40000:])
+        if proc.returncode != 0:
+            raise SmokeFailure(f"the HPO CLI ({label}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+        records = [json.loads(line) for line in (d / "j.jsonl").read_text().splitlines()]
+        states = {s: sum(r["state"] == s for r in records) for s in ("complete", "pruned", "failed")}
+        if len(records) != asked or not states["complete"]:
+            raise SmokeFailure(f"the HPO CLI ({label}) journaled {len(records)} trials ({states}), not {asked}")
+        tower.tower_eval.launches = 0
+        engine = RecommendationEngine.from_dirs(str(d), str(REPO / "data"), device=dev)
+        resp = engine.recommend(*golden["requests"][0])
+        torch.cuda.synchronize()
+        launches = tower.tower_eval.launches
+        engine.close()
+        if "ranked_hotels" not in resp or launches <= 0:
+            raise SmokeFailure(f"the HPO CLI's ({label}) best artifact did not serve through the tower kernel")
+        best = min((r for r in records if r["state"] == "complete"), key=lambda r: r["value"])
+        rates = [r["user_attrs"].get("group_examples_per_s", r["user_attrs"].get("examples_per_s"))
+                 for r in records if r["state"] == "complete"]
+        print(f"[hpo] cli {label}: {len(records)} trials journaled ({states}) in {seconds:.1f} s; best value "
+              f"{best['value']:.5f} (trial {best['number']}, hidden {best['params']['hidden_dim']}, emb "
+              f"{best['params']['emb_dim']}, batch {best['params']['batch_size']}); the best artifact answered "
+              f"{len(resp['ranked_hotels'])} hotels, tower_eval launches {launches}; median rate "
+              f"{statistics.median(rates):.1f} examples/s on {card}")
+        out[label] = {"trials": len(records), "states": states, "seconds": seconds, "best": best["value"]}
+    study = Study(journal_path=str(HPO_R5_JOURNAL), seed=0)
+    asked = study.ask(reference_search_space(), 8)
+    if len(study.trials) != 300 or [t.number for t in asked] != list(range(300, 308)):
+        raise SmokeFailure("the port's Study did not resume the hpo_r5 journal's 300 trials")
+    print(f"[hpo] the port's Study resumed {HPO_R5_JOURNAL.relative_to(REPO)} (300 trials, best "
+          f"{study.best_value:.5f}) and asked trials 300-307: "
+          + "; ".join(f"lr {t.params['lr']:.3g} hidden {t.params['hidden_dim']}" for t in asked))
+    return out
+
+
+def export_check_main(argv: list) -> int:
+    """``chip_smoke.py --export-check RANKER CHECK``: phase 11d's fresh
+    process. It imports the export module (and with it only
+    ``hhrs_tpu_torch.ops.tower`` of the package's kernels), loads the
+    program onto the card, scores CHECK's inputs and prints one JSON line:
+    bitwise equality with CHECK's logits per batch size, and whether any
+    ``hhrs_tpu_torch.models`` module was imported. Exits 1 unless all
+    equal and none was."""
+    import torch
+
+    from hhrs_tpu_torch.serve.export import ExportedRanker
+
+    ranker_path, check_path = argv
+    ranker = ExportedRanker.load(ranker_path)
+    check = torch.load(check_path)
+    equal = {}
+    for B, (inputs, want) in check.items():
+        got = ranker(*(t.cuda() for t in inputs))
+        equal[B] = bool(torch.equal(got.cpu(), want))
+    models = sorted(m for m in sys.modules if m.startswith("hhrs_tpu_torch.models"))
+    print(json.dumps({"equal": equal, "models_imported": models}))
+    return 0 if all(equal.values()) and not models else 1
+
+
+def export_phase(bundle, dev, card: str) -> dict:
+    """Phase 11d: export hpo_r5 on the card, score B = 1, 128, 8192 in a
+    fresh process (bitwise ``tower_eval``, no model code imported) and here
+    (launches counted from 0), and time the loaded program against a direct
+    ``build_x0`` + ``tower_eval``."""
+    import numpy as np
+    import torch
+
+    from hhrs_tpu_torch.models.convert import dcnr_from_jax
+    from hhrs_tpu_torch.ops import tower
+    from hhrs_tpu_torch.serve.export import ExportedRanker, save_ranker
+
+    PHASE11_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(PHASE11_DIR / "ranker.pt2")
+    t0 = time.perf_counter()
+    save_ranker(bundle, path)
+    export_s = time.perf_counter() - t0
+    model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, bundle.model_cfg, dev)
+    folded = tower.fold_eval_params(model)
+    gen = np.random.default_rng(SEED + 12)
+    inputs = {}
+    for B in EXPORT_B:
+        inputs[B] = (torch.as_tensor(gen.integers(0, bundle.dims.n_users, B), device=dev),
+                     torch.as_tensor(gen.integers(0, bundle.dims.n_items, B), device=dev),
+                     torch.as_tensor(np.stack([gen.integers(0, n, B) for _, n in bundle.dims.cat_dims], 1), device=dev),
+                     torch.as_tensor(gen.random((B, bundle.dims.n_num_features), np.float32), device=dev))
+    direct = lambda B: tower.tower_eval(folded, tower.build_x0(model, *inputs[B]))  # noqa: E731
+    with torch.no_grad():
+        want = {B: direct(B) for B in EXPORT_B}
+    check = str(PHASE11_DIR / "export_check.pt")
+    torch.save({B: (tuple(t.cpu() for t in inputs[B]), want[B].cpu()) for B in EXPORT_B}, check)
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--export-check", path, check], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    print(f"[export] recorded hpo_r5 in {export_s:.2f} s ({Path(path).stat().st_size / 1024:.1f} KB); a fresh "
+          f"process loaded it on the card: {proc.stdout.strip()[-400:]}")
+    if proc.returncode != 0:
+        raise SmokeFailure(f"the exported ranker in a fresh process: rc {proc.returncode}, {proc.stderr[-2000:]}")
+    ranker = ExportedRanker.load(path)
+    with torch.no_grad():  # the plans of these widths were timed in phase 3: no launch here
+        for B in EXPORT_B:
+            tower.plan_of(folded, tower.build_x0(model, *inputs[B]))
+    tower.tower_eval.launches = 0
+    for B in EXPORT_B:
+        if not torch.equal(ranker(*inputs[B]), want[B]):
+            raise SmokeFailure(f"the exported ranker's logits at B={B} are not tower_eval's bit for bit")
+    torch.cuda.synchronize()
+    launches = tower.tower_eval.launches
+    if launches != len(EXPORT_B):
+        raise SmokeFailure(f"{len(EXPORT_B)} calls of the exported ranker launched the tower kernel {launches} times")
+    timings = {}
+    with torch.no_grad():
+        for B, iters in ((128, 300), (8192, 100)):
+            ms, direct_ms = time_cuda(lambda: ranker(*inputs[B]), iters), time_cuda(lambda: direct(B), iters)
+            timings[B] = {"program_ms": ms, "direct_ms": direct_ms}
+            print(f"[export] B={B}: the loaded program {ms:.4f} ms a call, build_x0 + tower_eval {direct_ms:.4f} ms "
+                  f"(CUDA-event means) on {card}")
+    print(f"[export] {len(EXPORT_B)} calls (B = {EXPORT_B}) of the loaded program: tower_eval launches {launches}, "
+          f"logits bit for bit tower_eval's")
+    return {"launches": launches, "timings": timings, "export_s": export_s}
+
+
+def batch_cli_phase(engine, dev, card: str) -> dict:
+    """Phase 11e: the batch CLI over every user of ``data/`` in chunks of 64
+    on the card (tower launches counted from 0), each line equal to the
+    engine's ``recommend`` of the same request; users/s."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hhrs_tpu_torch.ops import tower
+    from hhrs_tpu_torch.serve import batch_cli
+
+    PHASE11_DIR.mkdir(parents=True, exist_ok=True)
+    out = PHASE11_DIR / "recs.jsonl"
+    err = io.StringIO()
+    tower.tower_eval.launches = 0
+    with contextlib.redirect_stderr(err):
+        rc = batch_cli.main(["--artifacts", str(REPO / ARTIFACT), "--data", str(REPO / "data"), "--out", str(out),
+                             "--chunk", "64"])
+    torch.cuda.synchronize()
+    launches = tower.tower_eval.launches
+    summary = [json.loads(line) for line in err.getvalue().splitlines() if line.startswith("{")]
+    lines = [json.loads(line) for line in out.read_text().splitlines()]
+    if rc != 0 or not summary or len(lines) != summary[-1]["users"] or len(lines) < 2000:
+        raise SmokeFailure(f"the batch CLI exited {rc} with {len(lines)} lines: {err.getvalue()[-1000:]}")
+    differ = [rec["user_id"] for rec in lines
+              if rec["hotels"] != engine.recommend(rec["user_id"], rec["city"], "friends", 0.7).get("ranked_hotels", [])]
+    chunks = -(-len(lines) // 64)
+    print(f"[batch] {len(lines)} users in chunks of 64: {summary[-1]['users_per_s']} users/s "
+          f"({summary[-1]['seconds']} s, host clock) on {card}; tower_eval launches {launches} (the eager run and "
+          f"the capture of the 64-request bucket; the {chunks} chunks replay its graph); lines unlike the "
+          f"engine's recommend: {len(differ)}")
+    if differ or launches <= 0:
+        raise SmokeFailure(f"the batch CLI: {len(differ)} lines unlike engine.recommend (users {differ[:5]}), "
+                           f"tower_eval launches {launches}")
+    return {"launches": launches, "replays": chunks, "users_per_s": summary[-1]["users_per_s"],
+            "users": len(lines)}
+
+
+def tuning_phase(cross, splits, preproc, bundle, engine, dev, card: str) -> dict:
+    """Phase 11: 11a–11e; prints its time."""
+    t0 = time.perf_counter()
+    out = {"trials": trial_axis_phase(cross, dev, card),
+           "group": run_group_phase(cross, splits, preproc, dev, card),
+           "cli": hpo_cli_phase(dev, card),
+           "export": export_phase(bundle, dev, card),
+           "batch": batch_cli_phase(engine, dev, card)}
+    print(f"[hpo] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2140,6 +2569,9 @@ def main() -> int:
                    **{f"pipeline cycle {i + 1}": c for i, c in enumerate(retrain["pipeline"]["cycles"])}}
     retrain_bf16 = {f"tuned {label}": {"fwd": r["fwd"], "bwd": r["bwd"]} for label, r in retrain["tuned"].items()}
 
+    # ---- phase 11: the tuning operator's path, the exported ranker, the batch CLI
+    tuning = tuning_phase(cross, splits, preproc, bundle, engine, dev, card)
+
     r = rows[128]
     kernels.append({
         "name": "tower_eval", "route": "cuda", "source": "hhrs_tpu_torch/csrc/tower_eval.cu",
@@ -2151,6 +2583,9 @@ def main() -> int:
         "launches_by_option": {k: options[k]["launches"]["tower"] for k in ("int8", "cap16", "cap16_all_rows")},
         "retrain_launches": retrain["pipeline"]["tower_launches"],
         "http_launches": http["launches"], "http_timings": http["timings"], "http_memory_mib": http["memory_mib"],
+        "export_launches": tuning["export"]["launches"], "export_timings": tuning["export"]["timings"],
+        "batch_cli_launches": tuning["batch"]["launches"], "batch_cli_replays": tuning["batch"]["replays"],
+        "batch_cli_users_per_s": tuning["batch"]["users_per_s"],
     })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
                            ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):
@@ -2180,6 +2615,19 @@ def main() -> int:
             "by_batch": [cross_rows_bf16[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
             "retrain_launches": {k: v[kind] for k, v in retrain_bf16.items()},
         })
+    trial_rows = tuning["trials"]["rows"]
+    for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
+                           ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):
+        r = trial_rows[(kind, TRIAL_SHAPES[0][0])]
+        kernels.append({
+            "name": f"cross_stack_{kind}_trials", "route": "cuda", "source": "hhrs_tpu_torch/csrc/cross_stack.cu",
+            "replaces": replaces, "launches": tuning["group"]["launches"][kind],
+            "max_abs_err": tuning["trials"]["errs"][kind], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
+            "graph_ms": r["graph_ms"], "k_single_launch_ms": r["k_single_launch_ms"],
+            "k_single_device_ms": r["k_single_device_ms"], "k_single_graph_ms": r["k_single_graph_ms"], "K": r["K"],
+            "by_shape": [trial_rows[(kind, B)] for B, *_ in TRIAL_SHAPES[1:]],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2189,6 +2637,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(http_client_main(sys.argv[2:]) if sys.argv[1:2] == ["--http-client"] else main())
+        if sys.argv[1:2] == ["--http-client"]:
+            sys.exit(http_client_main(sys.argv[2:]))
+        sys.exit(export_check_main(sys.argv[2:]) if sys.argv[1:2] == ["--export-check"] else main())
     except SmokeFailure as e:
         sys.exit(fail(str(e)))

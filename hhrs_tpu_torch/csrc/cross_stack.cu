@@ -70,6 +70,19 @@
 // after the same deterministic f32 batch sums. Its tiles hold bf16 rows, so a
 // tile is a multiple of 16 bytes when its row count is a multiple of 8
 // (kRowAlign<T>); the float instantiation is the code above, unchanged.
+//
+// The trial axis. Vectorized HPO trains K trials of one architecture as one
+// program: x0 [K, B, d] with w, b [K, L, d], the counterpart of jax.vmap of
+// cross_stack_pallas, which Pallas batches by adding a grid axis. Here grid
+// axis y is the trial: block (x, k) runs block x of the single-trial plan on
+// trial k's rows and weights, and the backward's sums of trial k go through
+// its own slice of `partial` and its own ticket counter. The blocks of one
+// trial do what the single-trial launch's blocks do, in the same order, so
+// lane k's y, dx0, dw and db are bit for bit the single-trial kernel's on
+// lane k's inputs under the same plan. No block waits for another outside
+// its cluster (the ticket decides who sums, nobody spins on it), so the K
+// grids need not be resident at once: past the card's capacity they run in
+// waves. The single-trial entry points are the launches with K = 1.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -328,8 +341,13 @@ template <class T, int NPL>
 __global__ void __launch_bounds__(kThreads)
     cross_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ w,
                      const T* __restrict__ b, T* __restrict__ y, int B, int d, int L,
-                     int canonical, int rows, int stages) {
+                     int canonical, int rows, int stages, long long x_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // This block's trial (grid axis y): its rows and its weights.
+  x0 += blockIdx.y * x_stride;
+  y += blockIdx.y * x_stride;
+  w += (size_t)blockIdx.y * L * d;
+  b += (size_t)blockIdx.y * L * d;
   const Layout s(smem, d, L);
   const TileRing<T> ring{s.bars, reinterpret_cast<T*>(s.ring), B, d, rows, stages, 1};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -426,8 +444,20 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
                      const T* __restrict__ b, const T* __restrict__ dy,
                      T* __restrict__ dx0, T* __restrict__ dw, T* __restrict__ db,
                      float* partial, unsigned int* counters, int B,
-                     int d, int L, int canonical, int rows, int stages) {
+                     int d, int L, int canonical, int rows, int stages, long long x_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // This block's trial (grid axis y): its rows, weights and gradients, and
+  // its own cluster sums and ticket.
+  const size_t weights_at = (size_t)blockIdx.y * L * d;
+  x0 += blockIdx.y * x_stride;
+  dy += blockIdx.y * x_stride;
+  dx0 += blockIdx.y * x_stride;
+  w += weights_at;
+  b += weights_at;
+  dw += weights_at;
+  db += weights_at;
+  partial += (size_t)blockIdx.y * (gridDim.x / kCluster) * 2 * L * d;
+  counters += blockIdx.y;
   const Layout s(smem, d, L);
   const TileRing<T> ring{s.bars, reinterpret_cast<T*>(s.ring), B, d, rows, stages, 2};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -607,21 +637,23 @@ cudaError_t fwd_capacity(size_t smem, int* n) {
 }
 
 template <class T, int NPL>
-cudaError_t launch_fwd(const T* x0, const T* w, const T* b, T* y, int B, int d, int L,
-                       int canonical, int rows, int grid, int stages, cudaStream_t stream) {
+cudaError_t launch_fwd(const T* x0, const T* w, const T* b, T* y, int K, long long x_stride, int B,
+                       int d, int L, int canonical, int rows, int grid, int stages,
+                       cudaStream_t stream) {
   cross_fwd_kernel<T, NPL>
-      <<<grid, kThreads, smem_bytes(rows, stages, d, L, false, sizeof(T)), stream>>>(
-          x0, w, b, y, B, d, L, canonical, rows, stages);
+      <<<dim3(grid, K), kThreads, smem_bytes(rows, stages, d, L, false, sizeof(T)), stream>>>(
+          x0, w, b, y, B, d, L, canonical, rows, stages, x_stride);
   return cudaGetLastError();
 }
 
 template <class T, int NPL>
 cudaError_t launch_bwd(const T* x0, const T* w, const T* b, const T* dy, T* dx0, T* dw, T* db,
-                       float* partial, unsigned int* counters, int B, int d, int L, int canonical,
-                       int rows, int grid, int stages, cudaStream_t stream) {
+                       float* partial, unsigned int* counters, int K, long long x_stride, int B,
+                       int d, int L, int canonical, int rows, int grid, int stages,
+                       cudaStream_t stream) {
   cross_bwd_kernel<T, NPL>
-      <<<grid, kThreads, smem_bytes(rows, stages, d, L, true, sizeof(T)), stream>>>(
-          x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages);
+      <<<dim3(grid, K), kThreads, smem_bytes(rows, stages, d, L, true, sizeof(T)), stream>>>(
+          x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages, x_stride);
   return cudaGetLastError();
 }
 
@@ -647,26 +679,26 @@ int capacity_typed(int d, bool backward, int* n) {
 }
 
 template <class T>
-int fwd_typed(const void* x0, const void* w, const void* b, void* y, int B, int d, int L,
-              int canonical, int rows, int grid, int stages, cudaStream_t s) {
-#define HHRS_FWD(NPL)                                                                       \
-  launch_fwd<T, NPL>(static_cast<const T*>(x0), static_cast<const T*>(w),                   \
-                     static_cast<const T*>(b), static_cast<T*>(y), B, d, L, canonical, rows, \
-                     grid, stages, s)
+int fwd_typed(const void* x0, const void* w, const void* b, void* y, int K, long long x_stride,
+              int B, int d, int L, int canonical, int rows, int grid, int stages, cudaStream_t s) {
+#define HHRS_FWD(NPL)                                                                      \
+  launch_fwd<T, NPL>(static_cast<const T*>(x0), static_cast<const T*>(w),                  \
+                     static_cast<const T*>(b), static_cast<T*>(y), K, x_stride, B, d, L,    \
+                     canonical, rows, grid, stages, s)
   HHRS_CROSS_DISPATCH(HHRS_FWD)
 #undef HHRS_FWD
 }
 
 template <class T>
 int bwd_typed(const void* x0, const void* w, const void* b, const void* dy, void* dx0, void* dw,
-              void* db, void* partial, void* counters, int B, int d, int L, int canonical,
-              int rows, int grid, int stages, cudaStream_t s) {
+              void* db, void* partial, void* counters, int K, long long x_stride, int B, int d,
+              int L, int canonical, int rows, int grid, int stages, cudaStream_t s) {
 #define HHRS_BWD(NPL)                                                                          \
   launch_bwd<T, NPL>(static_cast<const T*>(x0), static_cast<const T*>(w),                      \
                      static_cast<const T*>(b), static_cast<const T*>(dy), static_cast<T*>(dx0), \
                      static_cast<T*>(dw), static_cast<T*>(db), static_cast<float*>(partial),    \
-                     static_cast<unsigned int*>(counters), B, d, L, canonical, rows, grid,      \
-                     stages, s)
+                     static_cast<unsigned int*>(counters), K, x_stride, B, d, L, canonical,     \
+                     rows, grid, stages, s)
   HHRS_CROSS_DISPATCH(HHRS_BWD)
 #undef HHRS_BWD
 }
@@ -717,33 +749,60 @@ int hhrs_cross_capacity(int d, int backward, int is_bf16) {
 // b [L, d]. Needs 1 <= d <= 256, 0 <= L <= 6 and a plan: rows per tile a
 // multiple of 4 (float32) or 8 (bfloat16) in [4, 48], 1 <= stages <= 3 with
 // stages x rows <= 96, grid >= 1.
-int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y, int B, int d, int L,
-                   int canonical, int rows, int grid, int stages, int is_bf16, void* stream) {
-  if (B <= 0) return 0;
+//
+// The trial axis (the *_trials entry points): K >= 1 trials of the same B, d,
+// L in one launch of K grids of the plan, the arrays stacked: trial k's rows
+// of x0, y at k * x_stride elements (x_stride >= B * d, a multiple of 16
+// bytes), w, b [K, L, d] contiguous. Trial k's y is the single-trial launch's
+// on its rows; hhrs_cross_fwd is the launch with K = 1.
+int hhrs_cross_fwd_trials(const void* x0, const void* w, const void* b, void* y, int K,
+                          long long x_stride, int B, int d, int L, int canonical, int rows,
+                          int grid, int stages, int is_bf16, void* stream) {
+  if (B <= 0 || K == 0) return 0;
   const int align = is_bf16 ? kRowAlign<bf16> : kRowAlign<float>;
-  if (L < 0 || L > kMaxLayers || !valid_plan(rows, grid, stages, align))
+  const size_t elem = is_bf16 ? sizeof(bf16) : sizeof(float);
+  if (L < 0 || L > kMaxLayers || !valid_plan(rows, grid, stages, align) || K < 0 || K > 65535 ||
+      (K > 1 && (x_stride < (long long)B * d || x_stride * elem % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? fwd_typed<bf16>(x0, w, b, y, B, d, L, canonical, rows, grid, stages, s)
-                 : fwd_typed<float>(x0, w, b, y, B, d, L, canonical, rows, grid, stages, s);
+  return is_bf16 ? fwd_typed<bf16>(x0, w, b, y, K, x_stride, B, d, L, canonical, rows, grid, stages, s)
+                 : fwd_typed<float>(x0, w, b, y, K, x_stride, B, d, L, canonical, rows, grid, stages, s);
+}
+
+int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y, int B, int d, int L,
+                   int canonical, int rows, int grid, int stages, int is_bf16, void* stream) {
+  return hhrs_cross_fwd_trials(x0, w, b, y, 1, 0, B, d, L, canonical, rows, grid, stages, is_bf16,
+                               stream);
 }
 
 // dy, dx0 [B, d] (16-byte aligned); dw, db [L, d], all of the element type;
 // partial [grid / 8, 2, L, d] float32 and one unsigned int counter, 0 before
 // the first launch (each launch leaves it at 0). The grid is a multiple of 8
-// (the cluster size). One launch.
+// (the cluster size). One launch. With the trial axis: dy, dx0 laid out as x0,
+// dw, db [K, L, d], partial [K, grid / 8, 2, L, d] and K counters; trial k's
+// dx0, dw and db are the single-trial launch's on its inputs.
+int hhrs_cross_bwd_trials(const void* x0, const void* w, const void* b, const void* dy,
+                          void* dx0, void* dw, void* db, void* partial, void* counters, int K,
+                          long long x_stride, int B, int d, int L, int canonical, int rows,
+                          int grid, int stages, int is_bf16, void* stream) {
+  const int align = is_bf16 ? kRowAlign<bf16> : kRowAlign<float>;
+  const size_t elem = is_bf16 ? sizeof(bf16) : sizeof(float);
+  if (B <= 0 || L <= 0 || L > kMaxLayers || !valid_plan(rows, grid, stages, align) ||
+      grid % kCluster != 0 || K < 1 || K > 65535 ||
+      (K > 1 && (x_stride < (long long)B * d || x_stride * elem % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? bwd_typed<bf16>(x0, w, b, dy, dx0, dw, db, partial, counters, K, x_stride, B,
+                                   d, L, canonical, rows, grid, stages, s)
+                 : bwd_typed<float>(x0, w, b, dy, dx0, dw, db, partial, counters, K, x_stride, B,
+                                    d, L, canonical, rows, grid, stages, s);
+}
+
 int hhrs_cross_bwd(const void* x0, const void* w, const void* b, const void* dy, void* dx0,
                    void* dw, void* db, void* partial, void* counters, int B, int d, int L,
                    int canonical, int rows, int grid, int stages, int is_bf16, void* stream) {
-  const int align = is_bf16 ? kRowAlign<bf16> : kRowAlign<float>;
-  if (B <= 0 || L <= 0 || L > kMaxLayers || !valid_plan(rows, grid, stages, align) ||
-      grid % kCluster != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_typed<bf16>(x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L,
-                                   canonical, rows, grid, stages, s)
-                 : bwd_typed<float>(x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L,
-                                    canonical, rows, grid, stages, s);
+  return hhrs_cross_bwd_trials(x0, w, b, dy, dx0, dw, db, partial, counters, 1, 0, B, d, L,
+                               canonical, rows, grid, stages, is_bf16, stream);
 }
 
 }  // extern "C"

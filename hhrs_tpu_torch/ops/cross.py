@@ -15,7 +15,17 @@ stacked ``[L, d]``. Two variants:
 * :class:`CrossStackFn` ties them into autograd, and :func:`cross_stack`
   is what the model calls: the plain version on a CPU tensor, the kernels
   on a CUDA tensor. It never falls back from one to the other: a CUDA
-  input that the kernels cannot take raises.
+  input that the kernels cannot take raises;
+* the trial axis, for K same-architecture HPO trials run as one program
+  (``hpo/vectorized.py``, the counterpart of ``jax.vmap`` of
+  ``cross_stack_pallas``): x0 ``[K, B, d]`` with w, b ``[K, L, d]``.
+  :func:`cross_stack_apply_trials` and :func:`cross_stack_backward_ref_trials`
+  are the plain versions (K single-trial calls); :func:`cross_stack_forward_trials`
+  and :func:`cross_stack_backward_trials` launch the kernels once for all K
+  trials, each trial under the single-trial plan of B rows, so lane k's
+  outputs are bit for bit the single-trial kernels' on lane k's inputs;
+  :class:`CrossStackTrialsFn` and :func:`cross_stack_trials` are the
+  autograd function and the model's call.
 
 Every function takes float32 or bfloat16 tensors (one dtype for all
 inputs) and computes in their dtype as the JAX stack and its VJP do:
@@ -176,6 +186,11 @@ def _kernels() -> _Kernels:
     lib.hhrs_cross_fwd.restype = i
     lib.hhrs_cross_bwd.argtypes = [p] * 9 + [i] * 8 + [p]
     lib.hhrs_cross_bwd.restype = i
+    q = ctypes.c_longlong
+    lib.hhrs_cross_fwd_trials.argtypes = [p] * 4 + [i, q] + [i] * 8 + [p]
+    lib.hhrs_cross_fwd_trials.restype = i
+    lib.hhrs_cross_bwd_trials.argtypes = [p] * 9 + [i, q] + [i] * 8 + [p]
+    lib.hhrs_cross_bwd_trials.restype = i
     lib.hhrs_cross_prepare.restype = i
     lib.hhrs_cross_capacity.argtypes = [i, i, i]
     lib.hhrs_cross_capacity.restype = i
@@ -292,16 +307,30 @@ class BackwardScratch(NamedTuple):
     counter: torch.Tensor
 
 
-def _new_scratch(device_index: int) -> BackwardScratch:
-    """A backward scratch on a CUDA device, at the largest plan's size with
-    the counter at 0."""
+def _new_scratch(device_index: int, trials: int = 1) -> BackwardScratch:
+    """A backward scratch on a CUDA device for ``trials`` trials, at the
+    largest plan's size with the counters at 0."""
     k, clusters = _kernels(), plan_capacity(_sm_count(device_index), True) // CLUSTER
     dev = torch.device("cuda", device_index)
-    return BackwardScratch(torch.empty(clusters * 2 * k.max_layers * k.max_dim, dtype=torch.float32, device=dev),
-                           torch.zeros(1, dtype=torch.int32, device=dev))
+    return BackwardScratch(
+        torch.empty(trials * clusters * 2 * k.max_layers * k.max_dim, dtype=torch.float32, device=dev),
+        torch.zeros(trials, dtype=torch.int32, device=dev))
 
 
 _scratch: dict = {}  # (device, stream) -> the eager launches' scratch
+_trial_scratch: dict = {}  # (device, stream) -> the eager trial-axis launches' scratch
+
+
+def _backward_scratch_trials(device_index: int, stream: int, trials: int) -> BackwardScratch:
+    """As :func:`_backward_scratch`, for a trial-axis backward of ``trials``
+    trials: one slice of partial sums and one counter per trial. The eager
+    scratch of a stream grows to the most trials launched there."""
+    if torch.cuda.is_current_stream_capturing():
+        return _new_scratch(device_index, trials)
+    key = (device_index, stream)
+    if key not in _trial_scratch or _trial_scratch[key].counter.numel() < trials:
+        _trial_scratch[key] = _new_scratch(device_index, trials)
+    return _trial_scratch[key]
 
 
 def _backward_scratch(device_index: int, stream: int) -> BackwardScratch:
@@ -528,6 +557,202 @@ def cross_stack(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str
     if x0.device.type != "cpu":
         raise ValueError(f"cross_stack runs on cpu or cuda tensors, got {x0.device}")
     return cross_stack_apply(w, b, x0, variant)
+
+
+# ---- the trial axis ---------------------------------------------------------
+
+
+def cross_stack_apply_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str) -> torch.Tensor:
+    """The plain trial-axis forward: x0 ``[K, B, d]``, w, b ``[K, L, d]`` →
+    ``[K, B, d]``, lane k being :func:`cross_stack_apply` on lane k's inputs
+    (``jax.vmap`` of the stack)."""
+    _check_trial_shapes(w, b, x0)
+    return torch.stack([cross_stack_apply(w[k], b[k], x0[k], variant) for k in range(x0.shape[0])])
+
+
+def cross_stack_backward_ref_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, dy: torch.Tensor,
+                                    variant: str) -> tuple:
+    """The plain trial-axis backward → ``(dx0 [K, B, d], dw [K, L, d], db
+    [K, L, d])``, lane k's dw and db summed over lane k's rows only."""
+    _check_trial_shapes(w, b, x0)
+    lanes = [cross_stack_backward_ref(w[k], b[k], x0[k], dy[k], variant) for k in range(x0.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*lanes))
+
+
+def _check_trial_shapes(w, b, x0) -> None:
+    if x0.dim() != 3 or w.dim() != 3 or b.shape != w.shape or w.shape[0] != x0.shape[0] \
+            or w.shape[2] != x0.shape[2] or x0.shape[0] < 1:
+        raise ValueError(f"the trial axis takes x0 [K, B, d] and w, b [K, L, d] with K >= 1, got "
+                         f"{tuple(x0.shape)}, {tuple(w.shape)} and {tuple(b.shape)}")
+
+
+def _check_trial_inputs(tensors: dict, variant: str) -> tuple:
+    """:func:`_check_inputs` for the trial axis → ``(K, B, d, L)``: each
+    lane as the single-trial kernels take it, the arrays stacked and
+    contiguous."""
+    x0, w = tensors["x0"], tensors["w"]
+    _check_trial_shapes(w, tensors["b"], x0)
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"the trial-axis kernels run on cuda tensors, got {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.shape != (w.shape if name in ("w", "b") else x0.shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(w.shape if name in ('w', 'b') else x0.shape)}")
+    K = x0.shape[0]
+    B, d, L = _check_inputs({name: t[0] for name, t in tensors.items()}, variant)
+    if K > 65535:
+        raise ValueError(f"the trial-axis kernels take at most 65535 trials, got {K}")
+    return K, B, d, L
+
+
+def _lane_stride(t: torch.Tensor) -> int:
+    """Elements from one lane's rows of ``t [K, B, d]`` to the next's, so
+    that every lane starts on a 16-byte boundary (the kernels bulk-copy each
+    lane's rows): ``B·d``, or each lane padded to a multiple of the dtype's
+    ``ROW_ALIGN`` rows."""
+    K, B, d = t.shape
+    if K == 1 or B * d * t.element_size() % 16 == 0:
+        return B * d
+    return -(-B // ROW_ALIGN[t.dtype]) * ROW_ALIGN[t.dtype] * d
+
+
+def _laid_out(t: torch.Tensor, stride: int) -> torch.Tensor:
+    """``t [K, B, d]`` itself where its lanes lie ``stride`` elements apart,
+    else a copy laid out so (``[K, stride / d, d]``, the rows past B
+    unused)."""
+    K, B, d = t.shape
+    if stride == B * d:
+        return t
+    out = torch.empty((K, stride // d, d), dtype=t.dtype, device=t.device)
+    out[:, :B] = t
+    return out
+
+
+def cross_stack_forward_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str,
+                               plan: CrossPlan | None = None) -> torch.Tensor:
+    """One launch of the forward kernel for K trials on CUDA tensors → y
+    ``[K, B, d]``, each trial under :func:`plan_of`'s plan for its ``[B, d]``
+    rows unless one is given, so lane k is :func:`cross_stack_forward` on
+    lane k's inputs bit for bit. ``.launches`` counts the float32 launches,
+    ``.launches_bf16`` the bfloat16 ones."""
+    _check_trial_inputs({"x0": x0, "w": w, "b": b}, variant)
+    if plan is not None:
+        _check_plan(plan, x0.get_device(), False, x0.dtype)
+    return _forward_trials(w, b, x0, variant == "canonical", plan)
+
+
+def _forward_trials(w, b, x0, canonical: bool, plan: CrossPlan | None) -> torch.Tensor:
+    index = x0.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _forward_trials(w, b, x0, canonical, plan)
+    K, B, d = x0.shape
+    if B == 0:
+        return torch.empty_like(x0)
+    stride = _lane_stride(x0)
+    xa = _laid_out(x0, stride)
+    y = torch.empty_like(xa)
+    p = plan or _plan(B, index, d, False, x0.dtype)
+    lib = _kernels().lib
+    err = lib.hhrs_cross_fwd_trials(xa.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), K, stride, B, d,
+                                    w.shape[1], canonical, p.rows, p.grid, p.stages,
+                                    x0.dtype == torch.bfloat16, _current_stream(index))
+    _raise_on(lib, err, "cross_stack trial-axis forward kernel launch")
+    if x0.dtype == torch.bfloat16:
+        cross_stack_forward_trials.launches_bf16 += 1
+    else:
+        cross_stack_forward_trials.launches += 1
+    return y if stride == B * d else y[:, :B]
+
+
+def cross_stack_backward_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, dy: torch.Tensor,
+                                variant: str, plan: CrossPlan | None = None) -> tuple:
+    """One launch of the backward kernel for K trials on CUDA tensors →
+    ``(dx0 [K, B, d], dw [K, L, d], db [K, L, d])``, each trial under the
+    single-trial plan, its dw and db summed over its own rows in that plan's
+    order: lane k is :func:`cross_stack_backward` on lane k's inputs bit for
+    bit. ``.launches`` / ``.launches_bf16`` count the launches."""
+    _check_trial_inputs({"x0": x0, "w": w, "b": b, "dy": dy}, variant)
+    if plan is not None:
+        _check_plan(plan, x0.get_device(), True, x0.dtype)
+    return _backward_trials(w, b, x0, dy, variant == "canonical", plan)
+
+
+def _backward_trials(w, b, x0, dy, canonical: bool, plan: CrossPlan | None) -> tuple:
+    index = x0.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _backward_trials(w, b, x0, dy, canonical, plan)
+    (K, B, d), L = x0.shape, w.shape[1]
+    dw, db = torch.empty_like(w), torch.empty_like(b)
+    if B == 0 or L == 0:
+        return (dy.clone() if L == 0 else torch.empty_like(x0)), dw.zero_(), db.zero_()
+    stride = _lane_stride(x0)
+    xa, dya = _laid_out(x0, stride), _laid_out(dy, stride)
+    dx0 = torch.empty_like(xa)
+    p = plan or _plan(B, index, d, True, x0.dtype)
+    stream = _current_stream(index)
+    partial, counter = _backward_scratch_trials(index, stream, K)
+    lib = _kernels().lib
+    err = lib.hhrs_cross_bwd_trials(xa.data_ptr(), w.data_ptr(), b.data_ptr(), dya.data_ptr(), dx0.data_ptr(),
+                                    dw.data_ptr(), db.data_ptr(), partial.data_ptr(), counter.data_ptr(), K,
+                                    stride, B, d, L, canonical, p.rows, p.grid, p.stages,
+                                    x0.dtype == torch.bfloat16, stream)
+    _raise_on(lib, err, "cross_stack trial-axis backward kernel launch")
+    if x0.dtype == torch.bfloat16:
+        cross_stack_backward_trials.launches_bf16 += 1
+    else:
+        cross_stack_backward_trials.launches += 1
+    return (dx0 if stride == B * d else dx0[:, :B]), dw, db
+
+
+cross_stack_forward_trials.launches = cross_stack_forward_trials.launches_bf16 = 0
+cross_stack_backward_trials.launches = cross_stack_backward_trials.launches_bf16 = 0
+
+
+class CrossStackTrialsFn(torch.autograd.Function):
+    """The trial-axis stack under autograd: one forward and one backward
+    launch for all K lanes on CUDA tensors, the plain versions on CPU
+    tensors. The forward saves ``w, b, x0`` and the backward recomputes the
+    layer inputs, as :class:`CrossStackFn` does; unlike it, its backward is
+    not differentiable again (an HPO step takes first derivatives only)."""
+
+    @staticmethod
+    def forward(ctx, w, b, x0, variant):
+        ctx.variant = variant
+        ctx.save_for_backward(w, b, x0)
+        if x0.is_cuda:
+            _check_trial_inputs({"x0": x0, "w": w, "b": b}, variant)
+            return _forward_trials(w, b, x0, variant == "canonical", None)
+        return cross_stack_apply_trials(w, b, x0, variant)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        w, b, x0 = ctx.saved_tensors
+        dy = dy.contiguous()
+        if dy.is_cuda:
+            if dy.dtype != x0.dtype or dy.shape != x0.shape or dy.device != x0.device:
+                raise ValueError(f"dy must be {x0.dtype} {tuple(x0.shape)} on {x0.device}, got "
+                                 f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+            dx0, dw, db = _backward_trials(w, b, x0, dy, ctx.variant == "canonical", None)
+        else:
+            dx0, dw, db = cross_stack_backward_ref_trials(w, b, x0, dy, ctx.variant)
+        return dw, db, dx0, None
+
+
+def cross_stack_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str) -> torch.Tensor:
+    """The trial-axis stack as the K-lane model runs it: autograd through
+    :func:`cross_stack_apply_trials` on CPU tensors (each lane the
+    single-trial model's plain stack); :class:`CrossStackTrialsFn` (the
+    kernels) on CUDA tensors."""
+    if x0.is_cuda:
+        return CrossStackTrialsFn.apply(w, b, x0, variant)
+    if x0.device.type != "cpu":
+        raise ValueError(f"cross_stack_trials runs on cpu or cuda tensors, got {x0.device}")
+    return cross_stack_apply_trials(w, b, x0, variant)
 
 
 class CrossStack(nn.Module):

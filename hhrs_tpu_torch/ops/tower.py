@@ -14,7 +14,13 @@ scores every ``dcnr`` request through :func:`tower_eval`:
 * :func:`tower_plan` picks the launch plan (rows per tile, cluster size)
   from B and each plan's wave time, timed at first use per widths
   (:func:`_wave_ms`); :func:`tower_layout` lays out the block's shared
-  memory.
+  memory;
+* ``torch.ops.hhrs.tower_eval`` (:func:`tower_eval_op`) is the same
+  function as a registered operator, which ``torch.export`` records in a
+  program (``serve/export.py``): its CUDA implementation is
+  :func:`tower_eval` (the kernel, launch plan and count included), its CPU
+  implementation :func:`tower_eval_ref`, and its fake implementation gives
+  the ``[B]`` output of a symbolic B. Importing this module registers it.
 """
 
 from __future__ import annotations
@@ -364,3 +370,31 @@ def _launch(folded: dict, x0: torch.Tensor, variant: str, plan: tuple[int, int],
 
 
 tower_eval.launches = 0
+
+
+@torch.library.custom_op("hhrs::tower_eval", mutates_args=(), device_types="cuda")
+def tower_eval_op(x0: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor, b2: torch.Tensor, cross_w: torch.Tensor, cross_b: torch.Tensor,
+                  final_w: torch.Tensor, final_b: torch.Tensor, variant: str) -> torch.Tensor:
+    """``hhrs::tower_eval(x0, *folded, variant) → [B]`` logits, the folded
+    weights in the order of ``fold_eval_params``'s keys. On CUDA tensors:
+    :func:`tower_eval` (one kernel launch, counted in
+    ``tower_eval.launches``)."""
+    folded = dict(zip(_FOLDED_KEYS, (w0, b0, w1, b1, w2, b2, cross_w, cross_b, final_w, final_b)))
+    return tower_eval(folded, x0.contiguous(), variant)
+
+
+@tower_eval_op.register_kernel("cpu")
+def _tower_eval_op_cpu(x0, w0, b0, w1, b1, w2, b2, cross_w, cross_b, final_w, final_b, variant):
+    folded = dict(zip(_FOLDED_KEYS, (w0, b0, w1, b1, w2, b2, cross_w, cross_b, final_w, final_b)))
+    return tower_eval_ref(folded, x0, variant)
+
+
+@tower_eval_op.register_fake
+def _tower_eval_op_fake(x0, w0, b0, w1, b1, w2, b2, cross_w, cross_b, final_w, final_b, variant):
+    return x0.new_empty((x0.shape[0],), dtype=torch.float32)
+
+
+def folded_args(folded: dict) -> list:
+    """The folded weights as ``tower_eval_op`` takes them, in order."""
+    return [folded[k] for k in _FOLDED_KEYS]

@@ -312,3 +312,100 @@ def test_third_derivative_through_cross_fn_is_exact(variant):
 
     for got, want in zip(third(cross.CrossStackFn.apply), third(cross.cross_stack_apply)):
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+
+
+# ---- the trial axis (vectorized HPO) ----------------------------------------------
+
+
+def _trial_inputs(K: int, B: int, d: int, L: int, seed: int = 0):
+    lanes = [_inputs(B, d, L, seed=seed + k) for k in range(K)]
+    x0, w, b = (np.stack(a) for a in zip(*lanes))
+    dy = np.random.default_rng(seed + 100).standard_normal(x0.shape).astype(np.float32)
+    return x0, w, b, dy
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("K,B,d,L", [(8, 64, 57, 3), (3, 37, 33, 6), (1, 16, 113, 1)])
+def test_plain_trial_axis_is_k_single_trial_calls(variant, K, B, d, L):
+    """The plain trial-axis forward and backward are the single-trial plain
+    versions lane by lane, bit for bit: each lane's dw and db summed over its
+    own rows only."""
+    x0, w, b, dy = (torch.from_numpy(a) for a in _trial_inputs(K, B, d, L))
+    y = cross.cross_stack_apply_trials(w, b, x0, variant)
+    grads = cross.cross_stack_backward_ref_trials(w, b, x0, dy, variant)
+    for k in range(K):
+        assert torch.equal(y[k], cross.cross_stack_apply(w[k], b[k], x0[k], variant))
+        single = cross.cross_stack_backward_ref(w[k], b[k], x0[k], dy[k], variant)
+        assert all(torch.equal(g[k], s) for g, s in zip(grads, single))
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("K,B,d,L", [(4, 64, 57, 3), (3, 32, 33, 2)])
+def test_plain_trial_axis_matches_vmapped_pallas_kernel(variant, K, B, d, L):
+    """Against ``jax.vmap`` of ``cross_stack_pallas`` (interpret mode; Pallas
+    batches the ``pallas_call`` with a grid axis) and ``jax.vmap`` of its
+    ``jax.grad``, lane by lane at the JAX kernel's term-scale bar."""
+    x0, w, b, dy = _trial_inputs(K, B, d, L, seed=7)
+
+    def lane_out(p, x):
+        return cross_stack_pallas(p, x, variant, True)
+
+    def lane_vjp(p, x, g):
+        return jax.grad(lambda pp, xx: jnp.sum(cross_stack_pallas(pp, xx, variant, True) * g), argnums=(0, 1))(p, x)
+
+    params = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+    out = jax.vmap(lane_out)(params, jnp.asarray(x0))
+    g_params, g_x0 = jax.vmap(lane_vjp)(params, jnp.asarray(x0), jnp.asarray(dy))
+
+    tw, tb, tx0, tdy = (torch.from_numpy(a) for a in (w, b, x0, dy))
+    got = (cross.cross_stack_apply_trials(tw, tb, tx0, variant),
+           *cross.cross_stack_backward_ref_trials(tw, tb, tx0, tdy, variant))
+    want = [np.array(a) for a in (out, g_x0, g_params["w"], g_params["b"])]
+    for k in range(K):
+        scales = cross.cross_stack_term_scale(tw[k], tb[k], tx0[k], tdy[k], variant)
+        for name, g, ref, scale in zip(("y", "dx0", "dw", "db"), got, want, scales):
+            cross.assert_close_to_scale(g[k], torch.from_numpy(ref[k]), scale, **TOL, what=f"{name} lane {k}")
+
+
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+def test_trial_axis_fn_equals_autograd_on_cpu(variant):
+    """CrossStackTrialsFn on CPU tensors: the plain forward, and the closed
+    form backward against autograd through the plain stack; the model's call
+    (cross_stack_trials) is autograd through the plain stack and launches
+    nothing."""
+    x0, w, b, dy = (torch.from_numpy(a) for a in _trial_inputs(3, 40, 41, 3, seed=3))
+    leaves = [t.clone().requires_grad_() for t in (w, b, x0)]
+    before = (cross.cross_stack_forward_trials.launches, cross.cross_stack_backward_trials.launches)
+    cross.cross_stack_trials(*leaves, variant).backward(dy)
+    want = [t.grad for t in leaves]
+    leaves = [t.clone().requires_grad_() for t in (w, b, x0)]
+    y = cross.CrossStackTrialsFn.apply(*leaves, variant)
+    assert torch.equal(y, cross.cross_stack_apply_trials(w, b, x0, variant))
+    y.backward(dy)
+    for k in range(3):
+        _, dx0_scale, dw_scale, db_scale = cross.cross_stack_term_scale(w[k], b[k], x0[k], dy[k], variant)
+        for got, ref, scale, name in zip((t.grad for t in leaves), want, (dw_scale, db_scale, dx0_scale),
+                                         ("w", "b", "x0")):
+            cross.assert_close_to_scale(got[k], ref[k], scale, **TOL, what=f"{name} lane {k}")
+    assert (cross.cross_stack_forward_trials.launches, cross.cross_stack_backward_trials.launches) == before
+    with pytest.raises(ValueError, match="cuda"):
+        cross.cross_stack_forward_trials(w, b, x0, variant)
+    with pytest.raises(ValueError, match="trial axis"):
+        cross.cross_stack_apply_trials(w[0], b[0], x0[0], variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,B,d", [(1, 7, 33), (8, 512, 113), (3, 4487, 113), (2, 5, 33), (4, 9, 16)])
+def test_trial_lanes_start_on_16_byte_boundaries(dtype, K, B, d):
+    """Every lane of a trial-axis launch starts on a 16-byte boundary (the
+    kernels bulk-copy each lane's rows): the lane stride is B·d where that
+    allows it, else each lane padded to the dtype's row alignment; a copy
+    laid out so keeps the rows."""
+    t = torch.randn(K, B, d).to(dtype)
+    stride = cross._lane_stride(t)
+    assert stride % d == 0 and stride >= B * d and (K == 1 or stride * t.element_size() % 16 == 0)
+    if B * d * t.element_size() % 16 == 0:
+        assert stride == B * d
+    out = cross._laid_out(t, stride)
+    assert out.data_ptr() % 16 == 0 and out.stride(0) == stride
+    assert torch.equal(out[:, :B], t)

@@ -855,3 +855,132 @@ def test_cuda_cross_kernels_at_the_tuned_batch(dtype, variant):
     for name, got, want, sc in zip(("y", "dx0", "dw", "db"), (y, *grads), ref, scale):
         cross.assert_close_to_scale(got, want, sc, **tol, what=name)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+# ---- the trial axis (vectorized HPO) and the exported ranker -----------------
+
+
+def _trial_inputs(K: int, B: int, d: int, L: int, seed: int = 0):
+    """K lanes of cross inputs, ``[K, L, d]`` weights and ``[K, B, d]`` rows."""
+    lanes = [_cross_inputs(B, d, L, seed=seed + k) for k in range(K)]
+    return tuple(torch.stack(t).contiguous() for t in zip(*lanes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("K,B,d,L", [(8, 512, 113, 3), (3, 4487, 113, 3), (8, 4096, 209, 6), (2, 5, 33, 1)])
+def test_cuda_trial_axis_lanes_are_the_single_trial_kernels(dtype, variant, K, B, d, L):
+    """One trial-axis launch each way for K lanes: every lane's y, dx0, dw
+    and db bit for bit the single-trial kernels' on that lane's inputs (the
+    same plan and sum order), a lane stride that is not a multiple of 16
+    bytes (B = 4487, 5) included; the launch counters count one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _trial_inputs(K, B, d, L, seed=11)
+    if dtype == "bfloat16":
+        w, b, x0, dy = _bf16(w, b, x0, dy)
+    count = "launches_bf16" if dtype == "bfloat16" else "launches"
+    before = (getattr(cross.cross_stack_forward_trials, count), getattr(cross.cross_stack_backward_trials, count))
+    y = cross.cross_stack_forward_trials(w, b, x0, variant)
+    grads = cross.cross_stack_backward_trials(w, b, x0, dy, variant)
+    torch.cuda.synchronize()
+    assert (getattr(cross.cross_stack_forward_trials, count),
+            getattr(cross.cross_stack_backward_trials, count)) == (before[0] + 1, before[1] + 1)
+    for k in range(K):
+        lane = [t[k].clone() for t in (w, b, x0, dy)]  # a lane of its own (the wrappers take 16-byte-aligned rows)
+        assert torch.equal(y[k], cross.cross_stack_forward(*lane[:3], variant)), k
+        single = cross.cross_stack_backward(*lane, variant)
+        assert all(torch.equal(g[k], s) for g, s in zip(grads, single)), k
+
+
+@pytest.mark.cuda
+def test_cuda_trial_axis_graph_replay_equals_eager_calls():
+    """The trial-axis forward and backward captured in a CUDA graph (one
+    scratch slice and ticket per lane, allocated in the capture) replay the
+    eager results bit for bit, three times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _trial_inputs(8, 512, 113, 3, seed=5)
+    want = (cross.cross_stack_forward_trials(w, b, x0, "code"),
+            *cross.cross_stack_backward_trials(w, b, x0, dy, "code"))
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = (cross.cross_stack_forward_trials(w, b, x0, "code"),
+                *cross.cross_stack_backward_trials(w, b, x0, dy, "code"))
+    for _ in range(3):
+        for t in outs:
+            t.fill_(float("nan"))
+        torch.cuda.empty_cache()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, e) for g, e in zip(outs, want))
+
+
+@pytest.mark.cuda
+def test_cuda_run_group_lanes_track_sequential_trials(retrain_data):
+    """run_group on the card: each lane of a 3-lane group (dropout on)
+    meets the sequential train_dcn of its trial at the trajectory bars
+    (tests/test_hpo_vectorized.py's, with rtol 5e-3 after epoch 0 as the
+    card's trajectory bar, PERF.md §2), with the same LR decisions and best
+    epoch, through one trial-axis launch each way a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.hpo.vectorized import run_group
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    splits, dims = retrain_data
+    arch = dict(emb_dim=16, hidden_dim=64, n_cross_layers=2, n_res_blocks=1, batch_size=256, optimizer="adamw")
+    trials = [dict(arch, lr=lr, weight_decay=wd, dropout=dr, lr_plateau_patience=0, lr_plateau_factor=0.5)
+              for lr, wd, dr in ((3e-3, 1e-5, 0.2), (1e-3, 1e-4, 0.5), (2e-2, 1e-6, 0.1))]
+
+    def cfgs(p):
+        return (ModelConfig(emb_dim=16, hidden_dim=64, n_cross_layers=2, n_res_blocks=1, dropout=p["dropout"]),
+                TrainConfig(lr=p["lr"], weight_decay=p["weight_decay"], optimizer="adamw", lr_plateau_patience=0,
+                            lr_plateau_factor=0.5, **RETRAIN_TRAIN))
+
+    before = (cross.cross_stack_forward_trials.launches, cross.cross_stack_backward_trials.launches)
+    group = run_group(splits, dims, *cfgs(trials[0]), trials, device="cuda")
+    steps, chunks = splits.n_train // 256, -(-splits.n_val // RETRAIN_TRAIN["eval_batch_size"])
+    assert cross.cross_stack_backward_trials.launches - before[1] == 3 * steps
+    # a launch a step, a launch an eval chunk of each epoch and of the final eval
+    assert cross.cross_stack_forward_trials.launches - before[0] == 3 * (steps + chunks) + chunks
+    for p, lane in zip(trials, group):
+        seq = train_dcn(splits, dims, *cfgs(p), device="cuda")
+        bars = [dict(rel=2e-3, abs=2e-4)] + [dict(rel=5e-3, abs=2e-4)] * (len(seq.history) - 1)
+        for a, b, bar in zip(lane.history, seq.history, bars):
+            assert a["val_loss"] == pytest.approx(b["val_loss"], **bar)
+            assert a["lr"] == b["lr"]
+        assert lane.best_epoch == seq.best_epoch
+        assert lane.final_metrics["val_auc"] == pytest.approx(seq.final_metrics["val_auc"], abs=5e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_exported_ranker_is_the_tower_kernel(tmp_path):
+    """The hpo_r5 ranker exported on the card and loaded back: at B = 1, 128
+    and 8192 its logits equal build_x0 + tower_eval bit for bit, one tower
+    launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.models.convert import dcnr_from_jax
+    from hhrs_tpu_torch.serve.export import ExportedRanker, save_ranker
+    from hhrs_tpu_torch.train.artifacts import load_artifact_bundle
+
+    bundle = load_artifact_bundle(str(Path(__file__).resolve().parents[1] / "benchmarks/results/hpo_r5/best"))
+    path = save_ranker(bundle, str(tmp_path / "ranker.pt2"))
+    ranker = ExportedRanker.load(path)
+    model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, bundle.model_cfg, "cuda")
+    folded = tower.fold_eval_params(model)
+    rng = np.random.default_rng(3)
+    for B in (1, 128, 8192):
+        ids = [torch.as_tensor(rng.integers(0, n, B), device="cuda")
+               for n in (bundle.dims.n_users, bundle.dims.n_items)]
+        cats = torch.as_tensor(np.stack([rng.integers(0, n, B) for _, n in bundle.dims.cat_dims], 1), device="cuda")
+        num = torch.as_tensor(rng.random((B, bundle.dims.n_num_features), np.float32), device="cuda")
+        with torch.no_grad():  # the first call at these widths also times the launch plans
+            want = tower.tower_eval(folded, tower.build_x0(model, *ids, cats, num))
+        before = tower.tower_eval.launches
+        got = ranker(*ids, cats, num)
+        assert tower.tower_eval.launches == before + 1
+        assert torch.equal(got, want), B
