@@ -10,7 +10,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. needs ``torch.cuda.is_available()``; prints the card's name and power
    limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
 2. builds ``hhrs_tpu_torch/csrc/tower_eval.cu`` and ``cross_stack.cu`` with
-   nvcc (sm_90a), one nvcc for each source, started together;
+   nvcc (sm_90a), one nvcc for each source, started together, and beside
+   them the native CSV reader ``csv_reader.cpp`` with g++;
 3. prints the clusters the card holds at once and each launch plan's
    wave time, which the tower kernel's wrapper measures at first use and
    picks its plan from; holds the fused tower kernel against its plain
@@ -28,7 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
    {1, 3}, both variants, at rtol 1e-5 / atol 1e-6 against the scale of
    the terms (``cross_stack_term_scale``); a repeated backward must be
    bit-identical, a row's output must not depend on its position in the
-   batch, forward and backward captured in a CUDA graph (under a backward
+   batch, the registered operator ``hhrs::cross_stack_fwd`` (what the
+   model calls without a gradient, and what an exported program records)
+   on x0 as given, misaligned and strided must give the wrapper's forward
+   bit for bit, forward and backward captured in a CUDA graph (under a backward
    scratch of its own) and replayed twice must give the eager results bit
    for bit, two backward graphs captured on one stream and replayed at
    once on two streams must each give their eager dx0/dw/db bit for bit,
@@ -39,7 +43,7 @@ Phases (any failure exits non-zero and prints no result line):
    B ∈ {1, 5, 9, 15, 512, 1000, 4487, 8192} (ragged last tiles of 1 to 7
    rows), d ∈ {113, 33}, L ∈ {1, 3}, both variants, at the term-scale bar
    with bf16's unit roundoff (rtol 2⁻⁸); repeated backwards bit-identical,
-   flip invariance, and forward and backward replayed from a CUDA graph
+   flip invariance, the operator bit for bit the wrapper, and forward and backward replayed from a CUDA graph
    bit for bit;
 4. builds ``RecommendationEngine.from_dirs("benchmarks/results/hpo_r5/best",
    "data")`` on cuda and serves the golden sweep (known, unknown and
@@ -81,8 +85,8 @@ Phases (any failure exits non-zero and prints no result line):
    the later ones (``LATER_EPOCH_TOL``), the LR trace must be equal and the
    final val logloss / AUC must match at 2e-3; a second identical run must
    repeat each bit for bit. The same run with the plain cross stack in
-   place of the kernels is printed beside it, as the trajectory's
-   rounding-noise floor;
+   place of the kernels (its training steps and its evaluations) is
+   printed beside it, as the trajectory's rounding-noise floor;
 7. training, timing runs: the hpo_r5 configuration as trained (dropout
    0.6) from seeded random weights, 3 epochs, per step and with
    ``train.fused_epoch``, each with the cross kernels' launch counts reset
@@ -167,7 +171,22 @@ Phases (any failure exits non-zero and prints no result line):
    that imports no model code: B = 1, 128, 8192 bit for bit ``tower_eval``,
    one tower launch a call, timed against ``build_x0`` + ``tower_eval``; (e)
    the batch CLI over every user of ``data/`` in chunks of 64, each line
-   equal to ``engine.recommend``, users/s and tower launches.
+   equal to ``engine.recommend``, users/s and tower launches;
+12. the two-tower retriever, the exported ranker of every architecture and
+   the native CSV reader: (a) ``retrieval/two_tower.py`` at its default
+   width (50 epochs, B = 1,024) on ``data/`` from the JAX init
+   (``testdata/two_tower_init_data.npz``): epochs 0-2 at C1's bars against
+   the JAX run (``two_tower_golden_data.json``), final recall@100 within
+   ``CATALOG_RECALL_TOL`` of the JAX run's, ``examples_per_s``; (b) the golden sweep with the
+   JAX-exported retrieval embeddings (``serve_golden_hpo_r5_two_tower.json``),
+   buckets 1 and 8, graphed equal to eager, tower launches counted from 0;
+   (c) every arch × {f32, bf16} × both variants at hpo_r5's widths (seeded
+   weights) exported on the card and loaded back, B = 1, 128, 8192 bit for
+   bit the engine's route for that bundle, ``hhrs::cross_stack_fwd`` (f32
+   and bf16) and ``hhrs::tower_eval`` launches counted from 0 over the
+   exported calls, CUDA-event ms beside the direct route; (d) phase 10a's
+   500,000 rows read with ``engine="native"`` and ``engine="python"``:
+   equal tables and splits, both times.
 
 The last lines are one JSON object of kernel measurements, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -475,6 +494,28 @@ def serve_timings(engine, reqs: list, card: str) -> None:
         print(f"[profile] not measured: {type(e).__name__}: {e}")
 
 
+def operator_outputs(w, b, x0, variant: str) -> list:
+    """``hhrs::cross_stack_fwd`` (what CrossStack calls without a gradient,
+    and what an exported program records) on x0 as given, on a copy of it
+    off a 16-byte boundary and on a column-major copy: one counted forward
+    launch each, after the operator's own copy of the last two."""
+    import torch
+
+    off = torch.empty(x0.numel() + 1, dtype=x0.dtype, device=x0.device)[1:].view(x0.shape).copy_(x0)
+    strided = x0.t().contiguous().t()
+    return [torch.ops.hhrs.cross_stack_fwd(x, w, b, variant) for x in (x0, off, strided)]
+
+
+def held_operator(y_ops: list, y, where: str) -> None:
+    """The operator's outputs must be the wrapper's ``y`` (itself held to
+    the plain version) bit for bit, in its dtype."""
+    import torch
+
+    for name, got in zip(("as given", "misaligned", "strided"), y_ops):
+        if got.dtype != y.dtype or not torch.equal(got, y):
+            raise SmokeFailure(f"hhrs::cross_stack_fwd on an x0 {name} differs from cross_stack_forward at {where}")
+
+
 def cross_parity(cross, model, features, dev) -> dict:
     """Forward and backward kernels against the plain versions; returns the
     largest |kernel − plain| of each."""
@@ -507,7 +548,8 @@ def cross_parity(cross, model, features, dev) -> dict:
                         x0f, dyf = x0.flip(0).contiguous(), dy.flip(0).contiguous()
                         y_flip = cross.cross_stack_forward(w, b, x0f, variant).flip(0)
                         dx0_flip = cross.cross_stack_backward(w, b, x0f, dyf, variant)[0].flip(0)
-                        n_fwd, n_bwd = n_fwd + 2, n_bwd + 3
+                        y_ops = operator_outputs(w, b, x0, variant)
+                        n_fwd, n_bwd = n_fwd + 2 + len(y_ops), n_bwd + 3
                         torch.cuda.synchronize()
                         ref = (cross.cross_stack_apply(w, b, x0, variant),
                                *cross.cross_stack_backward_ref(w, b, x0, dy, variant))
@@ -522,13 +564,14 @@ def cross_parity(cross, model, features, dev) -> dict:
                         raise SmokeFailure(f"a repeated cross backward is not bit-identical at {where}")
                     if not (torch.equal(y_flip, y) and torch.equal(dx0_flip, grads[0])):
                         raise SmokeFailure(f"a row's cross output depends on its position at {where}")
+                    held_operator(y_ops, y, where)
                     errs["fwd"] = max(errs["fwd"], e[0][0])
                     errs["bwd"] = max(errs["bwd"], *(x[0] for x in e[1:]))
                     shares["fwd"] = max(shares["fwd"], e[0][1])
                     shares["bwd"] = max(shares["bwd"], *(x[1] for x in e[1:]))
                     print(f"[parity] cross {where}: max|kernel-plain| (share of the allowance) "
                           + " ".join(f"{n} {x[0]:.3e} ({x[1]:.2f})" for n, x in zip(("y", "dx0", "dw", "db"), e))
-                          + "; repeat bit-identical; flip bit-identical")
+                          + "; repeat bit-identical; flip bit-identical; operator = wrapper bit for bit")
     # The training step's call, captured in a CUDA graph (the backward's
     # scratch allocated in the capture) and replayed: the tickets are back at
     # 0 after every launch.
@@ -710,15 +753,21 @@ def training_parity(splits, bundle, dev, card: str) -> None:
     fused_lr_check(splits, bundle, model_cfg, train_cfg, dev)
     # The rounding-noise floor of this trajectory: the same run with the
     # plain cross stack (autograd through cross_stack_apply) in place of the
-    # kernels, both valid float32 programs.
+    # kernels, both valid float32 programs. CrossStack calls cross.cross_stack
+    # with and without a gradient, so the evaluations are plain too.
     kernel_path = cross.cross_stack
     cross.cross_stack = cross.cross_stack_apply
+    before = cross_counts(cross)
     try:
         plain, _ = run(bundle.params)
     finally:
         cross.cross_stack = kernel_path
+    if cross_counts(cross) != before:
+        raise SmokeFailure("the plain cross stack run launched a cross kernel (a training step or an evaluation "
+                           "did not take the plain version)")
     for h, k, w in zip(plain.history, per_step.history, golden["history"]):
-        print(f"[train]   epoch {h['epoch']}, plain cross stack on the card: val_loss {h['val_loss']:.7f}; "
+        print(f"[train]   epoch {h['epoch']}, plain cross stack on the card (0 cross launches, steps and "
+              f"evaluations): val_loss {h['val_loss']:.7f}; "
               f"|kernels - plain| {abs(k['val_loss'] - h['val_loss']):.3e}, "
               f"|plain - JAX| {abs(h['val_loss'] - w['val_loss']):.3e}")
 
@@ -1087,7 +1136,8 @@ def bf16_cross_parity(cross, model, features, dev) -> dict:
                         x0f, dyf = x0.flip(0).contiguous(), dy.flip(0).contiguous()
                         y_flip = cross.cross_stack_forward(w, b, x0f, variant).flip(0)
                         dx0_flip = cross.cross_stack_backward(w, b, x0f, dyf, variant)[0].flip(0)
-                        n_fwd, n_bwd = n_fwd + 2, n_bwd + 3
+                        y_ops = operator_outputs(w, b, x0, variant)
+                        n_fwd, n_bwd = n_fwd + 2 + len(y_ops), n_bwd + 3
                         torch.cuda.synchronize()
                         ref = (cross.cross_stack_apply(w, b, x0, variant),
                                *cross.cross_stack_backward_ref(w, b, x0, dy, variant))
@@ -1104,6 +1154,7 @@ def bf16_cross_parity(cross, model, features, dev) -> dict:
                         raise SmokeFailure(f"a repeated bf16 cross backward is not bit-identical at {where}")
                     if not (torch.equal(y_flip, y) and torch.equal(dx0_flip, grads[0])):
                         raise SmokeFailure(f"a row's bf16 cross output depends on its position at {where}")
+                    held_operator(y_ops, y, where)
                     bitwise = all(torch.equal(g, r) for g, r in zip((y, *grads), ref))
                     errs["fwd"] = max(errs["fwd"], e[0][0])
                     errs["bwd"] = max(errs["bwd"], *(x[0] for x in e[1:]))
@@ -1111,7 +1162,8 @@ def bf16_cross_parity(cross, model, features, dev) -> dict:
                     shares["bwd"] = max(shares["bwd"], *(x[1] for x in e[1:]))
                     print(f"[parity] cross {where}: max|kernel-plain| (share of the allowance) "
                           + " ".join(f"{n} {x[0]:.3e} ({x[1]:.2f})" for n, x in zip(("y", "dx0", "dw", "db"), e))
-                          + f"; equal to the plain version bit for bit: {bitwise}; repeat and flip bit-identical")
+                          + f"; equal to the plain version bit for bit: {bitwise}; repeat and flip bit-identical; "
+                          "operator = wrapper bit for bit")
     for B in (512, 8192):  # the training batch and the largest, replayed from a graph
         x0 = features(B).to(torch.bfloat16)
         w, b = model.cross.w.detach().to(torch.bfloat16), model.cross.b.detach().to(torch.bfloat16)
@@ -1726,7 +1778,7 @@ def tuned_phase(cross, dev, card: str) -> dict:
     B = cfg.train.batch_size
     steps = splits.n_train // B
     print(f"[tuned] {TUNED_DATA['n_reviews']} reviews, {TUNED_DATA['n_users']} users, {TUNED_DATA['n_items']} items "
-          f"(seed {TUNED_DATA['seed']}) generated in {gen_s:.2f} s; ingest {cold_s:.2f} s cold (stdlib csv, "
+          f"(seed {TUNED_DATA['seed']}) generated in {gen_s:.2f} s; ingest {cold_s:.2f} s cold (the native reader, "
           f"preprocess, cache write), {cached_s:.3f} s from --cache-dir; {splits.n_train} train / {splits.n_val} "
           f"val rows: {steps} steps of {B} an epoch")
     out = {}
@@ -2345,6 +2397,254 @@ def tuning_phase(cross, splits, preproc, bundle, engine, dev, card: str) -> dict
     return out
 
 
+# Phase 12: the two-tower retriever (A10), the exported ranker of every
+# architecture and dtype on the registered cross operator (A8b), the native
+# CSV reader (A13).
+TWO_TOWER_INIT = "hhrs_tpu_torch/testdata/two_tower_init_data.npz"
+TWO_TOWER_GOLDEN = "hhrs_tpu_torch/testdata/two_tower_golden_data.json"
+RETRIEVAL_EMB = "hhrs_tpu_torch/testdata/retrieval_embeddings_hpo_r5.npy"
+TWO_TOWER_SERVE_GOLDEN = "hhrs_tpu_torch/testdata/serve_golden_hpo_r5_two_tower.json"
+PHASE12_DIR = REPO / "build" / "phase12"
+EXPORT_ARCHS = ("dcnr", "cross_only", "deep_only", "dcn_mlp")
+EXPORT_TIMED = ((128, 100), (8192, 30))  # (B, calls)
+
+
+def two_tower_phase(splits, preproc, dev, card: str) -> dict:
+    """Phase 12a: the retriever at its default width (50 epochs, B = 1024)
+    on ``data/`` from the JAX init, against the JAX run: epochs 0-2 at C1's
+    bars, final recall@100 within CATALOG_RECALL_TOL; its exported rows
+    L2-normalized."""
+    import numpy as np
+    import torch
+
+    from hhrs_tpu_torch.models.convert import two_tower_from_jax
+    from hhrs_tpu_torch.models.dcn import ModelDims
+    from hhrs_tpu_torch.retrieval import two_tower
+
+    dims = ModelDims.from_artifacts(preproc)
+    cfg = two_tower.TwoTowerConfig()
+    jax_params = dict(np.load(REPO / TWO_TOWER_INIT))
+    golden = json.loads((REPO / TWO_TOWER_GOLDEN).read_text())
+    t0 = time.perf_counter()
+    r = two_tower.train_two_tower(splits, dims, cfg, device=dev, init=two_tower_from_jax(jax_params, dims, cfg))
+    wall = time.perf_counter() - t0
+    got = [h["train_loss"] for h in r.history]
+    want = golden["train_loss"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"[two-tower] {cfg.n_epochs} epochs of {len(splits.train_y[splits.train_y == 1]) // cfg.batch_size} steps "
+          f"of B={cfg.batch_size} in {wall:.2f} s: examples_per_s {r.examples_per_s:.1f}, recall@100 "
+          f"{r.final_recall_at_100:.5f} (JAX run {golden['final_recall_at_100']:.5f}); loss by epoch 0-2 "
+          + ", ".join(f"{a:.6f} (JAX {b:.6f})" for a, b in zip(got[:3], want[:3]))
+          + f"; last {got[-1]:.6f} (JAX {want[-1]:.6f}); largest relative gap over 50 epochs {max(gaps):.3e} "
+          f"on {card}")
+    for e, (a, b) in enumerate(zip(got[:3], want[:3])):
+        tol = VAL_TOL if e == 0 else LATER_EPOCH_TOL
+        if not abs(a - b) <= tol["atol"] + tol["rtol"] * abs(b):
+            raise SmokeFailure(f"two-tower epoch {e} loss {a} against the JAX run's {b} (rtol {tol['rtol']})")
+    gap = abs(r.final_recall_at_100 - golden["final_recall_at_100"])
+    if not gap <= CATALOG_RECALL_TOL:
+        raise SmokeFailure(f"two-tower recall@100 {r.final_recall_at_100} is {gap:.5f} from the JAX run's "
+                           f"(bar {CATALOG_RECALL_TOL})")
+    PHASE12_DIR.mkdir(parents=True, exist_ok=True)
+    V = np.load(two_tower.export_retrieval_embeddings(str(PHASE12_DIR), r.model, splits, dims))
+    if V.shape != (dims.n_items, cfg.out_dim) or not np.allclose(np.linalg.norm(V, axis=1), 1.0, atol=1e-4):
+        raise SmokeFailure(f"the exported retrieval embeddings are not {dims.n_items} unit rows: {V.shape}")
+    torch.cuda.synchronize()
+    return {"examples_per_s": r.examples_per_s, "recall_at_100": r.final_recall_at_100,
+            "jax_recall_at_100": golden["final_recall_at_100"], "recall_gap": gap,
+            "loss_gap_epoch_0_2": gaps[:3], "wall_s": wall}
+
+
+def two_tower_serve_phase(dev, card: str) -> dict:
+    """Phase 12b: the golden sweep with the JAX-exported retrieval
+    embeddings, buckets 1 and 8, graphed and eager, against the JAX engine's
+    two-tower golden under SWAP_TOL; tower launches counted from 0."""
+    import torch
+
+    from hhrs_tpu_torch.ops import tower
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    golden = json.loads((REPO / TWO_TOWER_SERVE_GOLDEN).read_text())
+    torch.cuda.synchronize()
+    tower.tower_eval.launches = 0
+    engine = RecommendationEngine.from_dirs(str(REPO / ARTIFACT), str(REPO / "data"),
+                                            retrieval_embeddings_path=str(REPO / RETRIEVAL_EMB))
+    swaps = 0
+    for req, want, logits in zip(golden["requests"], golden["responses"], golden["logits"]):
+        s = compare_response(json.loads(json.dumps(engine.recommend(*req))), want, logits)
+        if s is None:
+            raise SmokeFailure(f"recommend{tuple(req)} with the retrieval embeddings differs from the golden response")
+        swaps += s
+    many = [golden["requests"][i] for i in golden["many"]]
+    for batch, pad_to in ((many, None), (many[:5], 8)):
+        for i, got in zip(golden["many"], engine.recommend_many(batch, pad_to=pad_to)):
+            s = compare_response(json.loads(json.dumps(got)), golden["responses"][i], golden["logits"][i])
+            if s is None:
+                raise SmokeFailure(f"recommend_many(K={len(batch)}, pad_to={pad_to}) with the retrieval embeddings "
+                                   f"differs from the golden response {i}")
+            swaps += s
+    for item, n, want in golden["similar"]:
+        if engine.similar_items(item, n) != want:
+            raise SmokeFailure(f"similar_items({item}, {n}) with the retrieval embeddings differs from the golden")
+    torch.cuda.synchronize()
+    launches = tower.tower_eval.launches
+    buckets = sorted(engine._buckets)
+    differ = [req for req in golden["requests"] if engine._recommend_eager([req]) != [engine.recommend(*req)]]
+    differ += [b for b in (many, many[:5]) if engine._recommend_eager(b, pad_to=8) != engine.recommend_many(b, pad_to=8)]
+    if differ:
+        raise SmokeFailure(f"with the retrieval embeddings the graphed path differs from the eager one for {differ[:3]}")
+    if launches <= 0 or buckets != [(1, False), (8, False)]:
+        raise SmokeFailure(f"the two-tower sweep launched the tower kernel {launches} times, buckets {buckets}")
+    print(f"[two-tower] the engine with retrieval_embeddings ({engine._emb_train.shape[1]}-wide) answered "
+          f"{len(golden['requests'])} requests, 2 batches and {len(golden['similar'])} similar_items as the JAX "
+          f"engine's golden file (tie swaps {swaps}); graphed JSON equals eager; tower_eval launches {launches} "
+          f"(an eager run and a capture for buckets {buckets}) on {card}")
+    engine.close()
+    return {"launches": launches, "swaps": swaps}
+
+
+def export_all_phase(bundle, dev, card: str) -> dict:
+    """Phase 12c: every arch × {f32, bf16} × both variants at hpo_r5's widths
+    (seeded random weights), exported on the card, loaded back and called at
+    B = 1, 128, 8192: bit for bit the engine's route for that bundle, the
+    registered operators' launches counted from 0 over the exported calls;
+    CUDA-event ms a call beside the direct route."""
+    import numpy as np
+    import torch
+
+    from hhrs_tpu_torch.config import ModelConfig
+    from hhrs_tpu_torch.models.convert import dcnr_from_jax, jax_from_dcnr
+    from hhrs_tpu_torch.models.dcn import DCNR
+    from hhrs_tpu_torch.ops import cross, tower
+    from hhrs_tpu_torch.serve.export import ExportedRanker, save_ranker
+    from hhrs_tpu_torch.train.artifacts import ArtifactBundle
+
+    PHASE12_DIR.mkdir(parents=True, exist_ok=True)
+    base = bundle.model_cfg
+    gen = np.random.default_rng(SEED + 13)
+    inputs = {B: (torch.as_tensor(gen.integers(0, bundle.dims.n_users, B), device=dev),
+                  torch.as_tensor(gen.integers(0, bundle.dims.n_items, B), device=dev),
+                  torch.as_tensor(np.stack([gen.integers(0, n, B) for _, n in bundle.dims.cat_dims], 1), device=dev),
+                  torch.as_tensor(gen.random((B, bundle.dims.n_num_features), np.float32), device=dev))
+              for B in EXPORT_B}
+    totals = {"cross_fwd": 0, "cross_fwd_bf16": 0, "tower": 0}
+    rows = []
+    t_phase = time.perf_counter()
+    for i, (arch, dtype, variant) in enumerate((a, d, v) for a in EXPORT_ARCHS for d in ("float32", "bfloat16")
+                                               for v in ("code", "canonical")):
+        cfg = ModelConfig(emb_dim=base.emb_dim, hidden_dim=base.hidden_dim, n_cross_layers=base.n_cross_layers,
+                          n_res_blocks=base.n_res_blocks, arch=arch, cross_variant=variant, compute_dtype=dtype,
+                          storage_dtype=dtype)
+        params, bn_state = jax_from_dcnr(DCNR(bundle.dims, cfg, torch.Generator().manual_seed(100 + i)))
+        b = ArtifactBundle(params, bn_state, cfg, bundle.dims, bundle.preproc, bundle.item_embeddings, {})
+        t0 = time.perf_counter()
+        path = save_ranker(b, str(PHASE12_DIR / f"{arch}_{dtype}_{variant}.pt2"))
+        export_s = time.perf_counter() - t0
+        ranker = ExportedRanker.load(path)
+        model = dcnr_from_jax(params, bn_state, bundle.dims, cfg, dev)
+        if tower.uses_tower(cfg):
+            folded = tower.fold_eval_params(model)
+            direct = lambda B: tower.tower_eval(folded, tower.build_x0(model, *inputs[B]), variant)  # noqa: E731
+        else:
+            direct = lambda B: model(*inputs[B])  # noqa: E731
+        with torch.no_grad():
+            want = {B: direct(B) for B in EXPORT_B}
+        torch.cuda.synchronize()
+        reset_cross_counts(cross)
+        tower.tower_eval.launches = 0
+        got = {B: ranker(*inputs[B]) for B in EXPORT_B}
+        torch.cuda.synchronize()
+        counts = {"cross_fwd": cross.cross_stack_forward.launches,
+                  "cross_fwd_bf16": cross.cross_stack_forward.launches_bf16, "tower": tower.tower_eval.launches}
+        for B in EXPORT_B:
+            if not torch.equal(got[B], want[B]):
+                raise SmokeFailure(f"the exported {arch} {dtype} {variant} ranker at B={B} is not its direct route "
+                                   "bit for bit")
+        expect = ({"cross_fwd": 0, "cross_fwd_bf16": 0, "tower": len(EXPORT_B)} if tower.uses_tower(cfg) else
+                  {"cross_fwd": len(EXPORT_B) * (arch != "deep_only" and dtype == "float32"),
+                   "cross_fwd_bf16": len(EXPORT_B) * (arch != "deep_only" and dtype == "bfloat16"), "tower": 0})
+        if counts != expect:
+            raise SmokeFailure(f"the exported {arch} {dtype} {variant} ranker launched {counts}, expected {expect}")
+        for k in totals:
+            totals[k] += counts[k]
+        timings = {}
+        with torch.no_grad():
+            for B, iters in EXPORT_TIMED:
+                timings[B] = {"program_ms": time_cuda(lambda: ranker(*inputs[B]), iters),
+                              "direct_ms": time_cuda(lambda: direct(B), iters)}
+        rows.append({"arch": arch, "dtype": dtype, "variant": variant, "export_s": export_s, "launches": counts,
+                     "timings": timings})
+        print(f"[export-all] {arch} {dtype} {variant}: recorded in {export_s:.2f} s, B = {EXPORT_B} bit for bit its "
+              f"direct route, launches {counts}; "
+              + "; ".join(f"B={B} program {t['program_ms']:.4f} ms, direct {t['direct_ms']:.4f} ms"
+                          for B, t in timings.items()) + f" on {card}")
+    if min(totals["cross_fwd"], totals["cross_fwd_bf16"], totals["tower"]) <= 0:
+        raise SmokeFailure(f"the exported programs did not launch every operator's kernel: {totals}")
+    print(f"[export-all] {len(rows)} programs in {time.perf_counter() - t_phase:.1f} s; launches over the exported "
+          f"calls: hhrs::cross_stack_fwd f32 {totals['cross_fwd']}, bf16 {totals['cross_fwd_bf16']}, "
+          f"hhrs::tower_eval {totals['tower']}")
+    return {"launches": totals, "rows": rows}
+
+
+def native_ingest_phase(card: str) -> dict:
+    """Phase 12d: phase 10a's cold ingest of the tuned preset's 500,000 rows
+    (``build/tuned/data``) read with ``engine="native"`` and with
+    ``engine="python"``, each then through phase 10a's preprocessing: the
+    tables equal column by column with the same dtypes, and the splits
+    equal."""
+    import numpy as np
+
+    from hhrs_tpu_torch.config import build_config
+    from hhrs_tpu_torch.data.features import add_engineered_features
+    from hhrs_tpu_torch.data.ingest import load_reviews_csv, noise_filter
+    from hhrs_tpu_torch.data.preprocess import Preprocessor
+    from hhrs_tpu_torch.data.table import isna
+
+    csv_path = str(REPO / "build" / "tuned" / "data" / "hackathon_augmented_data.csv")
+    cfg = build_config([], preset="tuned", environ={})
+    out, tables, splits = {}, {}, {}
+    for engine in ("native", "python"):
+        t0 = time.perf_counter()
+        tables[engine] = load_reviews_csv(csv_path, engine=engine)
+        read_s = time.perf_counter() - t0
+        pre = Preprocessor(categorical_cols=cfg.data.categorical_cols, numerical_cols=cfg.data.numerical_cols,
+                           test_size=cfg.data.test_size, split_seed=cfg.data.split_seed,
+                           leakage_compat=cfg.data.leakage_compat)
+        frame = add_engineered_features(noise_filter(tables[engine], cfg.data.positive_rating,
+                                                     cfg.data.negative_rating))
+        splits[engine], _ = pre.fit_transform(frame)
+        out[engine] = {"read_s": read_s, "ingest_s": time.perf_counter() - t0}
+    a, b = tables["native"], tables["python"]
+    if list(a) != list(b):
+        raise SmokeFailure(f"native and python tables have other columns: {list(a)} / {list(b)}")
+    for name in a:
+        x, y = a[name], b[name]
+        same = x.dtype == y.dtype and x.shape == y.shape and (
+            all((isna(p) and isna(q)) or (type(p) is type(q) and p == q) for p, q in zip(x.tolist(), y.tolist()))
+            if x.dtype == object else np.array_equal(x, y, equal_nan=True))
+        if not same:
+            raise SmokeFailure(f"column {name!r}: the native table differs from the python table")
+    if not all(np.array_equal(getattr(splits["native"], k), v) for k, v in vars(splits["python"]).items()):
+        raise SmokeFailure("the splits of the native and the python tables differ")
+    n = len(next(iter(a.values())))
+    print(f"[ingest] {n} rows: engine=native read {out['native']['read_s']:.3f} s, cold ingest "
+          f"{out['native']['ingest_s']:.2f} s; engine=python read {out['python']['read_s']:.3f} s, cold ingest "
+          f"{out['python']['ingest_s']:.2f} s; tables equal column by column ({len(a)} columns, dtypes equal), "
+          f"splits equal (host: {card})")
+    return out
+
+
+def retriever_export_ingest_phase(splits, preproc, bundle, dev, card: str) -> dict:
+    """Phase 12 (a-d), timed as one."""
+    t0 = time.perf_counter()
+    out = {"two_tower": two_tower_phase(splits, preproc, dev, card),
+           "serve": two_tower_serve_phase(dev, card),
+           "export": export_all_phase(bundle, dev, card),
+           "ingest": native_ingest_phase(card)}
+    print(f"[phase12] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2353,6 +2653,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
         from hhrs_tpu_torch.models.convert import dcnr_from_jax
+        from hhrs_tpu_torch import runtime
         from hhrs_tpu_torch.ops import cross, cuda_build, tower
         from hhrs_tpu_torch.serve.engine import RecommendationEngine
         from hhrs_tpu_torch.train.artifacts import load_artifact_bundle
@@ -2372,11 +2673,14 @@ def main() -> int:
 
     # ---- phase 2: build -------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source and g++ for the reader, together
+        reader = pool.submit(runtime.build)
         lib_paths = list(pool.map(lambda a: cuda_build.build(*a),
                                   [("tower_eval", ["tower_eval.cu"]),
                                    ("cross_stack", ["cross_stack.cu"])]))
-    print(f"[build] {', '.join(p.name for p in lib_paths)} in {time.perf_counter() - t0:.1f} s")
+        reader_path = reader.result()
+    print(f"[build] {', '.join(p.name for p in lib_paths)} and the native CSV reader {reader_path.name} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for lib_path in lib_paths:
         log_file = lib_path.with_suffix(".log")
         if not log_file.exists():
@@ -2572,6 +2876,9 @@ def main() -> int:
     # ---- phase 11: the tuning operator's path, the exported ranker, the batch CLI
     tuning = tuning_phase(cross, splits, preproc, bundle, engine, dev, card)
 
+    # ---- phase 12: the two-tower retriever, every exported arch, the native reader
+    phase12 = retriever_export_ingest_phase(splits, preproc, bundle, dev, card)
+
     r = rows[128]
     kernels.append({
         "name": "tower_eval", "route": "cuda", "source": "hhrs_tpu_torch/csrc/tower_eval.cu",
@@ -2586,6 +2893,8 @@ def main() -> int:
         "export_launches": tuning["export"]["launches"], "export_timings": tuning["export"]["timings"],
         "batch_cli_launches": tuning["batch"]["launches"], "batch_cli_replays": tuning["batch"]["replays"],
         "batch_cli_users_per_s": tuning["batch"]["users_per_s"],
+        "two_tower_serve_launches": phase12["serve"]["launches"],
+        "export_all_launches": phase12["export"]["launches"]["tower"],
     })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
                            ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):
@@ -2598,6 +2907,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "by_batch": [cross_rows[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
             "retrain_launches": {k: v[kind] for k, v in retrain_f32.items()},
+            **({"export_all_launches": phase12["export"]["launches"]["cross_fwd"]} if kind == "fwd" else {}),
         })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
                            ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):
@@ -2614,6 +2924,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "by_batch": [cross_rows_bf16[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
             "retrain_launches": {k: v[kind] for k, v in retrain_bf16.items()},
+            **({"export_all_launches": phase12["export"]["launches"]["cross_fwd_bf16"]} if kind == "fwd" else {}),
         })
     trial_rows = tuning["trials"]["rows"]
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),

@@ -243,6 +243,12 @@ def check_overrides(tokens: list) -> list:
     return tokens
 
 
+def from_cli(argv: list) -> Config:
+    """The defaults with ``section.field=value`` tokens applied (a token
+    without ``=`` exits, as :func:`check_overrides`)."""
+    return Config().apply_overrides(check_overrides(list(argv)))
+
+
 # Named presets, applied before the environment and the CLI tokens (which
 # win over them): ``tuned`` is the JAX package's fastest measured trainer
 # stack, ``reference`` the defaults by name.

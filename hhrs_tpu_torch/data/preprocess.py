@@ -324,3 +324,13 @@ def encode_item_features(
     ]
     x_cat = np.stack(cats, axis=1) if cats else np.zeros((n, 0), np.int32)
     return item_codes, x_cat, scaled_numericals(artifacts, items, n)
+
+
+def encode_items_for_ranking(artifacts: PreprocessArtifacts, items: dict, user_id: int) -> tuple:
+    """Serve-time featurization of a table of item rows for one user →
+    (users, items, categorical codes, scaled numericals): an unknown user
+    gets ``artifacts.unknown_user_id``, an unknown item 0, an unknown
+    category 0, as the reference's serve path falls back."""
+    internal_user = artifacts.user_id_mapping.get(user_id, artifacts.unknown_user_id)
+    item_codes, x_cat, x_num = encode_item_features(artifacts, items)
+    return np.full(len(item_codes), internal_user, dtype=np.int32), item_codes, x_cat, x_num

@@ -10,6 +10,9 @@ be an int8 table (an object with ``values`` and ``scales``, as
 holds it as an ``ops/quant.py::QuantizedTable``. :func:`jax_from_dcnr`
 goes the other way: BatchNorm ``mean``/``var`` go to ``bn_state``, every
 other leaf to ``params``, and lists take the JAX in-memory form.
+:func:`two_tower_from_jax` carries the two-tower retriever's params tree
+(``hhrs_tpu/retrieval/two_tower.py``'s ``init_two_tower`` layout) into a
+:class:`~hhrs_tpu_torch.retrieval.two_tower.TwoTower` the same way.
 """
 
 from __future__ import annotations
@@ -109,3 +112,17 @@ def jax_from_dcnr(model: DCNR) -> tuple[dict, dict]:
         params["cross"] = {"w": leaf(model.cross.w), "b": leaf(model.cross.b)}
     params["final"] = lin(model.final)
     return params, {"res_blocks": res_state}
+
+
+def two_tower_from_jax(params, dims: ModelDims, cfg, device: str | torch.device = "cpu"):
+    """Build a :class:`~hhrs_tpu_torch.retrieval.two_tower.TwoTower` (for a
+    ``TwoTowerConfig`` ``cfg``) on ``device`` holding exactly the given JAX
+    retriever weights (numpy leaves). Strict: a missing, extra or
+    mis-shaped leaf raises."""
+    from hhrs_tpu_torch.retrieval.two_tower import TwoTower
+
+    with torch.device("meta"):
+        model = TwoTower(dims, cfg)
+    tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in flatten_tree(params).items()}
+    model.load_state_dict(tensors, strict=True, assign=True)
+    return model.to(device)

@@ -12,10 +12,15 @@ stacked ``[L, d]``. Two variants:
 * :func:`cross_stack_forward` and :func:`cross_stack_backward` launch
   ``csrc/cross_stack.cu`` on CUDA tensors, one kernel each, and count their
   launches; :func:`cross_plan` lays out the tiles and blocks of a launch;
-* :class:`CrossStackFn` ties them into autograd, and :func:`cross_stack`
-  is what the model calls: the plain version on a CPU tensor, the kernels
-  on a CUDA tensor. It never falls back from one to the other: a CUDA
-  input that the kernels cannot take raises;
+* :class:`CrossStackFn` ties them into autograd; the forward is also the
+  operator ``torch.ops.hhrs.cross_stack_fwd`` (:func:`cross_stack_fwd_op`;
+  CPU: the plain version), which ``torch.export`` records. Both launch
+  through :func:`_forward_launch`;
+* :func:`cross_stack` is what :class:`CrossStack`, and so the model, calls:
+  where a gradient is needed the plain version on a CPU tensor and
+  :class:`CrossStackFn` on a CUDA tensor, elsewhere the operator. It never
+  falls back from the kernels to the plain version: a CUDA input that the
+  kernels cannot take raises;
 * the trial axis, for K same-architecture HPO trials run as one program
   (``hpo/vectorized.py``, the counterpart of ``jax.vmap`` of
   ``cross_stack_pallas``): x0 ``[K, B, d]`` with w, b ``[K, L, d]``.
@@ -484,14 +489,26 @@ cross_stack_backward.launches = cross_stack_backward.launches_bf16 = 0
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels take it: contiguous and on a 16-byte boundary
+    (copied if it is not)."""
+    t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _forward_launch(w, b, x0, variant: str) -> torch.Tensor:
+    """The forward launch of :class:`CrossStackFn` and of
+    ``hhrs::cross_stack_fwd`` on CUDA tensors: x0 aligned, the inputs
+    checked once, :func:`plan_of`'s plan."""
+    xa = _aligned(x0)
+    _check_inputs({"x0": xa, "w": w, "b": b}, variant)
+    return _forward(w, b, xa, variant == "canonical", None)
 
 
 class CrossStackFn(torch.autograd.Function):
     """The cross stack under autograd: the forward saves ``w, b, x0`` only
-    and the backward recomputes the layer inputs. CUDA tensors go through
-    the kernels, checked here once (a misaligned ``x0`` or ``dy`` is
-    copied), CPU tensors through the plain versions. The backward is
+    and the backward recomputes the layer inputs. On CUDA tensors the
+    kernels, inputs checked once (a strided or misaligned ``x0`` or ``dy``
+    copied), on CPU tensors the plain versions. The backward is
     :class:`CrossBackwardFn`, itself differentiable, so a double backward
     (``create_graph=True``) is exact: the grad of grad of the jnp stack
     whose VJP ``cross_stack_pallas`` takes."""
@@ -499,12 +516,7 @@ class CrossStackFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, b, x0, variant):
         ctx.variant = variant
-        if x0.is_cuda:
-            xa = _aligned(x0)
-            _check_inputs({"x0": xa, "w": w, "b": b}, variant)
-            y = _forward(w, b, xa, variant == "canonical", None)
-        else:
-            y = cross_stack_apply(w, b, x0, variant)
+        y = _forward_launch(w, b, x0, variant) if x0.is_cuda else cross_stack_apply(w, b, x0, variant)
         ctx.save_for_backward(w, b, x0)
         return y
 
@@ -529,10 +541,9 @@ class CrossBackwardFn(torch.autograd.Function):
     def forward(ctx, w, b, x0, dy, variant):
         ctx.variant = variant
         ctx.save_for_backward(w, b, x0, dy)
-        dy = dy.contiguous()  # the output's gradient may be a strided slice
         if not dy.is_cuda:
-            return cross_stack_backward_ref(w, b, x0, dy, variant)
-        dy = _aligned(dy)
+            return cross_stack_backward_ref(w, b, x0, dy.contiguous(), variant)
+        dy = _aligned(dy)  # the output's gradient may be a strided slice
         if dy.dtype != x0.dtype or dy.shape != x0.shape or dy.device != x0.device:
             raise ValueError(f"dy must be {x0.dtype} {tuple(x0.shape)} on {x0.device}, got "
                              f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
@@ -550,13 +561,39 @@ class CrossBackwardFn(torch.autograd.Function):
 
 
 def cross_stack(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str) -> torch.Tensor:
-    """The cross stack as the model runs it: :func:`cross_stack_apply` on a
-    CPU tensor; :class:`CrossStackFn` (the kernels) on a CUDA tensor."""
-    if x0.is_cuda:
-        return CrossStackFn.apply(w, b, x0, variant)
-    if x0.device.type != "cpu":
+    """The cross stack as the model runs it. Where a gradient is needed:
+    :class:`CrossStackFn` (the kernels) on a CUDA tensor, autograd through
+    :func:`cross_stack_apply` on a CPU tensor. Elsewhere the operator
+    ``hhrs::cross_stack_fwd`` (what ``torch.export`` records): the same
+    forward launch on the card, the same plain version on the CPU."""
+    if x0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cross_stack runs on cpu or cuda tensors, got {x0.device}")
-    return cross_stack_apply(w, b, x0, variant)
+    if torch.is_grad_enabled() and (x0.requires_grad or w.requires_grad or b.requires_grad):
+        return CrossStackFn.apply(w, b, x0, variant) if x0.is_cuda else cross_stack_apply(w, b, x0, variant)
+    return torch.ops.hhrs.cross_stack_fwd(x0, w, b, variant)
+
+
+@torch.library.custom_op("hhrs::cross_stack_fwd", mutates_args=(), device_types="cuda")
+def cross_stack_fwd_op(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor, variant: str) -> torch.Tensor:
+    """``hhrs::cross_stack_fwd(x0, w, b, variant) → [B, d]`` in x0's dtype:
+    the forward kernel as an operator that ``torch.export`` records. On CUDA
+    tensors one launch of ``hhrs_cross_fwd`` (its bf16 instance on bf16
+    inputs) under :func:`plan_of`'s plan, counted as
+    :func:`cross_stack_forward` counts; a strided or misaligned ``x0`` is
+    copied first. :class:`CrossStackFn`'s forward launch
+    (:func:`_forward_launch`), so the same bits."""
+    return _forward_launch(w, b, x0, variant)
+
+
+@cross_stack_fwd_op.register_kernel("cpu")
+def _cross_stack_fwd_op_cpu(x0, w, b, variant):
+    y = cross_stack_apply(w, b, x0, variant)
+    return y.clone() if y is x0 else y  # an operator's output never aliases its input (L = 0)
+
+
+@cross_stack_fwd_op.register_fake
+def _cross_stack_fwd_op_fake(x0, w, b, variant):
+    return torch.empty_like(x0)
 
 
 # ---- the trial axis ---------------------------------------------------------
@@ -769,8 +806,9 @@ class CrossStack(nn.Module):
             self.w.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x0: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
-        """x0 ``[B, d]`` → ``[B, d]``; with ``compute_dtype`` x0, w and b are
-        cast to it first (w and b keep f32 gradients through the cast)."""
+        """x0 ``[B, d]`` → ``[B, d]`` through :func:`cross_stack`; with
+        ``compute_dtype`` x0, w and b are cast to it first (w and b keep f32
+        gradients through the cast)."""
         w, b = self.w, self.b
         if compute_dtype is not None:
             x0, w, b = x0.to(compute_dtype), w.to(compute_dtype), b.to(compute_dtype)

@@ -55,20 +55,28 @@ def build(name: str, sources: list) -> Path:
     out = library_path(name, sources)
     if out.exists():
         return out
-    nvcc = find_nvcc()
+    log = compile_into(out, [find_nvcc(), *NVCC_FLAGS], [CSRC_DIR / s for s in sources])
+    out.with_suffix(".log").write_text(log)
+    return out
+
+
+def compile_into(out: Path, compiler: list, sources: list) -> str:
+    """Run ``compiler ... -o <tmp> sources`` and rename the result to
+    ``out`` (atomic: a concurrent build, such as another test worker's,
+    sees all or nothing) → the compiler's output; raises when it fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[str(CSRC_DIR / s) for s in sources]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {name}:\n{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-    return out
+    try:
+        proc = subprocess.run([*compiler, "-o", tmp, *map(str, sources)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{compiler[0]} failed ({proc.returncode}) building {out.name}:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return proc.stdout + proc.stderr
 
 
 def load(name: str, sources: list) -> ctypes.CDLL:

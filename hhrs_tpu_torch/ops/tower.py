@@ -37,6 +37,13 @@ _FOLDED_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "cross_w", "cross_b", "final
 _LIB_NAME, _LIB_SOURCES = "tower_eval", ["tower_eval.cu"]
 
 
+def uses_tower(cfg) -> bool:
+    """Whether a model config is scored through the fused tower: ``dcnr`` at
+    float32 compute and storage (the engine's route, and the exported
+    program's; a bf16 model runs ``DCNR.forward``)."""
+    return cfg.arch == "dcnr" and cfg.compute_dtype == "float32" and cfg.storage_dtype == "float32"
+
+
 @torch.no_grad()
 def fold_eval_params(model) -> dict:
     """Fold a ``dcnr`` :class:`~hhrs_tpu_torch.models.dcn.DCNR`'s eval-mode

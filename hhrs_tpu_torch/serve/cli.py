@@ -12,8 +12,10 @@ drains in-flight requests and exits 0.
 Configuration, as in the JAX CLI (``config.py::build_config``): the
 defaults, then the preset named by ``HHRS_PRESET``, then
 ``HHRS_<SECTION>_<FIELD>`` environment variables (``HHRS_SERVE_PORT``, …),
-then ``section.field=value`` overrides, then the flags. ``--mesh`` (A11)
-and ``--retrieval-embeddings`` (A10) raise ``NotImplementedError``.
+then ``section.field=value`` overrides, then the flags.
+``--retrieval-embeddings NPY`` (``retrieval/two_tower.py``'s export) reaches
+every engine the stack builds: the primary, the canary and the shadow, and
+each hot-reload rebuild. ``--mesh`` (A11) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hold the model's embedding tables as per-row int8 on the card "
                         "(near-tied rankings may differ from f32)")
     p.add_argument("--retrieval-embeddings", default=None, metavar="NPY",
-                   help="learned retrieval vectors for the similarity surfaces "
-                        "(not ported yet: ROADMAP A10)")
+                   help="learned retrieval vectors (retrieval/two_tower.py's export) for the "
+                        "similarity surfaces: kNN expansion, /similar_items and MMR")
     p.add_argument("--batch-window-ms", type=float, default=None,
                    help=">0: coalesce concurrent requests into one bucket replay within "
                         "this window (dynamic batching)")
@@ -90,8 +92,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args: argparse.Namespace) -> None:
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet: ROADMAP A11 (multi-device serving)")
-    if args.retrieval_embeddings:
-        raise NotImplementedError("--retrieval-embeddings is not ported yet: ROADMAP A10 (two-tower retriever)")
 
 
 @dataclasses.dataclass
@@ -149,7 +149,8 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
         eng = RecommendationEngine.from_dirs(
             adir, data_dir, retrieval_cfg=cfg_all.retrieval, device=device,
             city_bounded=cfg.city_bounded, bf16=args.bf16, quantize_tables=quantize,
-            candidate_cap=cap, use_pallas=cfg.use_pallas, frames=frames)
+            candidate_cap=cap, use_pallas=cfg.use_pallas, frames=frames,
+            retrieval_embeddings_path=args.retrieval_embeddings)
         if not args.no_warmup:
             log.info("warming up: capturing the serving buckets...")
             eng.warmup(batch_pad=batch_pad)

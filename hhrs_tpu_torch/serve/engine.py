@@ -28,9 +28,10 @@ leaves it empty.
 
 Ranking covers only the request city's item rows by default (exact:
 candidates are a subset of the city's items by construction); with
-``city_bounded=False`` every serve item is ranked. ``dcnr`` artifacts are
-scored by the fused tower kernel (``ops/tower.py::tower_eval``); the other
-architectures, and every model under ``bf16``, by ``DCNR.forward``.
+``city_bounded=False`` every serve item is ranked. ``dcnr`` artifacts at
+float32 are scored by the fused tower kernel (``ops/tower.py::tower_eval``);
+the other architectures, and every model at bf16 compute or storage (an
+artifact trained so, or under ``bf16``), by ``DCNR.forward``.
 
 Options, with the JAX engine's meaning:
 
@@ -41,6 +42,13 @@ Options, with the JAX engine's meaning:
 * ``bf16``: the model runs at ``compute_dtype=bfloat16`` through
   ``DCNR.forward`` (bf16 operands, f32 BatchNorm and logits; on a card the
   bf16 cross forward kernel), never through the f32 tower kernel;
+* ``retrieval_embeddings``: an ``[n_items, D]`` array of learned item
+  vectors in the artifact's internal item rows (``retrieval/two_tower.py``'s
+  export; ``from_dirs(retrieval_embeddings_path=)`` loads one) takes the
+  place of the ranker's item table in every similarity surface: kNN
+  expansion, ``similar_items`` and MMR. It is swapped in before any of
+  their device tensors (and so any bucket graph) is built; D may differ
+  from the ranker's width. The ranking model does not change;
 * ``candidate_cap``: a one-request ``recommend`` whose candidates fit the
   cap ranks only its candidate rows, compacted in ascending serve order
   into ``cap`` rows without a host sync (a cumulative sum and a scatter, so
@@ -77,7 +85,7 @@ from hhrs_tpu_torch.device import capture_stream, resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax
 from hhrs_tpu_torch.ops.mmr import NEG_INF, mmr_rerank
 from hhrs_tpu_torch.ops.quant import quantize_embedding_params
-from hhrs_tpu_torch.ops.tower import build_x0, fold_eval_params, tower_eval
+from hhrs_tpu_torch.ops.tower import build_x0, fold_eval_params, tower_eval, uses_tower
 from hhrs_tpu_torch.retrieval.candidates import CandidateGenerator, ServeUniverse
 from hhrs_tpu_torch.retrieval.graph import FriendGraph
 from hhrs_tpu_torch.retrieval.similarity import cosine_topk, normalize_rows, require_full_f32_matmul
@@ -90,7 +98,6 @@ log = logging.getLogger(__name__)
 # the ROADMAP item that brings each.
 _NOT_PORTED = {
     "mesh": "ROADMAP A11 (multi-device serving)",
-    "retrieval_embeddings_path": "ROADMAP A10 (two-tower retriever)",
 }
 
 # Held by every CUDA-graph capture of the process: torch.cuda.graph
@@ -138,12 +145,20 @@ class RecommendationEngine:
         quantize_tables: bool = False,
         candidate_cap: int = 0,
         use_pallas: bool = False,
+        retrieval_embeddings=None,
         **options,
     ):
         _reject_unported(options)
         if use_pallas:
             log.warning("use_pallas is retired in the JAX engine and a no-op here: "
                         "scoring does not change")
+        if retrieval_embeddings is not None:
+            table = np.asarray(retrieval_embeddings, np.float32)
+            if table.shape[0] != bundle.item_embeddings.shape[0]:
+                raise ValueError(
+                    f"retrieval_embeddings rows ({table.shape[0]}) != the artifact's internal item "
+                    f"count ({bundle.item_embeddings.shape[0]})")
+            bundle = dataclasses.replace(bundle, item_embeddings=table)
         self.latency = LatencyHistogram()
         self.device = dev = torch.device(device)
         require_full_f32_matmul(dev)
@@ -186,7 +201,7 @@ class RecommendationEngine:
         self.model = dcnr_from_jax(params, bundle.bn_state, bundle.dims, cfg, dev)
         self._variant = cfg.cross_variant
         tables = "int8 tables" if quantize_tables else "f32 tables"
-        if cfg.arch == "dcnr" and not bf16:
+        if uses_tower(cfg):
             self._folded = fold_eval_params(self.model)
             self.scoring = f"the fused f32 tower kernel (ops/tower.py) on x0 from {tables}"
         else:
@@ -465,20 +480,24 @@ class RecommendationEngine:
                   device: str | torch.device | None = None, city_bounded: bool = True,
                   bf16: bool = False, quantize_tables: bool = False, candidate_cap: int = 0,
                   use_pallas: bool = False, frames: tuple | None = None,
+                  retrieval_embeddings_path: str | None = None,
                   **options) -> "RecommendationEngine":
         """Load an artifact directory and the serve CSVs
         (``hackathon_augmented_data.csv``, ``friendships.csv``) from
         ``data_dir``, or take them parsed as ``frames=(main, friendships)``
         (:func:`load_frames`), which skips the parse. ``device`` defaults to
-        ``cuda`` and raises without one. The engine's ``artifacts_dir`` names
-        what it serves (``/healthz``, the hot-reload poller)."""
+        ``cuda`` and raises without one. ``retrieval_embeddings_path``: an
+        ``.npy`` of learned retrieval vectors (the ``retrieval_embeddings``
+        option). The engine's ``artifacts_dir`` names what it serves
+        (``/healthz``, the hot-reload poller)."""
         _reject_unported(options)
         device = resolve_device(device)
         bundle = load_artifact_bundle(artifacts_dir)
         main, friendships = frames if frames is not None else load_frames(data_dir)
+        table = np.load(retrieval_embeddings_path) if retrieval_embeddings_path else None
         eng = cls(bundle, main, friendships, retrieval_cfg, device=device, city_bounded=city_bounded,
                   bf16=bf16, quantize_tables=quantize_tables, candidate_cap=candidate_cap,
-                  use_pallas=use_pallas, **options)
+                  use_pallas=use_pallas, retrieval_embeddings=table, **options)
         eng.artifacts_dir = artifacts_dir
         return eng
 

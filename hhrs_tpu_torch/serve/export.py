@@ -2,14 +2,22 @@
 ``torch.export`` program (counterpart of ``hhrs_tpu/serve/export.py``).
 
 ``export_ranker`` records the eval-mode scoring program of an artifact
-bundle — the embedding gathers and concat of ``ops/tower.py::build_x0``,
-then the fused tower as the registered operator ``hhrs::tower_eval`` — with
-the weights stored in the program and the batch dimension symbolic (one
-program serves any candidate count from 1 up). ``save_ranker`` writes it
-with ``torch.export.save`` as ``ranker.pt2``; ``ExportedRanker.load`` reads
-it back onto a device and runs it with no model code: loading and calling
-need only ``hhrs_tpu_torch.ops.tower``, which registers the operator (the
-tower kernel on a card, its plain version on the CPU).
+bundle, the route the engine scores that bundle by, with the weights stored
+in the program and the batch dimension symbolic (one program serves any
+candidate count from 1 up):
+
+* an f32 ``dcnr`` bundle: the embedding gathers and concat of
+  ``ops/tower.py::build_x0``, then the fused tower as the registered
+  operator ``hhrs::tower_eval``;
+* every other architecture, and every arch at bf16 compute or storage (no
+  tower kernel there): ``DCNR.forward`` in eval mode, whose cross stack is
+  the registered operator ``hhrs::cross_stack_fwd`` (f32 or bf16).
+
+``save_ranker`` writes it with ``torch.export.save`` as ``ranker.pt2``;
+``ExportedRanker.load`` reads it back onto a device and runs it with no
+model code: loading and calling need only ``hhrs_tpu_torch.ops.tower`` and
+``hhrs_tpu_torch.ops.cross``, which register the operators (the kernels on
+a card, their plain versions on the CPU).
 
 What it is NOT: the full two-stage request program. Candidate generation
 and MMR close over the live review universe, which changes with every data
@@ -28,7 +36,7 @@ from torch import nn
 from torch.export.passes import move_to_device_pass
 
 from hhrs_tpu_torch.device import resolve_device
-from hhrs_tpu_torch.ops import tower  # registers torch.ops.hhrs.tower_eval
+from hhrs_tpu_torch.ops import cross, tower  # noqa: F401 — register torch.ops.hhrs.{cross_stack_fwd,tower_eval}
 
 RANKER_FILE = "ranker.pt2"
 PLATFORMS = ("cuda", "cpu")
@@ -61,20 +69,15 @@ class _Scorer(nn.Module):
 
 def export_ranker(bundle, device: str | torch.device | None = None) -> torch.export.ExportedProgram:
     """The bundle's eval-mode scoring program, recorded on ``device``
-    (default ``cuda``; raises without a card) with a symbolic batch. Only
-    ``dcnr`` bundles at float32 have the fused tower; the other
-    architectures raise (ROADMAP A8b)."""
+    (default ``cuda``; raises without a card) with a symbolic batch: the
+    fused tower for an f32 ``dcnr`` bundle (``ops/tower.py::uses_tower``),
+    ``DCNR.forward`` for every other architecture and dtype."""
     from hhrs_tpu_torch.models.convert import dcnr_from_jax
 
     cfg = bundle.model_cfg
-    if cfg.arch != "dcnr" or cfg.compute_dtype != "float32" or cfg.storage_dtype != "float32":
-        raise NotImplementedError(
-            f"export_ranker records the fused float32 dcnr tower; arch {cfg.arch!r} at compute "
-            f"{cfg.compute_dtype} / storage {cfg.storage_dtype} is not exportable yet: ROADMAP A8b (an "
-            "exported ranker for the other architectures and dtypes)")
     dev = resolve_device(device)
     model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, cfg, dev)
-    scorer = _Scorer(model, cfg.cross_variant).eval()
+    scorer = _Scorer(model, cfg.cross_variant).eval() if tower.uses_tower(cfg) else model
     n_cat, n_num = len(bundle.dims.cat_dims), bundle.dims.n_num_features
     example = (torch.zeros(2, dtype=torch.int64, device=dev), torch.zeros(2, dtype=torch.int64, device=dev),
                torch.zeros((2, n_cat), dtype=torch.int64, device=dev),

@@ -47,7 +47,7 @@ def ensure_synthetic(args, cfg: Config) -> str:
     """Generate the synthetic CSVs into ``args.data`` where asked and
     missing (or with ``--regen``) → the reviews CSV's path."""
     csv_path = os.path.join(args.data, REVIEWS_CSV)
-    if args.synthetic and (not os.path.exists(csv_path) or args.regen):
+    if args.synthetic and (not os.path.exists(csv_path) or getattr(args, "regen", False)):
         from hhrs_tpu_torch.data.synthetic import write_synthetic_dataset
 
         log.info("generating synthetic dataset in %s", args.data)

@@ -984,3 +984,112 @@ def test_cuda_exported_ranker_is_the_tower_kernel(tmp_path):
         got = ranker(*ids, cats, num)
         assert tower.tower_eval.launches == before + 1
         assert torch.equal(got, want), B
+
+
+# ---- the registered cross operator, exports of every arch, the retriever -----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B", [1, 5, 513, 8192])
+def test_cuda_cross_operator_is_cross_stack_fn_bit_for_bit(dtype, variant, B):
+    """``hhrs::cross_stack_fwd`` on the card launches the same forward as
+    ``CrossStackFn``: the same bits, one counted launch each, also on a
+    misaligned x0 (copied inside the operator)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    g = torch.Generator().manual_seed(B)
+    w = (torch.rand(3, 113, generator=g) * 0.2 - 0.1).to(dtype).cuda()
+    b = (torch.rand(3, 113, generator=g) * 0.2 - 0.1).to(dtype).cuda()
+    base = torch.rand(B * 113 + 1, generator=g).to(dtype).cuda()
+    for x0 in (base[:-1].view(B, 113), base[1:].view(B, 113)):  # the second starts off a 16-byte boundary
+        counter = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+        before = getattr(cross.cross_stack_forward, counter)
+        with torch.no_grad():
+            got = torch.ops.hhrs.cross_stack_fwd(x0, w, b, variant)
+        want = cross.CrossStackFn.apply(w, b, x0, variant)
+        torch.cuda.synchronize()
+        assert getattr(cross.cross_stack_forward, counter) == before + 2
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dcnr", "cross_only", "deep_only", "dcn_mlp"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_exported_ranker_of_every_arch_is_the_direct_route(arch, dtype, tmp_path):
+    """Each arch at f32 and bf16 (both variants) exported on the card and
+    loaded back: B = 1, 128, 8192 bit for bit the engine's route for the
+    bundle, the cross operator launched where the program has one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.models.convert import dcnr_from_jax, jax_from_dcnr
+    from hhrs_tpu_torch.serve.export import ExportedRanker, save_ranker
+    from hhrs_tpu_torch.train.artifacts import ArtifactBundle, load_artifact_bundle
+
+    base = load_artifact_bundle(str(ARTIFACT))
+    for variant in ("code", "canonical"):
+        cfg = ModelConfig(emb_dim=48, hidden_dim=320, n_cross_layers=3, n_res_blocks=3, arch=arch,
+                          cross_variant=variant, compute_dtype=dtype, storage_dtype=dtype)
+        params, bn_state = jax_from_dcnr(DCNR(base.dims, cfg, torch.Generator().manual_seed(5)))
+        bundle = ArtifactBundle(params, bn_state, cfg, base.dims, base.preproc, base.item_embeddings, {})
+        ranker = ExportedRanker.load(save_ranker(bundle, str(tmp_path / f"{variant}.pt2")))
+        model = dcnr_from_jax(params, bn_state, base.dims, cfg, "cuda")
+        rng = np.random.default_rng(4)
+        for B in (1, 128, 8192):
+            inputs = (torch.as_tensor(rng.integers(0, base.dims.n_users, B), device="cuda"),
+                      torch.as_tensor(rng.integers(0, base.dims.n_items, B), device="cuda"),
+                      torch.as_tensor(np.stack([rng.integers(0, n, B) for _, n in base.dims.cat_dims], 1),
+                                      device="cuda"),
+                      torch.as_tensor(rng.random((B, base.dims.n_num_features), np.float32), device="cuda"))
+            with torch.no_grad():
+                if tower.uses_tower(cfg):
+                    folded = tower.fold_eval_params(model)
+                    want = tower.tower_eval(folded, tower.build_x0(model, *inputs), variant)
+                else:
+                    want = model(*inputs)
+            counts = (cross.cross_stack_forward.launches + cross.cross_stack_forward.launches_bf16,
+                      tower.tower_eval.launches)
+            got = ranker(*inputs)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (variant, B)
+            grew = (cross.cross_stack_forward.launches + cross.cross_stack_forward.launches_bf16 - counts[0],
+                    tower.tower_eval.launches - counts[1])
+            assert grew == ((0, 1) if tower.uses_tower(cfg) else (int(arch != "deep_only"), 0)), grew
+
+
+@pytest.mark.cuda
+def test_cuda_two_tower_tracks_the_jax_run_and_serves():
+    """The retriever from the JAX init (testdata) for 3 epochs on data/ on
+    the card: losses at C1's bars against the JAX run; the engine with the
+    JAX-exported embeddings answers the two-tower golden sweep under the
+    tie rule, graphed equal to eager, through the tower kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.config import Config
+    from hhrs_tpu_torch.models.convert import two_tower_from_jax
+    from hhrs_tpu_torch.retrieval import two_tower
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+    from hhrs_tpu_torch.train.cli import build_dataset
+
+    testdata = REPO / "hhrs_tpu_torch/testdata"
+    splits, art = build_dataset(str(REPO / "data"), Config())
+    dims = ModelDims.from_artifacts(art)
+    cfg = two_tower.TwoTowerConfig(n_epochs=3)
+    init = two_tower_from_jax(dict(np.load(testdata / "two_tower_init_data.npz")), dims, cfg)
+    r = two_tower.train_two_tower(splits, dims, cfg, device="cuda", init=init)
+    want = json.loads((testdata / "two_tower_golden_data.json").read_text())["train_loss"][:3]
+    got = [h["train_loss"] for h in r.history]
+    np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=5e-3, atol=2e-4)
+    golden = json.loads((testdata / "serve_golden_hpo_r5_two_tower.json").read_text())
+    engine = RecommendationEngine.from_dirs(str(ARTIFACT), str(REPO / "data"), device="cuda",
+                                            retrieval_embeddings_path=str(testdata / "retrieval_embeddings_hpo_r5.npy"))
+    before = tower.tower_eval.launches
+    for req, resp, logits in zip(golden["requests"], golden["responses"], golden["logits"]):
+        got = engine.recommend(*req)
+        assert got == engine._recommend_eager([req])[0], req
+        _swaps(got, resp, logits, 1e-4)
+    for item, n, want_similar in golden["similar"]:
+        assert engine.similar_items(item, n) == want_similar
+    assert tower.tower_eval.launches > before

@@ -256,7 +256,7 @@ def test_from_dirs_without_cuda_raises(monkeypatch):
         RecommendationEngine.from_dirs(ARTIFACT, DATA)
 
 
-@pytest.mark.parametrize("option,value", [("mesh", object()), ("retrieval_embeddings_path", "x.npy")])
+@pytest.mark.parametrize("option,value", [("mesh", object())])
 def test_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RecommendationEngine.from_dirs(ARTIFACT, DATA, device="cpu", **{option: value})

@@ -4,7 +4,11 @@ the port against hhrs_tpu's, on the CPU.
 * ``serve/export.py``: the hpo_r5 ranker recorded with ``torch.export``
   (``build_x0`` then ``hhrs::tower_eval``, symbolic batch) scores as JAX's
   StableHLO ``ExportedRanker`` at the tower's bar, 2e-5, from one file at
-  several batch sizes; loading it needs no model code.
+  several batch sizes; loading it needs no model code. Every other
+  architecture, and every arch at bf16, records ``DCNR.forward`` with the
+  operator ``hhrs::cross_stack_fwd``: f32 at 2e-5, bf16 at the bf16 model
+  bar of ``tests/test_torch_port_model.py``, each bit for bit the engine's
+  direct route.
 * ``serve/batch_cli.py``: home cities are JAX's on ``data/``; every JSONL
   line is the port engine's ``recommend`` of the same request and the JAX
   batch CLI's line on the same artifact.
@@ -14,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -102,11 +107,187 @@ def test_export_cli_writes_ranker_pt2(tmp_path, capsys):
     assert "takes cuda and cpu only" in capsys.readouterr().err
 
 
-def test_export_of_another_architecture_names_its_roadmap_item():
-    bundle = load_artifact_bundle(str(ARTIFACT))
-    other = dataclasses.replace(bundle, model_cfg=dataclasses.replace(bundle.model_cfg, arch="cross_only"))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        export.export_ranker(other, device="cpu")
+# ---- every architecture and dtype (A8b) -----------------------------------------
+
+ARCHS = ("dcnr", "cross_only", "deep_only", "dcn_mlp")
+VARIANTS = ("code", "canonical")
+DTYPES = ("float32", "bfloat16")  # compute and storage alike, as the tuned preset trains
+CASES = [(a, d, v) for a in ARCHS for d in DTYPES for v in VARIANTS]
+CASE_BATCHES = (1, 7, 300)
+
+
+def random_artifact(out: str, arch: str, variant: str, dtype: str, seed: int = 0) -> str:
+    """An artifact dir at hpo_r5's vocabulary with small seeded random
+    weights of ``arch`` (BatchNorm state drawn too) at ``dtype``."""
+    from hhrs_tpu_torch.config import ModelConfig
+    from hhrs_tpu_torch.models.convert import jax_from_dcnr
+    from hhrs_tpu_torch.models.dcn import DCNR
+    from hhrs_tpu_torch.train.artifacts import export_artifacts
+
+    base = load_artifact_bundle(str(ARTIFACT))
+    cfg = ModelConfig(emb_dim=8, hidden_dim=32, n_cross_layers=2, n_res_blocks=2, arch=arch, cross_variant=variant,
+                      compute_dtype=dtype, storage_dtype=dtype)
+    params, bn_state = jax_from_dcnr(DCNR(base.dims, cfg, torch.Generator().manual_seed(seed)))
+    rng = np.random.default_rng(seed)
+    for block in bn_state["res_blocks"]:
+        for bn in block.values():
+            bn["mean"] = rng.normal(0, 0.3, bn["mean"].shape).astype(np.float32)
+            bn["var"] = rng.uniform(0.5, 1.5, bn["var"].shape).astype(np.float32)
+    export_artifacts(out, params, bn_state, cfg, base.dims, base.preproc, {})
+    return out
+
+
+def direct_route(bundle):
+    """The engine's scoring route for a bundle, on the CPU: ``build_x0`` +
+    the tower's plain version for an f32 dcnr bundle, ``DCNR.forward``
+    otherwise."""
+    from hhrs_tpu_torch.models.convert import dcnr_from_jax
+    from hhrs_tpu_torch.ops import tower
+
+    model = dcnr_from_jax(bundle.params, bundle.bn_state, bundle.dims, bundle.model_cfg)
+    ids = lambda a: torch.as_tensor(a, dtype=torch.int64)  # noqa: E731
+
+    @torch.no_grad()
+    def score(u, i, c, n):
+        args = (ids(u), ids(i), ids(c), torch.as_tensor(n))
+        if tower.uses_tower(bundle.model_cfg):
+            return tower.tower_eval_ref(tower.fold_eval_params(model), tower.build_x0(model, *args),
+                                        bundle.model_cfg.cross_variant)
+        return model(*args)
+
+    return score
+
+
+@pytest.fixture(scope="module")
+def case_exports(tmp_path_factory) -> dict:
+    """(arch, dtype, variant) → (artifact dir, the port's ranker.pt2)."""
+    tmp = tmp_path_factory.mktemp("cases")
+    out = {}
+    for arch, dtype, variant in CASES:
+        adir = random_artifact(str(tmp / f"{arch}_{dtype}_{variant}"), arch, variant, dtype)
+        out[(arch, dtype, variant)] = (adir, export.save_ranker(load_artifact_bundle(adir),
+                                                                 os.path.join(adir, export.RANKER_FILE), "cpu"))
+    return out
+
+
+@pytest.mark.parametrize("arch,dtype,variant", CASES)
+def test_every_arch_and_dtype_scores_as_jaxs_exported_ranker(case_exports, arch, dtype, variant):
+    """Each arch × dtype × variant, exported by both packages, at B = 1, 7,
+    300, bit for bit the engine's direct route for that bundle. f32: JAX's
+    exported ranker at 2e-5. bf16, with dev = JAX's own largest |bf16 − f32|
+    logit over the 308 rows: JAX's bf16 model (``apply_dcn``) within
+    BF16_BAR · dev, the bf16 model bar; JAX's exported bf16 ranker is a
+    separately compiled program that rounds bf16 intermediates elsewhere
+    than ``apply_dcn`` (its 99th-percentile gap to ``apply_dcn`` is 0.31 ·
+    dev for cross_only), so each row is held within JAX's own exported-to-
+    model gap on that row plus BF16_BAR · dev."""
+    from hhrs_tpu.models.dcn import apply_dcn
+    from tests.test_torch_port_model import BF16_BAR
+
+    adir, path = case_exports[(arch, dtype, variant)]
+    jb = jax_load_bundle(adir)
+    jpath = os.path.join(adir, "ranker.stablehlo")
+    jax_save_ranker(jb, jpath, platforms=("cpu",))
+    theirs = JaxExportedRanker.load(jpath)
+    ours = export.ExportedRanker.load(path, device="cpu")
+    direct = direct_route(load_artifact_bundle(adir))
+    f32 = dataclasses.replace(jb.model_cfg, compute_dtype="float32", storage_dtype="float32")
+    got, exported, applied, ref32 = [], [], [], []
+    for n in CASE_BATCHES:
+        batch = _batch(jb.dims, n, seed=n)
+        out = ours(*batch)
+        assert out.shape == (n,) and out.dtype == torch.float32
+        assert torch.equal(out, direct(*batch)), "the exported program is not the direct route bit for bit"
+        got.append(out.numpy())
+        exported.append(np.asarray(theirs(*batch)))
+        if dtype == "float32":
+            np.testing.assert_allclose(got[-1], exported[-1], **TOL)
+        else:
+            applied.append(np.asarray(apply_dcn(jb.params, jb.bn_state, *batch, cfg=jb.model_cfg, train=False)[0]))
+            ref32.append(np.asarray(apply_dcn(jb.params, jb.bn_state, *batch, cfg=f32, train=False)[0]))
+    if dtype == "bfloat16":
+        got, exported, applied, ref32 = (np.concatenate(a) for a in (got, exported, applied, ref32))
+        dev = np.abs(applied - ref32).max()
+        assert dev > 0 and np.abs(got - applied).max() <= BF16_BAR * dev
+        jax_gap = np.abs(exported - applied)
+        excess = np.abs(got - exported) - jax_gap
+        assert excess.max() <= BF16_BAR * dev, (excess.max() / dev, jax_gap.max() / dev)
+
+
+@pytest.mark.parametrize("arch,dtype,variant", CASES)
+def test_exported_graph_holds_the_operators(case_exports, arch, dtype, variant):
+    """``hhrs::cross_stack_fwd`` in every program with a cross stack,
+    ``hhrs::tower_eval`` in the f32 dcnr program (whose cross stack is
+    inside the tower), neither in deep_only's; no model module."""
+    ranker = export.ExportedRanker.load(case_exports[(arch, dtype, variant)][1], device="cpu")
+    ops = {str(n.target) for n in ranker.program.graph.nodes if n.op == "call_function"}
+    tower_case = arch == "dcnr" and dtype == "float32"
+    assert ("hhrs.tower_eval.default" in ops) == tower_case
+    assert ("hhrs.cross_stack_fwd.default" in ops) == (arch != "deep_only" and not tower_case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cross_stack_fwd_operator_cpu_and_fake(dtype, variant):
+    """The operator's CPU implementation is the plain stack bit for bit (and
+    never aliases x0, even at L = 0); its fake gives ``[B, d]`` in x0's
+    dtype for a symbolic batch; torch.library's checks pass."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from hhrs_tpu_torch.ops.cross import cross_stack_apply
+
+    g = torch.Generator().manual_seed(0)
+    x0, w, b = (torch.randn(s, generator=g).to(dtype) for s in ((37, 19), (3, 19), (3, 19)))
+    got = torch.ops.hhrs.cross_stack_fwd(x0, w, b, variant)
+    assert got.dtype == dtype and torch.equal(got, cross_stack_apply(w, b, x0, variant))
+    empty = torch.ops.hhrs.cross_stack_fwd(x0, w[:0], b[:0], variant)
+    assert torch.equal(empty, x0) and empty.data_ptr() != x0.data_ptr()
+    with FakeTensorMode() as mode:
+        fake = torch.ops.hhrs.cross_stack_fwd(mode.from_tensor(x0), mode.from_tensor(w), mode.from_tensor(b), variant)
+    assert fake.shape == x0.shape and fake.dtype == dtype
+    torch.library.opcheck(torch.ops.hhrs.cross_stack_fwd.default, (x0, w, b, variant))
+
+
+def test_cross_stack_module_uses_the_operator_only_without_gradients():
+    """``CrossStack`` calls the operator under no_grad (what export records)
+    and the autograd path when a gradient is needed: the same values."""
+    from hhrs_tpu_torch.ops.cross import CrossStack
+
+    stack = CrossStack(3, 19, "code", torch.Generator().manual_seed(1))
+    x0 = torch.randn(11, 19, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        traced = torch.export.export(stack, (x0,))
+    ops = {str(n.target) for n in traced.graph.nodes if n.op == "call_function"}
+    assert "hhrs.cross_stack_fwd.default" in ops
+    y = stack(x0)
+    assert y.requires_grad and y.grad_fn is not None
+    with torch.no_grad():
+        assert torch.equal(stack(x0), y.detach())
+
+
+def test_export_cli_takes_every_arch_and_dtype(case_exports, tmp_path):
+    """``serve.export``'s CLI on a bf16 cross_only and an f32 dcn_mlp bundle."""
+    for key in (("cross_only", "bfloat16", "code"), ("dcn_mlp", "float32", "canonical")):
+        out = str(tmp_path / f"{key[0]}.pt2")
+        assert export.main(["--artifacts", case_exports[key][0], "--out", out, "--device", "cpu"]) == 0
+        batch = _batch(load_artifact_bundle(case_exports[key][0]).dims, 5)
+        assert torch.isfinite(export.ExportedRanker.load(out, device="cpu")(*batch)).all()
+
+
+def test_engine_scores_a_bf16_artifact_through_dcnr_forward(case_exports):
+    """An artifact trained at bf16 (the tuned preset) is scored at bf16 by
+    ``DCNR.forward``, as the JAX engine scores it with ``apply_dcn``, not by
+    the f32 tower; an f32 dcnr artifact through the tower."""
+    frames = load_frames(str(DATA))
+    for dtype, tower_route in (("bfloat16", False), ("float32", True)):
+        adir = case_exports[("dcnr", dtype, "code")][0]
+        eng = RecommendationEngine.from_dirs(adir, str(DATA), device="cpu", frames=frames)
+        assert (eng._folded is not None) == tower_route
+        batch = _batch(eng.bundle.dims, 9, seed=3)
+        ids = lambda a: torch.as_tensor(a, dtype=torch.int64)  # noqa: E731
+        with torch.no_grad():
+            got = eng._logits(ids(batch[0]), ids(batch[1]), ids(batch[2]), torch.as_tensor(batch[3]))
+        assert torch.equal(got, direct_route(eng.bundle)(*batch))
 
 
 def test_export_without_a_card_raises(monkeypatch):

@@ -339,8 +339,11 @@ def test_cli_flags_equal_jax_plus_device():
 def test_cli_refuses_unported_flags_and_a_missing_card(monkeypatch):
     with pytest.raises(NotImplementedError, match="A11"):
         cli.main(["--mesh", "4x2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["--retrieval-embeddings", "x.npy", "--device", "cpu"])
+    # --retrieval-embeddings (A10) is served: the stack's engine holds the table
+    table = REPO / "hhrs_tpu_torch/testdata/retrieval_embeddings_hpo_r5.npy"
+    args = cli.build_parser().parse_args(["--artifacts", ARTIFACT, "--data", DATA, "--device", "cpu",
+                                          "--no-warmup", "--retrieval-embeddings", str(table)])
+    np.testing.assert_array_equal(cli.build_stack(args).engine.bundle.item_embeddings, np.load(table))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--artifacts", ARTIFACT, "--data", DATA])
