@@ -152,17 +152,24 @@ Phases (any failure exits non-zero and prints no result line):
    train and gate seconds, and the phase's time;
 11. the tuning operator's path and the rest of serve: (a) the trial-axis
    cross kernels at K = 8 (the hpo_r5 shape, B = 512, d = 113, L = 3; the
-   search space's widest, B = 4096, d = 145, L = 6): every lane's y, dx0,
-   dw and db bit for bit the single-trial kernels' on its inputs and within
-   the term-scale bar of the plain versions; the trial launch, K
-   single-trial launches and the plain version timed (CUDA-event means,
-   torch.profiler device time, and device time inside a CUDA graph); (b)
-   ``run_group`` of 8 lanes at trial 139's architecture (lanes from
-   ``Study.ask(fixed=…)``), 3 epochs on ``data/``, its trial-axis launches
-   counted from 0 (one a step and an eval chunk, not K times that), lanes 0
-   and 7 against their sequential ``train_dcn`` (val loss within C1's bars
-   or twice a one-ulp twin's gap, LR decisions and best epoch equal),
-   ``group_examples_per_s`` beside the sequential ``examples_per_s``; (c)
+   search space's widest, B = 4096, d = 145, L = 6): every lane's y and dx0
+   bit for bit the single-trial kernels' on its inputs, its dw and db bit
+   for bit the single-trial backward's under the trial plan
+   (``cross.trial_plan_of``, printed with its waves) and within the
+   term-scale bar of it under ``plan_of``, all within the term-scale bar of
+   the plain versions; the trial launch, K single-trial launches and the
+   plain version timed (CUDA-event means, torch.profiler device time, and
+   device time inside a CUDA graph); C5: the widest shape at the JAX init's
+   full weight bound, the kernels within twice ``C5_SPREAD`` of the plain
+   f32 version; (b) ``run_group`` of 8 lanes at trial 139's architecture
+   (lanes from ``Study.ask(fixed=…)``), 3 epochs on ``data/``, its
+   trial-axis launches counted from 0 (one a step and an eval chunk, not K
+   times that), lanes 0 and 7 against their sequential ``train_dcn`` (val
+   loss within C1's bars or twice a one-ulp twin's gap, LR decisions and
+   best epoch equal), ``group_examples_per_s`` beside the sequential
+   ``examples_per_s``; then C4, the same group at bf16 compute and storage,
+   bf16 trial-axis launches only, lanes 0 and 7 against their sequential
+   bf16 runs (``BF16_VAL_RTOL`` or twice a bf16 one-ulp twin's gap); (c)
    the HPO CLI as subprocesses (16 trials at ``--vectorize 8``, with
    ``--reclaim-lanes``, 2 sequential): each journal holds its trials, each
    best artifact serves a request through the tower kernel, and the
@@ -221,6 +228,9 @@ VAL_TOL = dict(rtol=2e-3, atol=2e-4)  # training trajectory vs the JAX trainer
 # gap measured between valid float32 runs. tests/test_torch_port_train.py
 # holds the CPU run to the same two bars.
 LATER_EPOCH_TOL = dict(rtol=5e-3, atol=2e-4)
+# bf16 training: the bf16 trainer's bar on the val loss (tests/
+# test_torch_port_train.py BF16_VAL_RTOL; one bf16 ulp is 2^-7 relative)
+BF16_VAL_RTOL = 1e-2
 SWAP_TOL = 1e-4  # golden logits of two hotels allowed to trade places
 # The bf16 engine: two hotels may trade places where their JAX bf16 logits
 # differ by less than BF16_BAR times the largest |JAX bf16 − JAX f32| logit
@@ -253,19 +263,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else "nvidia-smi unavailable"
 
 
+def demangled(name: str) -> str:
+    """A kernel's mangled name as ``kernel<type, ints...>`` (the name as it
+    is where it is no kernel of this repo)."""
+    m = re.search(r"\d+([a-z_]+_kernel)(?:I(f|13__nv_bfloat16)?((?:Li\d+E)*))?", name)
+    if not m:
+        return name
+    kernel, elem, ints = m.groups()
+    args = [{"f": "float", "13__nv_bfloat16": "bf16"}[elem]] if elem else []
+    args += re.findall(r"Li(\d+)E", ints or "")
+    return kernel + (f"<{', '.join(args)}>" if args else "")
+
+
 def ptxas_summary(log: str) -> list:
     """(kernel, registers, spill bytes) of each entry point in a ptxas -v log."""
     rows, name, spills = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
-            demangled = re.search(r"\d+([a-z_]+_kernel)(?:I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?)?", name)
-            if demangled:
-                kernel, elem, a, b = demangled.groups()
-                args = [{"f": "float", "13__nv_bfloat16": "bf16"}[elem]] if elem else []
-                args += [x for x in (a, b) if x]
-                name = kernel + (f"<{', '.join(args)}>" if args else "")
+            name = demangled(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills = int(m.group(1)) + int(m.group(2))
@@ -2001,6 +2017,15 @@ TRIALS_K = 8
 # (the plain version itself, against float64: y 14.5x outside it; at half the
 # bound dx0 2.7x; at a quarter every output within 0.07 of the allowance).
 TRIAL_SHAPES = ((512, 113, 3, 500, 1.0), (4096, 145, 6, 100, 0.25))
+# C5: the widest shape at the JAX init's full bound, checked, not timed. There
+# every float32 program is outside the term-scale bar against float64; the
+# bar is stated from measured spreads (tests/test_torch_port_cross.py
+# C5_SPREAD: about twice the largest |f32 − float64| / term scale of the
+# plain version and of JAX's vmapped Pallas kernel, 48 lanes): the kernel and
+# the plain f32 version, two f32 programs, are held to the sum of two such
+# bars.
+C5_SHAPE = (4096, 145, 6)
+C5_SPREAD = {"y": 8e-4, "dx0": 1e-3, "dw": 1.2e-5, "db": 2.5e-4}
 PHASE11_DIR = REPO / "build" / "phase11"
 HPO_R5_JOURNAL = REPO / "benchmarks/results/hpo_r5/journal.jsonl"
 EXPORT_B = (1, 128, 8192)
@@ -2013,40 +2038,63 @@ def _trial_counts(cross) -> dict:
 
 def trial_axis_phase(cross, dev, card: str) -> dict:
     """Phase 11a: the trial-axis cross kernels at K = 8 against the
-    single-trial kernels lane by lane (y, dx0, dw, db bit for bit) and
-    against their plain versions (term-scale bar); then the trial-axis
-    launch, K single-trial launches and the plain version timed (CUDA-event
-    means, device time from torch.profiler), with the bound of K stacks."""
+    single-trial kernels lane by lane (y and dx0 bit for bit under
+    ``plan_of``; dw and db bit for bit under the trial plan, and within the
+    term-scale bar under ``plan_of``) and against their plain versions
+    (term-scale bar); the trial plan and its waves printed; then the
+    trial-axis launch, K single-trial launches and the plain version timed
+    (CUDA-event means, device time from torch.profiler), with the bound of K
+    stacks; then C5, the widest shape at the full init bound, held to the
+    plain f32 version at its measured-spread bar."""
     import numpy as np
     import torch
 
     gen = np.random.default_rng(SEED + 11)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
-    K, rows, errs = TRIALS_K, {}, {"fwd": 0.0, "bwd": 0.0}
+    K, rows, errs, plans = TRIALS_K, {}, {"fwd": 0.0, "bwd": 0.0}, {}
     for B, d, L, calls, w_bound in TRIAL_SHAPES:
         x0, dy = f32(gen.standard_normal((K, B, d))), f32(gen.standard_normal((K, B, d)))
         w, b = f32(gen.uniform(-w_bound, w_bound, (K, L, d)) / np.sqrt(d)), f32(0.1 * gen.standard_normal((K, L, d)))
         y = cross.cross_stack_forward_trials(w, b, x0, "code")
         grads = cross.cross_stack_backward_trials(w, b, x0, dy, "code")
         torch.cuda.synchronize()
+        trial, single_plan = cross.trial_plan_of(x0), cross.plan_of(x0[0], True)
+        cap, trial_cap = cross.capacity(x0[0], True), cross.capacity(x0[0], True, trial.cluster)
+        waves = {"trial": -(-K * trial.grid // trial_cap), "single": -(-K * single_plan.grid // cap)}
+        plans[B] = {"trial_plan": list(trial), "single_plan": list(single_plan), "capacity": cap,
+                    "trial_capacity": trial_cap, "waves": waves}
+        sums_gap = 0.0
         for k in range(K):
             single = (cross.cross_stack_forward(w[k], b[k], x0[k], "code"),
                       *cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code"))
-            for name, got, want in zip(("y", "dx0", "dw", "db"), (y[k], *(g[k] for g in grads)), single):
+            for name, got, want in zip(("y", "dx0"), (y[k], grads[0][k]), single[:2]):
                 if not torch.equal(got, want):
                     raise SmokeFailure(f"trial-axis {name} of lane {k} at B={B}, d={d}, L={L} is not the "
                                        f"single-trial kernel's bit for bit")
+            under = cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code", plan=trial)
+            for name, got, want in zip(("dw", "db"), (grads[1][k], grads[2][k]), under[1:]):
+                if not torch.equal(got, want):
+                    raise SmokeFailure(f"trial-axis {name} of lane {k} at B={B}, d={d}, L={L} is not the "
+                                       f"single-trial kernel's under the trial plan {tuple(trial)} bit for bit")
+            scale = cross.cross_stack_term_scale(w[k], b[k], x0[k], dy[k], "code")
+            for i, name in ((2, "dw"), (3, "db")):  # another plan adds the batch in another order
+                gap, _ = cross.assert_close_to_scale(grads[i - 1][k], single[i], scale[i], **CROSS_TOL,
+                                                     what=f"trial-axis {name} lane {k} B={B} against plan_of's")
+                sums_gap = max(sums_gap, gap)
             ref = (cross.cross_stack_apply(w[k], b[k], x0[k], "code"),
                    *cross.cross_stack_backward_ref(w[k], b[k], x0[k], dy[k], "code"))
-            scale = cross.cross_stack_term_scale(w[k], b[k], x0[k], dy[k], "code")
             for i, (name, got) in enumerate(zip(("y", "dx0", "dw", "db"), (y[k], *(g[k] for g in grads)))):
                 err, _ = cross.assert_close_to_scale(got, ref[i], scale[i], **CROSS_TOL,
                                                      what=f"trial-axis {name} lane {k} B={B}")
                 kind = "fwd" if name == "y" else "bwd"
                 errs[kind] = max(errs[kind], err)
-        print(f"[trials] K={K} B={B} d={d} L={L}: every lane's y, dx0, dw, db bit for bit the single-trial "
-              f"kernels' (plan {tuple(cross.plan_of(x0[0], False))} / {tuple(cross.plan_of(x0[0], True))}), and "
-              f"within the term-scale bar of the plain versions")
+        plans[B]["dw_db_gap_to_plan_of"] = sums_gap
+        print(f"[trials] K={K} B={B} d={d} L={L}: backward capacity {cap} blocks in clusters of 8, {trial_cap} in "
+              f"clusters of {trial.cluster}; trial plan {tuple(trial)} ({waves['trial']} wave(s) of K grids), "
+              f"single-trial plan {tuple(single_plan)} ({waves['single']} waves); every lane's y and dx0 bit for bit the single-trial kernels' (plan "
+              f"{tuple(cross.plan_of(x0[0], False))} / {tuple(single_plan)}), dw and db bit for bit the single-trial "
+              f"kernel's under the trial plan and within the term-scale bar of it under plan_of (max |Δ| "
+              f"{sums_gap:.3e}); all within the term-scale bar of the plain versions")
         with torch.no_grad():
             timed = {
                 "fwd": (lambda: cross.cross_stack_forward_trials(w, b, x0, "code"),
@@ -2056,25 +2104,62 @@ def trial_axis_phase(cross, dev, card: str) -> dict:
                         lambda: [cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code") for k in range(K)],
                         lambda: cross.cross_stack_backward_ref_trials(w, b, x0, dy, "code")),
             }
-            for kind, (trial, singles, plain) in timed.items():
-                ms, single_ms = time_cuda(trial, calls), time_cuda(singles, calls)
+            for kind, (trial_fn, singles, plain) in timed.items():
+                ms, single_ms = time_cuda(trial_fn, calls), time_cuda(singles, calls)
                 plain_ms = time_cuda(plain, max(calls // 20, 5))
-                device_ms = device_ms_per_call(trial, 50, "cross_")
+                device_ms = device_ms_per_call(trial_fn, 50, "cross_")
                 single_device_ms = device_ms_per_call(singles, 20, "cross_", launches=K)
-                graph_ms, single_graph_ms = graph_ms_per_call(trial, 20), graph_ms_per_call(singles, 20)
+                graph_ms, single_graph_ms = graph_ms_per_call(trial_fn, 20), graph_ms_per_call(singles, 20)
                 flops, nbytes = cross_work(B, d, L, kind)
                 bound_ms, bound_by = bound(K * flops, K * nbytes)
                 rows[(kind, B)] = dict(K=K, B=B, d=d, L=L, ms=ms, device_ms=device_ms, graph_ms=graph_ms,
                                        k_single_launch_ms=single_ms, k_single_device_ms=single_device_ms,
                                        k_single_graph_ms=single_graph_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by)
+                                       bound_by=bound_by, **(plans[B] if kind == "bwd" else {}))
                 print(f"[time] trial-axis cross {kind} K={K} B={B} d={d} L={L}: one launch {ms:.4f} ms (device "
                       f"{ms_text(device_ms, 1e3, 2)} us, in a graph {graph_ms * 1e3:.2f} us); {K} single-trial "
                       f"launches {single_ms:.4f} ms (device {ms_text(single_device_ms, 1e3, 2)} us, in a graph "
                       f"{single_graph_ms * 1e3:.2f} us); plain {plain_ms:.4f} ms; bound "
                       f"{bound_ms * 1e3:.3f} us ({bound_by}; {K * flops / 1e6:.3f} MFLOP, {K * nbytes / 1e6:.3f} MB) "
                       f"on {card}")
-    return {"rows": rows, "errs": errs}
+    return {"rows": rows, "errs": errs, "plans": plans, "c5": full_bound_check(cross, dev, gen)}
+
+
+def full_bound_check(cross, dev, gen) -> dict:
+    """C5: the trial-axis kernels at K = 8 on the widest shape with w at the
+    JAX init's full bound, against the plain f32 version at twice
+    ``C5_SPREAD`` (two f32 programs), against the term scale; each side's own
+    largest spread from the plain version in float64 printed."""
+    import numpy as np
+    import torch
+
+    (B, d, L), K = C5_SHAPE, TRIALS_K
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
+    x0, dy = f32(gen.standard_normal((K, B, d))), f32(gen.standard_normal((K, B, d)))
+    w, b = f32(gen.uniform(-1, 1, (K, L, d)) / np.sqrt(d)), f32(0.1 * gen.standard_normal((K, L, d)))
+    got = (cross.cross_stack_forward_trials(w, b, x0, "code"), *cross.cross_stack_backward_trials(w, b, x0, dy, "code"))
+    plain = (cross.cross_stack_apply_trials(w, b, x0, "code"), *cross.cross_stack_backward_ref_trials(w, b, x0, dy, "code"))
+    w64, b64, x64, dy64 = (t.double() for t in (w, b, x0, dy))
+    exact = (cross.cross_stack_apply_trials(w64, b64, x64, "code"),
+             *cross.cross_stack_backward_ref_trials(w64, b64, x64, dy64, "code"))
+    torch.cuda.synchronize()
+    out = {name: {"share_of_bar": 0.0, "kernel_spread": 0.0, "plain_spread": 0.0} for name in C5_SPREAD}
+    for k in range(K):
+        scales = cross.cross_stack_term_scale(w[k], b[k], x0[k], dy[k], "code")
+        for i, name in enumerate(C5_SPREAD):
+            _, share = cross.assert_close_to_scale(got[i][k], plain[i][k], scales[i], rtol=2 * C5_SPREAD[name],
+                                                   atol=0.0, what=f"C5 {name} lane {k}")
+            o = out[name]
+            o["share_of_bar"] = max(o["share_of_bar"], share)
+            for key, t in (("kernel_spread", got[i][k]), ("plain_spread", plain[i][k])):
+                err = (t.double() - exact[i][k]).abs()
+                o[key] = max(o[key], float(torch.where(err == 0, 0.0, err / scales[i]).max()))
+    print(f"[trials] C5: K={K} B={B} d={d} L={L}, w at the full init bound (|y| to "
+          f"{float(exact[0].abs().max()):.2e}): the trial-axis kernels within 2 x C5_SPREAD of the plain f32 "
+          f"version; " + "; ".join(f"{n} {o['share_of_bar']:.2f} of the bar (spread from float64: kernel "
+                                   f"{o['kernel_spread']:.2e}, plain {o['plain_spread']:.2e}; C5_SPREAD "
+                                   f"{C5_SPREAD[n]:.1e})" for n, o in out.items()))
+    return out
 
 
 def graph_ms_per_call(fn, calls: int) -> float:
@@ -2112,9 +2197,12 @@ def _journal_record(number: int) -> dict:
     raise SmokeFailure(f"trial {number} is not in {HPO_R5_JOURNAL}")
 
 
-def _one_ulp_init(dims, mcfg, seed: int) -> tuple:
+def _one_ulp_init(dims, mcfg, seed: int, bf16: bool = False) -> tuple:
     """The initialization of ``seed`` as JAX-layout trees, with one ulp
-    added to one weight of the final layer: a twin run's start."""
+    added to one weight of the final layer: a twin run's start. With
+    ``bf16`` the ulp is bfloat16's (the weight rounded to bf16, then its next
+    bf16 value), which a bf16 run computes with; a float32 ulp vanishes in
+    its cast."""
     import numpy as np
     import torch
 
@@ -2123,22 +2211,66 @@ def _one_ulp_init(dims, mcfg, seed: int) -> tuple:
 
     params, bn_state = jax_from_dcnr(DCNR(dims, mcfg, generator=torch.Generator().manual_seed(seed)))
     kernel = params["final"]["kernel"]
-    kernel.flat[0] = np.nextafter(kernel.flat[0], np.float32(np.inf))
+    if bf16:
+        bits = torch.tensor([kernel.flat[0]]).to(torch.bfloat16).view(torch.int16) + 1
+        kernel.flat[0] = np.float32(bits.view(torch.bfloat16).float().item())
+    else:
+        kernel.flat[0] = np.nextafter(kernel.flat[0], np.float32(np.inf))
     return params, bn_state
+
+
+def _lane_backward_plan(cross, dims, mcfg, tcfg, dtype, dev):
+    """The plan of the group's trial-axis backward: a lane's dw and db are
+    the single-trial backward's under it, bit for bit (phase 11a)."""
+    import torch
+
+    from hhrs_tpu_torch.models.dcn import DCNR
+
+    d = DCNR(dims, mcfg).cross.w.shape[1]
+    return cross.trial_plan_of(torch.empty((TRIALS_K, tcfg.batch_size, d), dtype=dtype, device=dev))
+
+
+def _sequential_runs(cross, splits, dims, mk, tk, plan, dev, bf16: bool = False) -> tuple:
+    """A lane's references: its sequential ``train_dcn`` and that run's
+    one-ulp twin with every cross backward under ``plan`` (the lane's sum
+    order of dw and db), and the sequential run under the default plan.
+    The trial-axis backward sums a lane's dw and db in the trial plan's
+    order, another order than ``plan_of``'s, and the trajectory amplifies
+    that rounding (C1) past one-ulp noise (lane 7, epoch 0: 4.39e-3 from the
+    run under ``plan_of``, its twin 1.66e-3); the held reference shares the
+    lane's order, so it differs from the lane by the K-lane model's own
+    operations alone (PERF.md §6)."""
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    real = cross._plan
+
+    def lane_order(B, device_index, d, backward, dtype):
+        return plan if backward else real(B, device_index, d, backward, dtype)
+
+    cross._plan = lane_order
+    try:
+        seq = train_dcn(splits, dims, mk, tk, device=dev)
+        twin = train_dcn(splits, dims, mk, tk, device=dev, init_state=_one_ulp_init(dims, mk, tk.seed, bf16=bf16))
+    finally:
+        cross._plan = real
+    return seq, twin, train_dcn(splits, dims, mk, tk, device=dev)
 
 
 def run_group_phase(cross, splits, preproc, dev, card: str) -> dict:
     """Phase 11b: ``run_group`` on the card at the hpo_r5 architecture, K = 8
     lanes asked of a Study with trial 139's architecture fixed, 3 epochs on
     ``data/``, the trial-axis launches counted from 0; lanes 0 and 7 held to
-    the sequential ``train_dcn`` of their trials."""
+    the sequential ``train_dcn`` of their trials (its cross backward under
+    the lane's plan, ``_sequential_runs``); the gap to the sequential run
+    under the default plan printed."""
     from hhrs_tpu_torch.config import Config
     from hhrs_tpu_torch.hpo.cli import model_cfg_from_params, train_cfg_from_params
     from hhrs_tpu_torch.hpo.space import reference_search_space
     from hhrs_tpu_torch.hpo.study import Study
+    import torch
+
     from hhrs_tpu_torch.hpo.vectorized import ARCH_KEYS, run_group
     from hhrs_tpu_torch.models.dcn import ModelDims
-    from hhrs_tpu_torch.train.trainer import train_dcn
 
     dims = ModelDims.from_artifacts(preproc)
     fixed = {k: _journal_record(139)["params"][k] for k in ARCH_KEYS}
@@ -2165,23 +2297,23 @@ def run_group_phase(cross, splits, preproc, dev, card: str) -> dict:
     if (counts["fwd"], counts["bwd"]) != (want["fwd"], want["bwd"]) or singles["fwd"] or singles["bwd"]:
         raise SmokeFailure(f"run_group launched {counts} trial-axis and {singles} single-trial cross kernels, "
                            f"not {want}")
-    held = {}
+    held, plan = {}, _lane_backward_plan(cross, dims, mcfg, tcfg, torch.float32, dev)
     for k in (0, TRIALS_K - 1):
         mk, tk = model_cfg_from_params(trials[k], cfg.model), train_cfg_from_params(trials[k], cfg.train)
-        seq = train_dcn(splits, dims, mk, tk, device=dev)
-        twin = train_dcn(splits, dims, mk, tk, device=dev, init_state=_one_ulp_init(dims, mk, tk.seed))
+        seq, twin, default = _sequential_runs(cross, splits, dims, mk, tk, plan, dev)
         lane, c1_held = group[k], True
         if len(lane.history) != len(seq.history):
             raise SmokeFailure(f"lane {k} ran {len(lane.history)} epochs, its sequential trial {len(seq.history)}")
-        for e, (a, b, t) in enumerate(zip(lane.history, seq.history, twin.history)):
+        for e, (a, b, t, o) in enumerate(zip(lane.history, seq.history, twin.history, default.history)):
             c1 = VAL_TOL if e == 0 else LATER_EPOCH_TOL
             gap, twin_gap = abs(a["val_loss"] - b["val_loss"]), abs(t["val_loss"] - b["val_loss"])
             bar = max(c1["atol"] + c1["rtol"] * abs(b["val_loss"]), 2 * twin_gap)
             c1_held &= gap <= c1["atol"] + c1["rtol"] * abs(b["val_loss"])
-            print(f"[hpo] lane {k} epoch {e}: val {a['val_loss']:.6f}, sequential {b['val_loss']:.6f} (rel gap "
-                  f"{gap / b['val_loss']:.2e}), its one-ulp twin {t['val_loss']:.6f} (rel gap "
-                  f"{twin_gap / b['val_loss']:.2e}); bar {bar / b['val_loss']:.2e} rel; lr {a['lr']:.4g} / "
-                  f"{b['lr']:.4g}")
+            print(f"[hpo] lane {k} epoch {e}: val {a['val_loss']:.6f}, sequential under the lane's plan "
+                  f"{tuple(plan)} {b['val_loss']:.6f} (rel gap {gap / b['val_loss']:.2e}), its one-ulp twin "
+                  f"{t['val_loss']:.6f} (rel gap {twin_gap / b['val_loss']:.2e}); bar {bar / b['val_loss']:.2e} "
+                  f"rel; lr {a['lr']:.4g} / {b['lr']:.4g}; sequential under plan_of {o['val_loss']:.6f} (rel gap "
+                  f"{abs(a['val_loss'] / o['val_loss'] - 1):.2e}, not held)")
             if gap > bar or a["lr"] != b["lr"]:
                 raise SmokeFailure(f"lane {k} epoch {e} is not its sequential trial's: {a} against {b}")
         if lane.best_epoch != seq.best_epoch:
@@ -2190,13 +2322,81 @@ def run_group_phase(cross, splits, preproc, dev, card: str) -> dict:
         print(f"[hpo] lane {k}: best epoch {lane.best_epoch} both; final val logloss {lane.final_metrics['val_logloss']:.6f} "
               f"/ {seq.final_metrics['val_logloss']:.6f}, AUC {lane.final_metrics['val_auc']:.5f} / "
               f"{seq.final_metrics['val_auc']:.5f}; the C1 bars alone {'held' if c1_held else 'did NOT hold'}; "
-              f"sequential examples_per_s {seq.examples_per_s:.1f} on {card}")
+              f"sequential examples_per_s {default.examples_per_s:.1f} on {card}")
     print(f"[hpo] group_examples_per_s {group[0].group_examples_per_s:.1f} ({TRIALS_K} lanes, "
-          f"{group[0].examples_per_s:.1f} each) against the sequential trainer's {seq.examples_per_s:.1f} on the "
+          f"{group[0].examples_per_s:.1f} each) against the sequential trainer's {default.examples_per_s:.1f} on the "
           f"same architecture on {card}")
     return {"launches": counts, "group_examples_per_s": group[0].group_examples_per_s,
-            "examples_per_s": group[0].examples_per_s, "sequential_examples_per_s": seq.examples_per_s,
-            "group_s": group_s, "c1_bars_held": held}
+            "examples_per_s": group[0].examples_per_s, "sequential_examples_per_s": default.examples_per_s,
+            "group_s": group_s, "c1_bars_held": held,
+            "bf16": bf16_group_check(cross, splits, dims, trials, cfg, want, dev, card)}
+
+
+def bf16_group_check(cross, splits, dims, trials: list, cfg, want: dict, dev, card: str) -> dict:
+    """C4 on the card: the same K = 8 group at compute and storage bf16, its
+    trial-axis launches counted (bf16 only, want's counts), lanes 0 and 7
+    held to their sequential bf16 ``train_dcn`` (under the lane's plan, as
+    the f32 lanes are) at the bf16 trainer's bar (``BF16_VAL_RTOL`` on
+    each epoch's val loss) or at twice the gap of the sequential run's bf16
+    one-ulp twin where the trajectory's own noise is larger (as the f32
+    lanes are held), the same LR decisions, and the best epoch of the
+    sequential run or of its twin."""
+    import torch
+
+    from hhrs_tpu_torch.hpo.cli import model_cfg_from_params, train_cfg_from_params
+    from hhrs_tpu_torch.hpo.vectorized import run_group
+
+    def bf16_cfg(params):
+        return dataclasses.replace(model_cfg_from_params(params, cfg.model), compute_dtype="bfloat16",
+                                   storage_dtype="bfloat16")
+
+    tcfg = train_cfg_from_params(trials[0], cfg.train)
+    reset_cross_counts(cross)
+    for fn in (cross.cross_stack_forward_trials, cross.cross_stack_backward_trials):
+        fn.launches = fn.launches_bf16 = 0
+    t0 = time.perf_counter()
+    group = run_group(splits, dims, bf16_cfg(trials[0]), tcfg, trials, device=dev)
+    group_s = time.perf_counter() - t0
+    counts, singles = _trial_counts(cross), cross_counts(cross)
+    print(f"[hpo] run_group K={TRIALS_K} at bf16 compute and storage: 3 epochs in {group_s:.2f} s; trial-axis "
+          f"launches bf16 fwd {counts['fwd_bf16']} bwd {counts['bwd_bf16']}, f32 fwd {counts['fwd']} bwd "
+          f"{counts['bwd']} (want {want['fwd']} / {want['bwd']} bf16, 0 f32); single-trial launches {singles}")
+    if (counts["fwd_bf16"], counts["bwd_bf16"], counts["fwd"], counts["bwd"]) != (want["fwd"], want["bwd"], 0, 0) \
+            or any(singles.values()):
+        raise SmokeFailure(f"the bf16 run_group launched {counts} trial-axis and {singles} single-trial cross "
+                           f"kernels, not {want} bf16")
+    gaps, held = {}, {}
+    plan = _lane_backward_plan(cross, dims, bf16_cfg(trials[0]), tcfg, torch.bfloat16, dev)
+    for k in (0, TRIALS_K - 1):
+        mk, tk = bf16_cfg(trials[k]), train_cfg_from_params(trials[k], cfg.train)
+        seq, twin, default = _sequential_runs(cross, splits, dims, mk, tk, plan, dev, bf16=True)
+        lane = group[k]
+        if len(lane.history) != len(seq.history):
+            raise SmokeFailure(f"bf16 lane {k} ran {len(lane.history)} epochs, its sequential trial "
+                               f"{len(seq.history)}")
+        held[k] = True
+        for e, (a, b, t, o) in enumerate(zip(lane.history, seq.history, twin.history, default.history)):
+            gap, twin_gap = abs(a["val_loss"] / b["val_loss"] - 1), abs(t["val_loss"] / b["val_loss"] - 1)
+            bar = max(BF16_VAL_RTOL, 2 * twin_gap)
+            gaps[(k, e)] = gap
+            held[k] &= gap <= BF16_VAL_RTOL
+            print(f"[hpo] bf16 lane {k} epoch {e}: val {a['val_loss']:.6f}, sequential under the lane's plan "
+                  f"{tuple(plan)} {b['val_loss']:.6f} (rel gap {gap:.2e}), its bf16 one-ulp twin {t['val_loss']:.6f} "
+                  f"(rel gap {twin_gap:.2e}); bar {bar:.2e} rel; lr {a['lr']:.4g} / {b['lr']:.4g}; sequential under "
+                  f"plan_of {o['val_loss']:.6f} (rel gap {abs(a['val_loss'] / o['val_loss'] - 1):.2e}, not held)")
+            if gap > bar or a["lr"] != b["lr"]:
+                raise SmokeFailure(f"bf16 lane {k} epoch {e} is not its sequential trial's: {a} against {b}")
+        # bf16 val losses of neighbouring epochs may lie within the trajectory's
+        # noise of each other: the best epoch is held to the sequential run's,
+        # or to its one-ulp twin's where the two pick differently
+        if lane.best_epoch not in (seq.best_epoch, twin.best_epoch):
+            raise SmokeFailure(f"bf16 lane {k} best epoch {lane.best_epoch}, sequential {seq.best_epoch}, its "
+                               f"twin {twin.best_epoch}")
+        print(f"[hpo] bf16 lane {k}: best epoch {lane.best_epoch}, sequential {seq.best_epoch}, its twin "
+              f"{twin.best_epoch}")
+    print(f"[hpo] bf16 group_examples_per_s {group[0].group_examples_per_s:.1f} on {card}")
+    return {"launches": counts, "group_examples_per_s": group[0].group_examples_per_s, "group_s": group_s,
+            "max_rel_gap": max(gaps.values()), "bf16_bar_alone_held": held}
 
 
 def hpo_cli_phase(dev, card: str) -> dict:
@@ -2938,6 +3138,8 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "k_single_launch_ms": r["k_single_launch_ms"],
             "k_single_device_ms": r["k_single_device_ms"], "k_single_graph_ms": r["k_single_graph_ms"], "K": r["K"],
             "by_shape": [trial_rows[(kind, B)] for B, *_ in TRIAL_SHAPES[1:]],
+            "bf16_group_launches": tuning["group"]["bf16"]["launches"][f"{kind}_bf16"],
+            **({"full_bound_check": tuning["trials"]["c5"]} if kind == "bwd" else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -42,8 +42,9 @@
 //  * sums dw and db over the batch in the same launch, without float
 //    atomics, so two runs give bit-identical gradients: each warp sums its
 //    rows in order in registers; each block sums its warps in order 0..7 in
-//    shared memory; the backward runs in clusters of 8 blocks, and each
-//    block of a cluster adds one slice of the columns over the 8 blocks in
+//    shared memory; the backward runs in clusters of 8 blocks (a trial plan
+//    may take 2: the cluster size CL is a template parameter), and each
+//    block of a cluster adds one slice of the columns over the CL blocks in
 //    rank order, through distributed shared memory, into the cluster's row
 //    of `partial`; the block that draws the last ticket of an integer
 //    counter adds the clusters' rows in order and writes dw, db. A round
@@ -83,6 +84,39 @@
 // its cluster (the ticket decides who sums, nobody spins on it), so the K
 // grids need not be resident at once: past the card's capacity they run in
 // waves. The single-trial entry points are the launches with K = 1.
+//
+// The backward's rows on an H100 (PERF.md, section 6). A row's backward is
+// a chain of 2L dependent shuffle reductions with little work between them,
+// so a warp walking one row at a time leaves the chain's latency between
+// every two of its rows. A warp walks R rows at once (rows r, r + 8, ... of
+// its tile, interleaved: each reduction's butterfly steps of the R rows
+// issue together and overlap), then its last rows one at a time; the rows'
+// terms enter the warp's dw, db sums one row after another, in row order, so
+// dw and db do not depend on R. R is 2 where the registers of two rows fit
+// the instance's budget, else 1 (bwd_rows_at_once); the per-row arrays are
+// sized by the instance's most layers, LMAX = 3 or 6 (the launch takes the
+// smaller that holds L).
+// bf16: rounding every elementwise f32 result through an f32 -> bf16 -> f32
+// round trip costs two or three instructions a value (five a value and layer
+// on the walk back). The bf16 instance keeps a row as bf16x2 pairs (a lane's
+// columns k + 64q and k + 64q + 32 in pair q) and does its elementwise
+// products and sums with mul.rn / add.rn.bf16x2: one instruction for two
+// values, rounded once, as the plain version's f32 operation rounded to bf16
+// is (the f32 sum of two bf16 values rounds to the same bf16; so does their
+// f32 product, which is exact unless it falls below f32's normal range,
+// |p| < 2^-126). What the plain version sums in f32 stays in f32, in the
+// same order: the gates' fmaf chains, the row sums of bf16-rounded products,
+// dw and db. So dx0 is the f32-rounding instance's bit for bit on every input
+// whose products stay above 2^-126.
+//
+// The trial axis's plan (ops/cross.py::trial_plan) gives each of the K
+// grids capacity / K blocks in whole clusters, so the K grids fit the card
+// in one wave and a block carries more rows; lane k is the single-trial
+// launch under that plan, bit for bit. Clusters are of 8 blocks unless that
+// rounding leaves over a third of the card idle: the card holds 15
+// clusters of 8 at d = 145 (one block an SM), so 8 trials would get 8
+// blocks each; clusters of 2 give them 16. A cluster of 2 sums more partial
+// rows, which costs where blocks have few rows.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -105,6 +139,9 @@ constexpr int kMaxStages = 3;         // tiles in flight per block
 constexpr int kMaxRing = 96;          // stages x rows
 constexpr int kHeadBytes = 128;       // the stages' mbarriers, padded
 constexpr int kCluster = 8;           // backward: blocks that sum through shared memory
+constexpr int kSmallCluster = 2;      // a trial plan's other cluster size
+constexpr int kFewLayers = 3;         // the backward's instance for L <= 3 (beside kMaxLayers)
+constexpr int kPairs = kMaxPerLane / 2;  // bf16x2 pairs of a lane's columns
 
 __host__ __device__ constexpr size_t round_up(size_t x, size_t m) { return (x + m - 1) / m * m; }
 
@@ -132,11 +169,16 @@ __device__ __forceinline__ float rnd(float v) {
   return to_f(from_f<T>(v));
 }
 
-// Shared memory: mbarriers | w, b [L][d] each | the ring of tiles
-// [stages][streams][T][d], which the backward reuses for the warps' sums
-// [kWarps][2][L][d] once the tiles are done.
+// Shared memory: mbarriers | w, b [L][d] each | (bf16 backward: w, b again
+// as bf16x2 pairs in the lanes' layout [L][kPairs][32] each) | the ring of
+// tiles [stages][streams][T][d], which the backward reuses for the warps'
+// sums [kWarps][2][L][d] once the tiles are done.
 __host__ __device__ constexpr size_t weights_bytes(int d, int L) {
   return round_up(2 * sizeof(float) * L * d, 128);
+}
+
+__host__ __device__ constexpr size_t pairs_bytes(int L) {
+  return 2 * sizeof(uint32_t) * L * kPairs * 32;
 }
 
 size_t smem_bytes(int rows, int stages, int d, int L, bool backward, size_t elem) {
@@ -146,7 +188,8 @@ size_t smem_bytes(int rows, int stages, int d, int L, bool backward, size_t elem
     const size_t sums = sizeof(float) * kWarps * 2 * L * d;
     if (sums > body) body = sums;
   }
-  return kHeadBytes + weights_bytes(d, L) + body;
+  const size_t pairs = backward && elem == sizeof(bf16) ? pairs_bytes(L) : 0;
+  return kHeadBytes + weights_bytes(d, L) + pairs + body;
 }
 
 // ---- mbarriers and bulk copies (PTX) -------------------------------------
@@ -256,33 +299,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// sum_c a[c] * v[c] over the row, a held by the lanes, v in memory.
+// The lane's share of sum_c a[c] * v[c] over the row, a held by the lanes,
+// v in memory: one fmaf chain.
 template <int NPL>
-__device__ __forceinline__ float row_dot(const float (&a)[NPL], const float* v, int lane, int d) {
+__device__ __forceinline__ float lane_dot(const float (&a)[NPL], const float* v, int lane, int d) {
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
     if (c < d) s = fmaf(a[j], v[c], s);
   }
-  return warp_sum(s);
+  return s;
 }
 
-// A backward row sum sum_c a[c] * v[c], both held by the lanes: one fmaf
-// chain in f32; in bf16 each product rounded to bf16 first (the VJP's
-// elementwise product), then summed in f32.
-template <class T, int NPL>
-__device__ __forceinline__ float row_dot(const float (&a)[NPL], const float (&v)[NPL]) {
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    if constexpr (std::is_same_v<T, float>) {
-      s = fmaf(a[j], v[j], s);
-    } else {
-      s = __fadd_rn(s, rnd<T>(__fmul_rn(a[j], v[j])));
-    }
-  }
-  return warp_sum(s);
+// sum_c a[c] * v[c] over the row, a held by the lanes, v in memory.
+template <int NPL>
+__device__ __forceinline__ float row_dot(const float (&a)[NPL], const float* v, int lane, int d) {
+  return warp_sum(lane_dot<NPL>(a, v, lane, d));
 }
 
 // One cross layer on a row held in registers. Columns past d stay zero.
@@ -324,12 +357,14 @@ __device__ __forceinline__ void store_row(T* dst, const float (&r)[NPL], int lan
 struct Layout {
   uint64_t* bars;
   float *ws, *bs;
+  uint32_t* pairs;  // bf16 backward: w, b as bf16x2 pairs [2][L][kPairs][32]
   unsigned char* ring;
-  __device__ Layout(unsigned char* smem, int d, int L)
+  __device__ Layout(unsigned char* smem, int d, int L, bool with_pairs = false)
       : bars(reinterpret_cast<uint64_t*>(smem)),
         ws(reinterpret_cast<float*>(smem + kHeadBytes)),
         bs(ws + L * d),
-        ring(smem + kHeadBytes + weights_bytes(d, L)) {}
+        pairs(reinterpret_cast<uint32_t*>(smem + kHeadBytes + weights_bytes(d, L))),
+        ring(smem + kHeadBytes + weights_bytes(d, L) + (with_pairs ? pairs_bytes(L) : 0)) {}
 };
 
 __device__ __forceinline__ int tiles_of_block(int B, int rows) {
@@ -433,13 +468,305 @@ __device__ __forceinline__ void ordered_sums(const float* src, size_t stride, in
   }
 }
 
+// ---- the backward's rows ----------------------------------------------------
+
+// R sums over the warp at once: the R sums' butterfly steps issue together,
+// so their shuffles overlap; each sum adds as warp_sum adds.
+template <int R>
+__device__ __forceinline__ void warp_sums(float (&v)[R]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  }
+}
+
+// Rows a warp of the backward walks at once: 2 where two rows' registers
+// (x_l for every layer, x0, dy, the canonical dx0 sum, the gates) and the
+// warp's dw, db sums fit the instance's budget (128 registers a thread where
+// two blocks share an SM, else 255, less a margin for addresses), else 1.
+template <int NPL, int LMAX>
+__host__ __device__ constexpr int bwd_rows_at_once() {
+  constexpr int per_row = NPL * (LMAX + 3) + LMAX;
+  constexpr int budget = NPL <= 4 ? 128 : 240;
+  return 2 * per_row + 2 * LMAX * NPL + 32 <= budget ? 2 : 1;
+}
+
+// float32: R rows of the backward, interleaved, each with the row
+// arithmetic the header describes (fmaf chains, the updates as fused
+// multiply-adds), so y and dx0 do not depend on R. Row i's terms enter
+// dw_acc, db_acc after row i - 1's.
+template <int NPL, int LMAX, int R>
+__device__ __forceinline__ void rows_f32(const float* (&xr)[R], const float* (&dyr)[R], float* (&out)[R],
+                                         const float* ws, const float* bs, int lane, int d, int L,
+                                         int canonical, float (&dw_acc)[LMAX][NPL],
+                                         float (&db_acc)[LMAX][NPL]) {
+  float xin[R][NPL], x[R][NPL], dx[R][NPL], dx0_acc[R][NPL], xs[R][LMAX][NPL], g[R][LMAX];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    load_row<NPL>(xin[i], xr[i], lane, d);
+    load_row<NPL>(dx[i], dyr[i], lane, d);
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+      x[i][j] = xin[i][j];
+      dx0_acc[i][j] = 0.f;
+    }
+  }
+  // Recompute the layer inputs x_l and gates g_l, as the forward does.
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l) {
+    if (l < L) {
+      float t[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) xs[i][l][j] = x[i][j];
+        t[i] = lane_dot<NPL>(x[i], ws + l * d, lane, d);
+      }
+      warp_sums<R>(t);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        g[i][l] = t[i];
+        layer_step<float, NPL>(x[i], xin[i], g[i][l], bs + l * d, lane, d, canonical);
+      }
+    }
+  }
+  // Walk back through the layers.
+#pragma unroll
+  for (int l = LMAX - 1; l >= 0; --l) {
+    if (l < L) {
+      const float* wl = ws + l * d;
+      float t[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        t[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) t[i] = fmaf(dx[i][j], canonical ? xin[i][j] : xs[i][l][j], t[i]);
+      }
+      warp_sums<R>(t);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float sl = t[i];
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+          const int c = lane + 32 * j;
+          const float wc = c < d ? wl[c] : 0.f;
+          db_acc[l][j] += dx[i][j];
+          dw_acc[l][j] = fmaf(sl, xs[i][l][j], dw_acc[l][j]);
+          if (canonical) {
+            dx0_acc[i][j] = fmaf(dx[i][j], g[i][l], dx0_acc[i][j]);
+            dx[i][j] = fmaf(sl, wc, dx[i][j]);
+          } else {
+            dx[i][j] = fmaf(sl, wc, dx[i][j] * (1.f + g[i][l]));
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (canonical) {
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) dx[i][j] = dx[i][j] + dx0_acc[i][j];
+    }
+    store_row<NPL>(out[i], dx[i], lane, d);
+  }
+}
+
+// bf16x2 pairs: pair q of a lane holds its columns j = 2q (low half) and
+// 2q + 1 (high half), columns lane + 64q and lane + 64q + 32 of the row.
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// Two f32 values rounded to bf16 (as __float2bfloat16_rn rounds) and packed,
+// lo in the low half.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ float lo_f(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float hi_f(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
+
+template <int NPL>
+__device__ __forceinline__ void load_pairs(uint32_t (&p)[(NPL + 1) / 2], const bf16* src, int lane, int d) {
+#pragma unroll
+  for (int q = 0; q < (NPL + 1) / 2; ++q) {
+    const int c0 = lane + 64 * q, c1 = c0 + 32;
+    const uint32_t lo = c0 < d ? __bfloat16_as_ushort(src[c0]) : 0u;
+    const uint32_t hi = 2 * q + 1 < NPL && c1 < d ? __bfloat16_as_ushort(src[c1]) : 0u;
+    p[q] = lo | hi << 16;
+  }
+}
+
+template <int NPL>
+__device__ __forceinline__ void store_pairs(bf16* dst, const uint32_t (&p)[(NPL + 1) / 2], int lane, int d) {
+#pragma unroll
+  for (int q = 0; q < (NPL + 1) / 2; ++q) {
+    const int c0 = lane + 64 * q, c1 = c0 + 32;
+    if (c0 < d) dst[c0] = __ushort_as_bfloat16(static_cast<unsigned short>(p[q] & 0xffffu));
+    if (2 * q + 1 < NPL && c1 < d) dst[c1] = __ushort_as_bfloat16(static_cast<unsigned short>(p[q] >> 16));
+  }
+}
+
+// w and b of every layer as bf16x2 pairs in the lanes' layout (0 past d),
+// from their f32 copies in shared memory.
+__device__ __forceinline__ void pack_weights(uint32_t* wp, uint32_t* bp, const float* ws, const float* bs,
+                                             int d, int L) {
+  for (int i = threadIdx.x; i < L * kPairs * 32; i += kThreads) {
+    const int l = i / (kPairs * 32), c0 = i % 32 + 64 * (i / 32 % kPairs), c1 = c0 + 32;
+    wp[i] = pack2(c0 < d ? ws[l * d + c0] : 0.f, c1 < d ? ws[l * d + c1] : 0.f);
+    bp[i] = pack2(c0 < d ? bs[l * d + c0] : 0.f, c1 < d ? bs[l * d + c1] : 0.f);
+  }
+  __syncthreads();
+}
+
+// bfloat16: R rows of the backward on bf16x2 pairs. The gates (f32 products
+// of bf16 values, exact, in the forward's fmaf chain), the row sums (each
+// product rounded to bf16, summed in f32 in column order j = 0, 1, ...) and
+// dw, db (f32) add in the order the header describes; every elementwise
+// product and sum is one mul2 / add2 for two columns.
+template <int NPL, int LMAX, int R>
+__device__ __forceinline__ void rows_bf16(const bf16* (&xr)[R], const bf16* (&dyr)[R], bf16* (&out)[R],
+                                          const float* ws, const uint32_t* wp, const uint32_t* bp,
+                                          int lane, int d, int L, int canonical,
+                                          float (&dw_acc)[LMAX][NPL], float (&db_acc)[LMAX][NPL]) {
+  constexpr int P = (NPL + 1) / 2;
+  uint32_t xin[R][P], x[R][P], dx[R][P], dx0_acc[R][P], xs[R][LMAX][P], g2[R][LMAX];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    load_pairs<NPL>(xin[i], xr[i], lane, d);
+    load_pairs<NPL>(dx[i], dyr[i], lane, d);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      x[i][q] = xin[i][q];
+      dx0_acc[i][q] = 0u;
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l) {
+    if (l < L) {
+      float t[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        t[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+          const int c = lane + 32 * j;
+          const float xj = j % 2 ? hi_f(x[i][j / 2]) : lo_f(x[i][j / 2]);
+          if (c < d) t[i] = fmaf(xj, ws[l * d + c], t[i]);
+        }
+#pragma unroll
+        for (int q = 0; q < P; ++q) xs[i][l][q] = x[i][q];
+      }
+      warp_sums<R>(t);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        g2[i][l] = pack2(t[i], t[i]);  // the gate, rounded to bf16, in both halves
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const uint32_t b2 = bp[(l * kPairs + q) * 32 + lane];
+          x[i][q] = canonical ? add2(add2(mul2(xin[i][q], g2[i][l]), b2), x[i][q])
+                              : add2(add2(x[i][q], mul2(x[i][q], g2[i][l])), b2);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int l = LMAX - 1; l >= 0; --l) {
+    if (l < L) {
+      float t[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        t[i] = 0.f;
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const uint32_t p = mul2(dx[i][q], canonical ? xin[i][q] : xs[i][l][q]);
+          t[i] = __fadd_rn(t[i], lo_f(p));
+          if (2 * q + 1 < NPL) t[i] = __fadd_rn(t[i], hi_f(p));
+        }
+      }
+      warp_sums<R>(t);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const uint32_t s2 = pack2(t[i], t[i]);
+        const float sl = lo_f(s2);
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const int j = 2 * q;
+          db_acc[l][j] += lo_f(dx[i][q]);
+          dw_acc[l][j] = fmaf(sl, lo_f(xs[i][l][q]), dw_acc[l][j]);
+          if (j + 1 < NPL) {
+            db_acc[l][j + 1] += hi_f(dx[i][q]);
+            dw_acc[l][j + 1] = fmaf(sl, hi_f(xs[i][l][q]), dw_acc[l][j + 1]);
+          }
+          const uint32_t sw = mul2(s2, wp[(l * kPairs + q) * 32 + lane]);
+          if (canonical) {
+            dx0_acc[i][q] = add2(dx0_acc[i][q], mul2(dx[i][q], g2[i][l]));
+            dx[i][q] = add2(dx[i][q], sw);
+          } else {
+            dx[i][q] = add2(add2(dx[i][q], mul2(dx[i][q], g2[i][l])), sw);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (canonical) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) dx[i][q] = add2(dx[i][q], dx0_acc[i][q]);
+    }
+    store_pairs<NPL>(out[i], dx[i], lane, d);
+  }
+}
+
+// The warp's rows r, r + 8, ..., r + 8 (R - 1) of the block's tile k: staged
+// rows from the ring, the batch's last unstaged rows from global memory.
+template <class T, int NPL, int LMAX, int R>
+__device__ __forceinline__ void tile_rows(int r, int k, const TileRing<T>& ring, const Layout& s,
+                                          const T* x0, const T* dy, T* dx0, int lane, int d, int L,
+                                          int canonical, float (&dw_acc)[LMAX][NPL],
+                                          float (&db_acc)[LMAX][NPL]) {
+  const int r0 = ring.first_row(k), copied = ring.copied_rows(k);
+  const T* xr[R];
+  const T* dyr[R];
+  T* out[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int rr = r + kWarps * i;
+    const size_t row = r0 + rr;
+    const bool staged = rr < copied;
+    xr[i] = staged ? ring.tile(k, 0) + rr * d : x0 + row * d;
+    dyr[i] = staged ? ring.tile(k, 1) + rr * d : dy + row * d;
+    out[i] = dx0 + row * d;
+  }
+  if constexpr (std::is_same_v<T, bf16>) {
+    rows_bf16<NPL, LMAX, R>(xr, dyr, out, s.ws, s.pairs, s.pairs + L * kPairs * 32, lane, d, L, canonical,
+                            dw_acc, db_acc);
+  } else {
+    rows_f32<NPL, LMAX, R>(xr, dyr, out, s.ws, s.bs, lane, d, L, canonical, dw_acc, db_acc);
+  }
+}
+
 // Writes dx0 for the block's rows; partial[c] gets cluster c's sums of
 // dw | db ([2][L][d]), and the block that draws the last ticket on
 // counters[0] sums the clusters' rows in order into dw, db. Up to d = 128
 // two blocks fit on an SM (at most 128 registers a thread); wider rows need
-// more registers than that.
-template <class T, int NPL>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL <= 4 ? 2 : 1)
+// more registers than that. LMAX: the most layers the instance takes; CL:
+// its blocks a cluster.
+template <class T, int NPL, int LMAX, int CL>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(kThreads, NPL <= 4 ? 2 : 1)
     cross_bwd_kernel(const T* __restrict__ x0, const T* __restrict__ w,
                      const T* __restrict__ b, const T* __restrict__ dy,
                      T* __restrict__ dx0, T* __restrict__ dw, T* __restrict__ db,
@@ -456,85 +783,36 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
   b += weights_at;
   dw += weights_at;
   db += weights_at;
-  partial += (size_t)blockIdx.y * (gridDim.x / kCluster) * 2 * L * d;
+  partial += (size_t)blockIdx.y * (gridDim.x / CL) * 2 * L * d;
   counters += blockIdx.y;
-  const Layout s(smem, d, L);
+  constexpr bool kBf16 = std::is_same_v<T, bf16>;
+  const Layout s(smem, d, L, kBf16);
   const TileRing<T> ring{s.bars, reinterpret_cast<T*>(s.ring), B, d, rows, stages, 2};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int mine = tiles_of_block(B, rows);
   start(ring, mine, x0, dy, w, b, s.ws, s.bs, L * d);
+  if constexpr (kBf16) pack_weights(s.pairs, s.pairs + L * kPairs * 32, s.ws, s.bs, d, L);
 
-  float dw_acc[kMaxLayers][NPL], db_acc[kMaxLayers][NPL];
+  float dw_acc[LMAX][NPL], db_acc[LMAX][NPL];
 #pragma unroll
-  for (int l = 0; l < kMaxLayers; ++l) {
+  for (int l = 0; l < LMAX; ++l) {
 #pragma unroll
     for (int j = 0; j < NPL; ++j) dw_acc[l][j] = db_acc[l][j] = 0.f;
   }
 
+  constexpr int R = bwd_rows_at_once<NPL, LMAX>();
   for (int k = 0; k < mine; ++k) {
     ring.wait(k);
-    const int r0 = ring.first_row(k), n = ring.n_rows(k), copied = ring.copied_rows(k);
-    const T* tx = ring.tile(k, 0);
-    const T* tdy = ring.tile(k, 1);
-    for (int r = warp; r < n; r += kWarps) {
-      const bool staged = r < copied;
-      const size_t row = r0 + r;
-      float xin[NPL], x[NPL], dx[NPL], dx0_acc[NPL];
-      float xs[kMaxLayers][NPL], g[kMaxLayers];
-      load_row<NPL>(xin, staged ? tx + r * d : x0 + row * d, lane, d);
-      load_row<NPL>(dx, staged ? tdy + r * d : dy + row * d, lane, d);
-#pragma unroll
-      for (int j = 0; j < NPL; ++j) {
-        x[j] = xin[j];
-        dx0_acc[j] = 0.f;
-      }
-      // Recompute the layer inputs x_l and gates g_l, as the forward does.
-#pragma unroll
-      for (int l = 0; l < kMaxLayers; ++l) {
-        if (l < L) {
-#pragma unroll
-          for (int j = 0; j < NPL; ++j) xs[l][j] = x[j];
-          g[l] = rnd<T>(row_dot<NPL>(x, s.ws + l * d, lane, d));
-          layer_step<T, NPL>(x, xin, g[l], s.bs + l * d, lane, d, canonical);
-        }
-      }
-      // Walk back through the layers.
-#pragma unroll
-      for (int l = kMaxLayers - 1; l >= 0; --l) {
-        if (l < L) {
-          const float* wl = s.ws + l * d;
-          const float sl = rnd<T>(canonical ? row_dot<T, NPL>(dx, xin) : row_dot<T, NPL>(dx, xs[l]));
-#pragma unroll
-          for (int j = 0; j < NPL; ++j) {
-            const int c = lane + 32 * j;
-            const float wc = c < d ? wl[c] : 0.f;
-            db_acc[l][j] += dx[j];
-            dw_acc[l][j] = fmaf(sl, xs[l][j], dw_acc[l][j]);
-            if constexpr (std::is_same_v<T, float>) {
-              if (canonical) {
-                dx0_acc[j] = fmaf(dx[j], g[l], dx0_acc[j]);
-                dx[j] = fmaf(sl, wc, dx[j]);
-              } else {
-                dx[j] = fmaf(sl, wc, dx[j] * (1.f + g[l]));
-              }
-            } else {  // the VJP's operations, each rounded to bf16
-              const float sw = rnd<T>(__fmul_rn(sl, wc));
-              if (canonical) {
-                dx0_acc[j] = rnd<T>(__fadd_rn(dx0_acc[j], rnd<T>(__fmul_rn(dx[j], g[l]))));
-                dx[j] = rnd<T>(__fadd_rn(dx[j], sw));
-              } else {
-                dx[j] = rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(dx[j], rnd<T>(__fmul_rn(dx[j], g[l])))), sw));
-              }
-            }
-          }
-        }
-      }
-      if (canonical) {
-#pragma unroll
-        for (int j = 0; j < NPL; ++j) dx[j] = rnd<T>(dx[j] + dx0_acc[j]);
-      }
-      store_row<NPL>(dx0 + row * d, dx, lane, d);
+    const int n = ring.n_rows(k);
+    // The warp's rows warp, warp + 8, ... of the tile: R at a time, then the
+    // last ones one at a time, each row's sums after the rows' before it.
+    int r = warp;
+    if constexpr (R > 1) {
+      for (; r + kWarps * (R - 1) < n; r += kWarps * R)
+        tile_rows<T, NPL, LMAX, R>(r, k, ring, s, x0, dy, dx0, lane, d, L, canonical, dw_acc, db_acc);
     }
+    for (; r < n; r += kWarps)
+      tile_rows<T, NPL, LMAX, 1>(r, k, ring, s, x0, dy, dx0, lane, d, L, canonical, dw_acc, db_acc);
     finish_tile(ring, k, mine, x0, dy);
   }
 
@@ -545,7 +823,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
   float* sums = reinterpret_cast<float*>(s.ring);
   float* own = sums + (size_t)warp * n2;
 #pragma unroll
-  for (int l = 0; l < kMaxLayers; ++l) {
+  for (int l = 0; l < LMAX; ++l) {
     if (l < L) {
       store_row<NPL>(own + (size_t)l * d, dw_acc[l], lane, d);
       store_row<NPL>(own + n + (size_t)l * d, db_acc[l], lane, d);
@@ -558,21 +836,21 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
     sums[i] = t;
   }
 
-  // The cluster's sums: block `rank` adds the kCluster blocks' sums of its
-  // slice of the columns, in rank order, through distributed shared memory,
-  // into the cluster's row of partial.
+  // The cluster's sums: block `rank` adds the CL blocks' sums of its slice
+  // of the columns, in rank order, through distributed shared memory, into
+  // the cluster's row of partial.
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const int slice = (n2 + kCluster - 1) / kCluster;
+  const int slice = (n2 + CL - 1) / CL;
   const int c0 = static_cast<int>(cluster.block_rank()) * slice, c1 = min(n2, c0 + slice);
-  float* row = partial + (size_t)(blockIdx.x / kCluster) * n2;
+  float* row = partial + (size_t)(blockIdx.x / CL) * n2;
   for (int i = c0 + threadIdx.x; i < c1; i += kThreads) {
-    float v[kCluster];
+    float v[CL];
 #pragma unroll
-    for (int q = 0; q < kCluster; ++q) v[q] = cluster.map_shared_rank(sums, q)[i];
+    for (int q = 0; q < CL; ++q) v[q] = cluster.map_shared_rank(sums, q)[i];
     float t = 0.f;
 #pragma unroll
-    for (int q = 0; q < kCluster; ++q) t += v[q];
+    for (int q = 0; q < CL; ++q) t += v[q];
     row[i] = t;
   }
 
@@ -580,13 +858,17 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, NPL
   const bool last = last_to_arrive(counters, gridDim.x);
   cluster.sync();  // a block's sums stay until its peers have read them
   if (!last) return;
-  ordered_sums(partial, n2, gridDim.x / kCluster, n2, [=](int i, float t) {
+  ordered_sums(partial, n2, gridDim.x / CL, n2, [=](int i, float t) {
     if (i < n) {
       dw[i] = from_f<T>(t);
     } else {
       db[i - n] = from_f<T>(t);
     }
   });
+}
+
+bool valid_cluster(int cluster) {
+  return cluster == kCluster || cluster == kSmallCluster;
 }
 
 bool valid_plan(int rows, int grid, int stages, int align) {
@@ -596,11 +878,18 @@ bool valid_plan(int rows, int grid, int stages, int align) {
 
 template <class T, int NPL>
 cudaError_t prepare_typed(int bytes) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      cross_fwd_kernel<T, NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(cross_bwd_kernel<T, NPL>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(cross_fwd_kernel<T, NPL>),
+      reinterpret_cast<const void*>(cross_bwd_kernel<T, NPL, kFewLayers, kCluster>),
+      reinterpret_cast<const void*>(cross_bwd_kernel<T, NPL, kMaxLayers, kCluster>),
+      reinterpret_cast<const void*>(cross_bwd_kernel<T, NPL, kFewLayers, kSmallCluster>),
+      reinterpret_cast<const void*>(cross_bwd_kernel<T, NPL, kMaxLayers, kSmallCluster>)};
+  cudaError_t err = cudaSuccess;
+  for (const void* k : kernels) {
+    if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) != cudaSuccess)
+      break;
+  }
+  return err;
 }
 
 template <int NPL>
@@ -609,18 +898,20 @@ cudaError_t prepare_instance(int bytes) {
   return err != cudaSuccess ? err : prepare_typed<bf16, NPL>(bytes);
 }
 
-// Blocks of the backward the card runs at once, in whole clusters (its
-// compile-time cluster size).
-template <class T, int NPL>
+// Blocks of the backward the card runs at once, in whole clusters of CL
+// blocks (the instance's compile-time cluster size), for its instance of the
+// most layers (the other takes as many registers or fewer under the same
+// launch bounds).
+template <class T, int NPL, int CL>
 cudaError_t bwd_capacity(size_t smem, int* n) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
+  cfg.gridDim = dim3(CL);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   int clusters = 0;
   const cudaError_t err =
-      cudaOccupancyMaxActiveClusters(&clusters, cross_bwd_kernel<T, NPL>, &cfg);
-  *n = clusters * kCluster;
+      cudaOccupancyMaxActiveClusters(&clusters, cross_bwd_kernel<T, NPL, kMaxLayers, CL>, &cfg);
+  *n = clusters * CL;
   return err;
 }
 
@@ -646,14 +937,35 @@ cudaError_t launch_fwd(const T* x0, const T* w, const T* b, T* y, int K, long lo
   return cudaGetLastError();
 }
 
+template <class T, int NPL, int CL>
+void launch_bwd_cluster(const T* x0, const T* w, const T* b, const T* dy, T* dx0, T* dw, T* db,
+                        float* partial, unsigned int* counters, int K, long long x_stride, int B,
+                        int d, int L, int canonical, int rows, int grid, int stages,
+                        cudaStream_t stream) {
+  const dim3 blocks(grid, K);
+  const size_t smem = smem_bytes(rows, stages, d, L, true, sizeof(T));
+  if (L <= kFewLayers) {
+    cross_bwd_kernel<T, NPL, kFewLayers, CL><<<blocks, kThreads, smem, stream>>>(
+        x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages, x_stride);
+  } else {
+    cross_bwd_kernel<T, NPL, kMaxLayers, CL><<<blocks, kThreads, smem, stream>>>(
+        x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages, x_stride);
+  }
+}
+
 template <class T, int NPL>
 cudaError_t launch_bwd(const T* x0, const T* w, const T* b, const T* dy, T* dx0, T* dw, T* db,
                        float* partial, unsigned int* counters, int K, long long x_stride, int B,
-                       int d, int L, int canonical, int rows, int grid, int stages,
+                       int d, int L, int canonical, int rows, int grid, int stages, int cluster,
                        cudaStream_t stream) {
-  cross_bwd_kernel<T, NPL>
-      <<<dim3(grid, K), kThreads, smem_bytes(rows, stages, d, L, true, sizeof(T)), stream>>>(
-          x0, w, b, dy, dx0, dw, db, partial, counters, B, d, L, canonical, rows, stages, x_stride);
+  if (cluster == kCluster) {
+    launch_bwd_cluster<T, NPL, kCluster>(x0, w, b, dy, dx0, dw, db, partial, counters, K, x_stride,
+                                         B, d, L, canonical, rows, grid, stages, stream);
+  } else {
+    launch_bwd_cluster<T, NPL, kSmallCluster>(x0, w, b, dy, dx0, dw, db, partial, counters, K,
+                                              x_stride, B, d, L, canonical, rows, grid, stages,
+                                              stream);
+  }
   return cudaGetLastError();
 }
 
@@ -671,9 +983,12 @@ cudaError_t launch_bwd(const T* x0, const T* w, const T* b, const T* dy, T* dx0,
   }
 
 template <class T>
-int capacity_typed(int d, bool backward, int* n) {
+int capacity_typed(int d, bool backward, int cluster, int* n) {
   const size_t smem = smem_bytes(kMaxRing, 1, d, kMaxLayers, backward, sizeof(T));
-#define HHRS_CAPACITY(NPL) (backward ? bwd_capacity<T, NPL>(smem, n) : fwd_capacity<T, NPL>(smem, n))
+#define HHRS_CAPACITY(NPL)                                                                 \
+  (!backward                ? fwd_capacity<T, NPL>(smem, n)                                 \
+   : cluster == kCluster ? bwd_capacity<T, NPL, kCluster>(smem, n)                       \
+                            : bwd_capacity<T, NPL, kSmallCluster>(smem, n))
   HHRS_CROSS_DISPATCH(HHRS_CAPACITY)
 #undef HHRS_CAPACITY
 }
@@ -692,13 +1007,13 @@ int fwd_typed(const void* x0, const void* w, const void* b, void* y, int K, long
 template <class T>
 int bwd_typed(const void* x0, const void* w, const void* b, const void* dy, void* dx0, void* dw,
               void* db, void* partial, void* counters, int K, long long x_stride, int B, int d,
-              int L, int canonical, int rows, int grid, int stages, cudaStream_t s) {
+              int L, int canonical, int rows, int grid, int stages, int cluster, cudaStream_t s) {
 #define HHRS_BWD(NPL)                                                                          \
   launch_bwd<T, NPL>(static_cast<const T*>(x0), static_cast<const T*>(w),                      \
                      static_cast<const T*>(b), static_cast<const T*>(dy), static_cast<T*>(dx0), \
                      static_cast<T*>(dw), static_cast<T*>(db), static_cast<float*>(partial),    \
                      static_cast<unsigned int*>(counters), K, x_stride, B, d, L, canonical,     \
-                     rows, grid, stages, s)
+                     rows, grid, stages, cluster, s)
   HHRS_CROSS_DISPATCH(HHRS_BWD)
 #undef HHRS_BWD
 }
@@ -732,14 +1047,15 @@ int hhrs_cross_prepare() {
 
 // Blocks of the forward or the backward for rows of width d (1 <= d <= 256)
 // and the element type (is_bf16 != 0: bfloat16, else float32) that the current
-// device runs at once (the backward in whole clusters), at the shared memory
-// of the largest plan (96 rows in flight, 6 layers), so that every plan's
-// grid fits; a negative CUDA error code on failure. Call after
-// hhrs_cross_prepare.
-int hhrs_cross_capacity(int d, int backward, int is_bf16) {
+// device runs at once (the backward in whole clusters of `cluster` blocks, 8
+// or 2), at the shared memory of the largest plan (96 rows in flight, 6
+// layers), so that every plan's grid fits; a negative CUDA error code on
+// failure. Call after hhrs_cross_prepare.
+int hhrs_cross_capacity(int d, int backward, int is_bf16, int cluster) {
+  if (backward && !valid_cluster(cluster)) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
-  const int err = is_bf16 ? capacity_typed<bf16>(d, backward != 0, &n)
-                          : capacity_typed<float>(d, backward != 0, &n);
+  const int err = is_bf16 ? capacity_typed<bf16>(d, backward != 0, cluster, &n)
+                          : capacity_typed<float>(d, backward != 0, cluster, &n);
   return err != 0 ? -err : n;
 }
 
@@ -776,33 +1092,35 @@ int hhrs_cross_fwd(const void* x0, const void* w, const void* b, void* y, int B,
 }
 
 // dy, dx0 [B, d] (16-byte aligned); dw, db [L, d], all of the element type;
-// partial [grid / 8, 2, L, d] float32 and one unsigned int counter, 0 before
-// the first launch (each launch leaves it at 0). The grid is a multiple of 8
-// (the cluster size). One launch. With the trial axis: dy, dx0 laid out as x0,
-// dw, db [K, L, d], partial [K, grid / 8, 2, L, d] and K counters; trial k's
-// dx0, dw and db are the single-trial launch's on its inputs.
+// partial [grid / cluster, 2, L, d] float32 and one unsigned int counter, 0
+// before the first launch (each launch leaves it at 0). The grid is a
+// multiple of the cluster size (8 or 2 blocks that sum on chip). One launch.
+// With the trial axis: dy, dx0 laid out as x0, dw, db [K, L, d], partial [K,
+// grid / cluster, 2, L, d] and K counters; trial k's dx0, dw and db are the
+// single-trial launch's on its inputs under the same plan.
 int hhrs_cross_bwd_trials(const void* x0, const void* w, const void* b, const void* dy,
                           void* dx0, void* dw, void* db, void* partial, void* counters, int K,
                           long long x_stride, int B, int d, int L, int canonical, int rows,
-                          int grid, int stages, int is_bf16, void* stream) {
+                          int grid, int stages, int cluster, int is_bf16, void* stream) {
   const int align = is_bf16 ? kRowAlign<bf16> : kRowAlign<float>;
   const size_t elem = is_bf16 ? sizeof(bf16) : sizeof(float);
   if (B <= 0 || L <= 0 || L > kMaxLayers || !valid_plan(rows, grid, stages, align) ||
-      grid % kCluster != 0 || K < 1 || K > 65535 ||
+      !valid_cluster(cluster) || grid % cluster != 0 || K < 1 || K > 65535 ||
       (K > 1 && (x_stride < (long long)B * d || x_stride * elem % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? bwd_typed<bf16>(x0, w, b, dy, dx0, dw, db, partial, counters, K, x_stride, B,
-                                   d, L, canonical, rows, grid, stages, s)
+                                   d, L, canonical, rows, grid, stages, cluster, s)
                  : bwd_typed<float>(x0, w, b, dy, dx0, dw, db, partial, counters, K, x_stride, B,
-                                    d, L, canonical, rows, grid, stages, s);
+                                    d, L, canonical, rows, grid, stages, cluster, s);
 }
 
 int hhrs_cross_bwd(const void* x0, const void* w, const void* b, const void* dy, void* dx0,
                    void* dw, void* db, void* partial, void* counters, int B, int d, int L,
-                   int canonical, int rows, int grid, int stages, int is_bf16, void* stream) {
+                   int canonical, int rows, int grid, int stages, int cluster, int is_bf16,
+                   void* stream) {
   return hhrs_cross_bwd_trials(x0, w, b, dy, dx0, dw, db, partial, counters, 1, 0, B, d, L,
-                               canonical, rows, grid, stages, is_bf16, stream);
+                               canonical, rows, grid, stages, cluster, is_bf16, stream);
 }
 
 }  // extern "C"

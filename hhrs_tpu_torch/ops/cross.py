@@ -27,8 +27,10 @@ stacked ``[L, d]``. Two variants:
   :func:`cross_stack_apply_trials` and :func:`cross_stack_backward_ref_trials`
   are the plain versions (K single-trial calls); :func:`cross_stack_forward_trials`
   and :func:`cross_stack_backward_trials` launch the kernels once for all K
-  trials, each trial under the single-trial plan of B rows, so lane k's
-  outputs are bit for bit the single-trial kernels' on lane k's inputs;
+  trials: the forward each trial under the single-trial plan of B rows, the
+  backward under :func:`trial_plan` (the K grids in one wave), so lane k's y
+  and dx0 are bit for bit the single-trial kernels' on lane k's inputs, and
+  its dw and db those of :func:`cross_stack_backward` under the trial plan;
   :class:`CrossStackTrialsFn` and :func:`cross_stack_trials` are the
   autograd function and the model's call.
 
@@ -189,15 +191,15 @@ def _kernels() -> _Kernels:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hhrs_cross_fwd.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.hhrs_cross_fwd.restype = i
-    lib.hhrs_cross_bwd.argtypes = [p] * 9 + [i] * 8 + [p]
+    lib.hhrs_cross_bwd.argtypes = [p] * 9 + [i] * 9 + [p]
     lib.hhrs_cross_bwd.restype = i
     q = ctypes.c_longlong
     lib.hhrs_cross_fwd_trials.argtypes = [p] * 4 + [i, q] + [i] * 8 + [p]
     lib.hhrs_cross_fwd_trials.restype = i
-    lib.hhrs_cross_bwd_trials.argtypes = [p] * 9 + [i, q] + [i] * 8 + [p]
+    lib.hhrs_cross_bwd_trials.argtypes = [p] * 9 + [i, q] + [i] * 9 + [p]
     lib.hhrs_cross_bwd_trials.restype = i
     lib.hhrs_cross_prepare.restype = i
-    lib.hhrs_cross_capacity.argtypes = [i, i, i]
+    lib.hhrs_cross_capacity.argtypes = [i, i, i, i]
     lib.hhrs_cross_capacity.restype = i
     lib.hhrs_cross_max_dim.restype = i
     lib.hhrs_cross_max_layers.restype = i
@@ -214,7 +216,8 @@ def _kernels() -> _Kernels:
 # shared memory: for the forward at most 4 an SM; for the backward, with
 # its per-warp gradient sums in registers, at most 2 (up to d = 128; the
 # kernel's launch bounds), in clusters of 8 blocks, which the card places
-# within groups of SMs.
+# within groups of SMs (a trial plan may take clusters of 2: CLUSTER_SIZES,
+# each a kernel instance).
 WARPS = 8
 MAX_ROWS = 48
 MAX_STAGES = 3
@@ -222,6 +225,7 @@ MAX_RING = 96
 FWD_BLOCKS_PER_SM = 4
 BWD_BLOCKS_PER_SM = 2
 CLUSTER = 8
+CLUSTER_SIZES = (8, 2)  # the backward's instances' clusters, CLUSTER first
 ROW_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 
 
@@ -229,15 +233,16 @@ class CrossPlan(NamedTuple):
     rows: int  # rows per tile, a multiple of the dtype's ROW_ALIGN
     grid: int  # blocks; block k walks tiles k, k + grid, …
     stages: int  # a block's tiles in flight (its ring of tile buffers)
+    cluster: int = CLUSTER  # backward: blocks a cluster, summed on chip (the forward has none)
 
 
-def plan_capacity(sm_count: int, backward: bool) -> int:
+def plan_capacity(sm_count: int, backward: bool, cluster: int = CLUSTER) -> int:
     """The most blocks of a kernel that a plan takes on a card with
     ``sm_count`` SMs: ``FWD_BLOCKS_PER_SM`` an SM for the forward; for the
-    backward whole clusters, at most ``BWD_BLOCKS_PER_SM`` an SM (the size
-    of its scratch)."""
+    backward whole clusters of ``cluster`` blocks, at most
+    ``BWD_BLOCKS_PER_SM`` an SM."""
     if backward:
-        return max(CLUSTER, BWD_BLOCKS_PER_SM * sm_count // CLUSTER * CLUSTER)
+        return max(cluster, BWD_BLOCKS_PER_SM * sm_count // cluster * cluster)
     return FWD_BLOCKS_PER_SM * sm_count
 
 
@@ -259,10 +264,45 @@ def cross_plan(B: int, blocks: int, cluster: int = 1, align: int = 4) -> CrossPl
     return CrossPlan(rows, grid, min(MAX_STAGES, MAX_RING // rows, -(-tiles // grid)))
 
 
-def capacity(x0: torch.Tensor, backward: bool) -> int:
+# A trial plan leaves clusters of 8 for clusters of 2 only where clusters of
+# 8 would leave more than this share of the card's blocks idle: a smaller
+# cluster sums more partial rows, which costs where a block has few rows
+# (PERF.md section 6, kernel_ab.py on an H100: at K = 8, B = 512, d = 113,
+# clusters of 8 leave 20 % of the blocks idle and beat clusters of 2; at B =
+# 4096, d = 145, L = 6 they leave 47 % idle and take 1.6x as long).
+TRIAL_IDLE_SHARE = 1 / 3
+
+
+@functools.cache
+def trial_plan(B: int, K: int, capacities: tuple, align: int = 4) -> CrossPlan:
+    """The plan of the trial-axis backward for ``K`` trials of ``B >= 1``
+    rows on a card that runs, for each cluster size c of ``capacities``
+    (``((c, blocks), ...)``, ``CLUSTER`` first), ``blocks`` blocks of it at
+    once in clusters of c: the single-trial :func:`cross_plan` of B rows over
+    ``blocks // K`` blocks rounded down to whole clusters. The K grids then
+    fit the card together, in one wave, and each block carries more rows
+    (the kernel's warps walk two of them at once), where the single-trial
+    plan of B rows took the whole card for each trial and the K grids ran in
+    waves. Clusters of ``CLUSTER`` unless their rounding leaves more than
+    ``TRIAL_IDLE_SHARE`` of the card idle (at d = 145 the card holds 15
+    clusters of 8, so 8 trials would get 8 blocks each); then the size that
+    leaves the most blocks a trial, the largest among equals. Where no size
+    fits K trials at once, a cluster of ``CLUSTER`` a trial, in waves."""
+    blocks = dict(capacities)
+    per_trial = {c: n // K // c * c for c, n in capacities}
+    if per_trial[CLUSTER] >= CLUSTER and K * per_trial[CLUSTER] >= (1 - TRIAL_IDLE_SHARE) * blocks[CLUSTER]:
+        cluster = CLUSTER
+    else:
+        fits = [(n, c) for c, n in per_trial.items() if n >= c]
+        cluster = max(fits)[1] if fits else CLUSTER
+    return cross_plan(B, max(per_trial[cluster], cluster), cluster, align)._replace(cluster=cluster)
+
+
+def capacity(x0: torch.Tensor, backward: bool, cluster: int = CLUSTER) -> int:
     """Blocks of the forward or backward kernel that the device of a CUDA
-    ``x0`` runs at once at x0's width and dtype, as its plans take them."""
-    return _capacity(x0.get_device(), x0.shape[1], backward, x0.dtype)
+    ``x0`` runs at once at x0's width and dtype, as its plans take them (the
+    backward in clusters of ``cluster`` blocks)."""
+    return _capacity(x0.get_device(), x0.shape[1], backward, x0.dtype, cluster)
 
 
 def plan_of(x0: torch.Tensor, backward: bool) -> CrossPlan:
@@ -274,6 +314,19 @@ def plan_of(x0: torch.Tensor, backward: bool) -> CrossPlan:
 def _plan(B: int, device_index: int, d: int, backward: bool, dtype: torch.dtype) -> CrossPlan:
     return cross_plan(B, _capacity(device_index, d, backward, dtype), CLUSTER if backward else 1,
                       ROW_ALIGN[dtype])
+
+
+def trial_plan_of(x0: torch.Tensor) -> CrossPlan:
+    """The plan the trial-axis backward takes for a CUDA ``x0 [K, B, d]``:
+    :func:`trial_plan` on the card's capacity."""
+    K, B, d = x0.shape
+    return _trial_plan(max(B, 1), K, x0.get_device(), d, x0.dtype)
+
+
+@functools.cache
+def _trial_plan(B: int, K: int, device_index: int, d: int, dtype: torch.dtype) -> CrossPlan:
+    capacities = tuple((c, _capacity(device_index, d, True, dtype, c)) for c in CLUSTER_SIZES)
+    return trial_plan(B, K, capacities, ROW_ALIGN[dtype])
 
 
 @functools.cache
@@ -288,17 +341,18 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.cache
-def _capacity(device_index: int, d: int, backward: bool, dtype: torch.dtype) -> int:
+def _capacity(device_index: int, d: int, backward: bool, dtype: torch.dtype, cluster: int = CLUSTER) -> int:
     """Blocks of the forward or backward for rows of width ``d`` and
-    ``dtype`` that the device runs at once (the backward in whole clusters),
-    asked of the card once, up to :func:`plan_capacity`."""
-    most = plan_capacity(_sm_count(device_index), backward)
+    ``dtype`` that the device runs at once (the backward in whole clusters
+    of ``cluster`` blocks), asked of the card once, up to
+    :func:`plan_capacity`."""
+    most = plan_capacity(_sm_count(device_index), backward, cluster)
     lib = _kernels().lib
     with torch.cuda.device(device_index):
-        n = lib.hhrs_cross_capacity(d, backward, dtype == torch.bfloat16)
+        n = lib.hhrs_cross_capacity(d, backward, dtype == torch.bfloat16, cluster)
     if n < 0:
         _raise_on(lib, -n, "asking for the cross kernels' occupancy")
-    if n < (CLUSTER if backward else 1):
+    if n < (cluster if backward else 1):
         raise RuntimeError(f"the card runs {n} blocks of the cross {'backward' if backward else 'forward'} "
                            "at once")
     return min(n, most)
@@ -312,46 +366,42 @@ class BackwardScratch(NamedTuple):
     counter: torch.Tensor
 
 
-def _new_scratch(device_index: int, trials: int = 1) -> BackwardScratch:
-    """A backward scratch on a CUDA device for ``trials`` trials, at the
-    largest plan's size with the counters at 0."""
-    k, clusters = _kernels(), plan_capacity(_sm_count(device_index), True) // CLUSTER
+def _new_scratch(device_index: int, trials: int, floats: int) -> BackwardScratch:
+    """A backward scratch on a CUDA device: ``floats`` floats of the
+    clusters' partial sums and ``trials`` ticket counters at 0."""
     dev = torch.device("cuda", device_index)
-    return BackwardScratch(
-        torch.empty(trials * clusters * 2 * k.max_layers * k.max_dim, dtype=torch.float32, device=dev),
-        torch.zeros(trials, dtype=torch.int32, device=dev))
+    return BackwardScratch(torch.empty(floats, dtype=torch.float32, device=dev),
+                           torch.zeros(trials, dtype=torch.int32, device=dev))
 
 
 _scratch: dict = {}  # (device, stream) -> the eager launches' scratch
-_trial_scratch: dict = {}  # (device, stream) -> the eager trial-axis launches' scratch
 
 
-def _backward_scratch_trials(device_index: int, stream: int, trials: int) -> BackwardScratch:
-    """As :func:`_backward_scratch`, for a trial-axis backward of ``trials``
-    trials: one slice of partial sums and one counter per trial. The eager
-    scratch of a stream grows to the most trials launched there."""
+def _backward_scratch(device_index: int, stream: int, trials: int, floats: int) -> BackwardScratch:
+    """The scratch of a backward launched on ``stream`` for ``trials``
+    trials whose clusters' partial sums take ``floats`` floats (one slice
+    and one counter a trial). Eager launches on one stream run in order, so
+    they share one, allocated at the stream's first backward and grown to
+    the most a launch there has needed. Inside a CUDA-graph capture every
+    backward allocates a scratch of its own there, from the graph's private
+    memory pool: the graph owns it as long as it lives, and its counters are
+    zeroed by a memset the graph replays (the kernel leaves them at 0 in any
+    case). Two graphs, even of one capture stream, never share one."""
     if torch.cuda.is_current_stream_capturing():
-        return _new_scratch(device_index, trials)
+        return _new_scratch(device_index, trials, floats)
     key = (device_index, stream)
-    if key not in _trial_scratch or _trial_scratch[key].counter.numel() < trials:
-        _trial_scratch[key] = _new_scratch(device_index, trials)
-    return _trial_scratch[key]
+    have = _scratch.get(key)
+    if have is None or have.counter.numel() < trials or have.partial.numel() < floats:
+        if have is not None:
+            trials, floats = max(trials, have.counter.numel()), max(floats, have.partial.numel())
+        _scratch[key] = have = _new_scratch(device_index, trials, floats)
+    return have
 
 
-def _backward_scratch(device_index: int, stream: int) -> BackwardScratch:
-    """The scratch of a backward launched on ``stream``. Eager launches on
-    one stream run in order, so they share one, allocated at the stream's
-    first backward. Inside a CUDA-graph capture every backward allocates a
-    scratch of its own there, from the graph's private memory pool: the
-    graph owns it as long as it lives, and its counter is zeroed by a
-    memset the graph replays (the kernel leaves it at 0 in any case). Two
-    graphs, even of one capture stream, never share one."""
-    if torch.cuda.is_current_stream_capturing():
-        return _new_scratch(device_index)
-    key = (device_index, stream)
-    if key not in _scratch:
-        _scratch[key] = _new_scratch(device_index)
-    return _scratch[key]
+def _scratch_floats(plan: CrossPlan, trials: int, L: int, d: int) -> int:
+    """Floats of the clusters' partial sums of a backward launch: ``2·L·d``
+    for each cluster of each trial."""
+    return trials * (plan.grid // plan.cluster) * 2 * L * d
 
 
 def _check_inputs(tensors: dict, variant: str) -> tuple:
@@ -386,11 +436,11 @@ def _check_inputs(tensors: dict, variant: str) -> tuple:
 
 
 def _check_plan(plan: CrossPlan, device_index: int, backward: bool, dtype: torch.dtype) -> None:
-    align = ROW_ALIGN[dtype]
+    align, cluster = ROW_ALIGN[dtype], plan.cluster if backward else 1
     if not (plan.rows % align == 0 and align <= plan.rows <= MAX_ROWS and 1 <= plan.stages <= MAX_STAGES
-            and plan.stages * plan.rows <= MAX_RING
-            and 1 <= plan.grid <= plan_capacity(_sm_count(device_index), backward)
-            and not (backward and plan.grid % CLUSTER)):
+            and plan.stages * plan.rows <= MAX_RING and (cluster in CLUSTER_SIZES or not backward)
+            and 1 <= plan.grid <= plan_capacity(_sm_count(device_index), backward, cluster)
+            and plan.grid % cluster == 0):
         raise ValueError(f"not a cross-stack plan on this device: {plan}")
 
 
@@ -470,11 +520,12 @@ def _backward(w, b, x0, dy, canonical: bool, plan: CrossPlan | None) -> tuple:
         return (dy.clone() if L == 0 else dx0), dw.zero_(), db.zero_()
     p = plan or _plan(B, index, d, True, x0.dtype)
     stream = _current_stream(index)
-    partial, counter = _backward_scratch(index, stream)
+    partial, counter = _backward_scratch(index, stream, 1, _scratch_floats(p, 1, L, d))
     lib = _kernels().lib
     err = lib.hhrs_cross_bwd(x0.data_ptr(), w.data_ptr(), b.data_ptr(), dy.data_ptr(), dx0.data_ptr(),
                              dw.data_ptr(), db.data_ptr(), partial.data_ptr(), counter.data_ptr(),
-                             B, d, L, canonical, p.rows, p.grid, p.stages, x0.dtype == torch.bfloat16, stream)
+                             B, d, L, canonical, p.rows, p.grid, p.stages, p.cluster, x0.dtype == torch.bfloat16,
+                             stream)
     _raise_on(lib, err, "cross_stack backward kernel launch")
     if x0.dtype == torch.bfloat16:
         cross_stack_backward.launches_bf16 += 1
@@ -707,10 +758,12 @@ def _forward_trials(w, b, x0, canonical: bool, plan: CrossPlan | None) -> torch.
 def cross_stack_backward_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, dy: torch.Tensor,
                                 variant: str, plan: CrossPlan | None = None) -> tuple:
     """One launch of the backward kernel for K trials on CUDA tensors →
-    ``(dx0 [K, B, d], dw [K, L, d], db [K, L, d])``, each trial under the
-    single-trial plan, its dw and db summed over its own rows in that plan's
-    order: lane k is :func:`cross_stack_backward` on lane k's inputs bit for
-    bit. ``.launches`` / ``.launches_bf16`` count the launches."""
+    ``(dx0 [K, B, d], dw [K, L, d], db [K, L, d])``, each trial under
+    :func:`trial_plan_of`'s plan unless one is given, its dw and db summed
+    over its own rows in that plan's order: lane k is
+    :func:`cross_stack_backward` on lane k's inputs under the same plan bit
+    for bit (dx0 under any plan). ``.launches`` / ``.launches_bf16`` count
+    the launches."""
     _check_trial_inputs({"x0": x0, "w": w, "b": b, "dy": dy}, variant)
     if plan is not None:
         _check_plan(plan, x0.get_device(), True, x0.dtype)
@@ -729,13 +782,13 @@ def _backward_trials(w, b, x0, dy, canonical: bool, plan: CrossPlan | None) -> t
     stride = _lane_stride(x0)
     xa, dya = _laid_out(x0, stride), _laid_out(dy, stride)
     dx0 = torch.empty_like(xa)
-    p = plan or _plan(B, index, d, True, x0.dtype)
+    p = plan or _trial_plan(B, K, index, d, x0.dtype)
     stream = _current_stream(index)
-    partial, counter = _backward_scratch_trials(index, stream, K)
+    partial, counter = _backward_scratch(index, stream, K, _scratch_floats(p, K, L, d))
     lib = _kernels().lib
     err = lib.hhrs_cross_bwd_trials(xa.data_ptr(), w.data_ptr(), b.data_ptr(), dya.data_ptr(), dx0.data_ptr(),
                                     dw.data_ptr(), db.data_ptr(), partial.data_ptr(), counter.data_ptr(), K,
-                                    stride, B, d, L, canonical, p.rows, p.grid, p.stages,
+                                    stride, B, d, L, canonical, p.rows, p.grid, p.stages, p.cluster,
                                     x0.dtype == torch.bfloat16, stream)
     _raise_on(lib, err, "cross_stack trial-axis backward kernel launch")
     if x0.dtype == torch.bfloat16:

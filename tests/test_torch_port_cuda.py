@@ -871,10 +871,11 @@ def _trial_inputs(K: int, B: int, d: int, L: int, seed: int = 0):
 @pytest.mark.parametrize("variant", ["code", "canonical"])
 @pytest.mark.parametrize("K,B,d,L", [(8, 512, 113, 3), (3, 4487, 113, 3), (8, 4096, 209, 6), (2, 5, 33, 1)])
 def test_cuda_trial_axis_lanes_are_the_single_trial_kernels(dtype, variant, K, B, d, L):
-    """One trial-axis launch each way for K lanes: every lane's y, dx0, dw
-    and db bit for bit the single-trial kernels' on that lane's inputs (the
-    same plan and sum order), a lane stride that is not a multiple of 16
-    bytes (B = 4487, 5) included; the launch counters count one launch each."""
+    """One trial-axis launch each way for K lanes: every lane's y and dx0 bit
+    for bit the single-trial kernels' on that lane's inputs, its dw and db
+    bit for bit the single-trial backward's under the trial plan (the same
+    plan and sum order), a lane stride that is not a multiple of 16 bytes (B
+    = 4487, 5) included; the launch counters count one launch each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     w, b, x0, dy = _trial_inputs(K, B, d, L, seed=11)
@@ -887,11 +888,106 @@ def test_cuda_trial_axis_lanes_are_the_single_trial_kernels(dtype, variant, K, B
     torch.cuda.synchronize()
     assert (getattr(cross.cross_stack_forward_trials, count),
             getattr(cross.cross_stack_backward_trials, count)) == (before[0] + 1, before[1] + 1)
+    trial = cross.trial_plan_of(x0)
     for k in range(K):
         lane = [t[k].clone() for t in (w, b, x0, dy)]  # a lane of its own (the wrappers take 16-byte-aligned rows)
         assert torch.equal(y[k], cross.cross_stack_forward(*lane[:3], variant)), k
-        single = cross.cross_stack_backward(*lane, variant)
-        assert all(torch.equal(g[k], s) for g, s in zip(grads, single)), k
+        assert torch.equal(grads[0][k], cross.cross_stack_backward(*lane, variant)[0]), k
+        under = cross.cross_stack_backward(*lane, variant, plan=trial)
+        assert all(torch.equal(g[k], u) for g, u in zip(grads, under)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,B,d,L,bound", [(8, 512, 113, 3, 1.0), (8, 4096, 145, 6, 0.25), (64, 512, 113, 3, 1.0)])
+def test_cuda_trial_plan_fits_the_card_and_sums_to_the_bar(dtype, K, B, d, L, bound):
+    """The trial-axis backward's plan puts the K grids on the card at once
+    (whole clusters of the size it chose, K x grid within the capacity at
+    that size while some size fits them, a cluster of 8 a trial past it);
+    each lane's dx0 is the single-trial kernel's
+    under plan_of bit for bit, and its dw, db, summed in the trial plan's
+    order, within the term-scale bar of the single-trial kernel's under
+    plan_of and of the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(13)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda").contiguous()  # noqa: E731
+    x0, dy = f32(rng.standard_normal((K, B, d))), f32(rng.standard_normal((K, B, d)))
+    w, b = f32(rng.uniform(-bound, bound, (K, L, d)) / np.sqrt(d)), f32(0.1 * rng.standard_normal((K, L, d)))
+    tol = CROSS_TOL
+    if dtype == "bfloat16":
+        w, b, x0, dy = _bf16(w, b, x0, dy)
+        tol = CROSS_BF16_TOL
+    plan = cross.trial_plan_of(x0)
+    caps = {c: cross.capacity(x0[0], True, c) for c in cross.CLUSTER_SIZES}
+    assert plan.cluster in caps and plan.grid % plan.cluster == 0 and plan.grid >= plan.cluster
+    assert plan == cross.trial_plan(B, K, tuple(caps.items()), cross.ROW_ALIGN[x0.dtype])
+    if any(caps[c] // K >= c for c in caps):  # some cluster size puts the K grids on the card at once
+        assert K * plan.grid <= caps[plan.cluster]
+    else:
+        assert (plan.cluster, plan.grid) == (cross.CLUSTER, cross.CLUSTER)
+    dx0, dw, db = cross.cross_stack_backward_trials(w, b, x0, dy, "code")
+    for k in (0, K - 1):
+        single = cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code")
+        assert torch.equal(dx0[k], single[0])
+        ref = cross.cross_stack_backward_ref(w[k], b[k], x0[k], dy[k], "code")
+        scale = cross.cross_stack_term_scale(w[k], b[k], x0[k], dy[k], "code")
+        for name, got, want, plain, sc in zip(("dw", "db"), (dw[k], db[k]), single[1:], ref[1:], scale[2:]):
+            cross.assert_close_to_scale(got, want, sc, **tol, what=f"{name} lane {k} against plan_of's")
+            cross.assert_close_to_scale(got, plain, sc, **tol, what=f"{name} lane {k} against the plain version")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B,d,L,bound", [(512, 113, 3, 1.0), (4487, 113, 3, 1.0), (8192, 113, 1, 1.0),
+                                         (32768, 113, 3, 1.0), (4096, 145, 6, 0.25), (1003, 256, 6, 0.25)])
+def test_cuda_bf16_backward_repeats_and_meets_the_plain_version(variant, B, d, L, bound):
+    """The bf16 backward on bf16x2 pairs, a warp's rows two at a time where
+    it has them: a repeated launch bit for bit, dx0, dw and db within
+    CROSS_BF16_TOL of the plain bf16 version against the term scale, and one
+    bf16 launch counted each time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(17)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda").contiguous()  # noqa: E731
+    w, b = f32(rng.uniform(-bound, bound, (L, d)) / np.sqrt(d)), f32(0.1 * rng.standard_normal((L, d)))
+    w, b, x0, dy = _bf16(w, b, f32(rng.standard_normal((B, d))), f32(rng.standard_normal((B, d))))
+    before = cross.cross_stack_backward.launches_bf16
+    grads = cross.cross_stack_backward(w, b, x0, dy, variant)
+    again = cross.cross_stack_backward(w, b, x0, dy, variant)
+    torch.cuda.synchronize()
+    assert cross.cross_stack_backward.launches_bf16 == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+    ref = cross.cross_stack_backward_ref(w, b, x0, dy, variant)
+    scale = cross.cross_stack_term_scale(w, b, x0, dy, variant)[1:]
+    for name, got, want, sc in zip(("dx0", "dw", "db"), grads, ref, scale):
+        cross.assert_close_to_scale(got, want, sc, **CROSS_BF16_TOL, what=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paired_row_backwards_replay_from_a_graph(dtype):
+    """The single-trial backward at B = 4487 (two rows a warp at once, then
+    the last alone) and the trial-axis backward at K = 8, B = 512 under its
+    trial plan, captured in one CUDA graph, replay their eager outputs bit
+    for bit three times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    single = _cross_inputs(4487, 113, 3, seed=21)
+    trials = _trial_inputs(8, 512, 113, 3, seed=23)
+    if dtype == "bfloat16":
+        single, trials = _bf16(*single), _bf16(*trials)
+    want = (*cross.cross_stack_backward(*single, "code"), *cross.cross_stack_backward_trials(*trials, "code"))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        outs = (*cross.cross_stack_backward(*single, "code"), *cross.cross_stack_backward_trials(*trials, "code"))
+    for _ in range(3):
+        for t in outs:
+            t.fill_(float("nan"))
+        torch.cuda.empty_cache()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, want))
 
 
 @pytest.mark.cuda

@@ -278,6 +278,72 @@ def test_group_matches_jax_run_group_at_dropout_0(data_dir, optimizer):
         assert a.final_metrics["val_logloss"] == pytest.approx(b.final_metrics["val_logloss"], **TRAJECTORY[-1])
 
 
+# C4: the K-lane group at model.compute_dtype=bfloat16 (storage bf16 too).
+# Bars: the bf16 trainer's bar, BF16_VAL_RTOL (1e-2 on the val loss; one
+# bf16 ulp is 2^-7 relative), on every epoch; LR decisions and the best epoch
+# equal. Measured on the CPU: the lanes equal their sequential bf16 trials
+# (val loss gap 0, train loss ≤ 1.4e-7 relative); against JAX's bf16 group at
+# dropout 0 up to 9.4e-3, where JAX's own bf16 group differs from its f32
+# group by up to 1.2e-2 (XLA's CPU bf16 sums accumulate in bf16).
+BF16 = dict(compute_dtype="bfloat16", storage_dtype="bfloat16")
+BF16_BAR = dict(rel=1e-2)  # tests/test_torch_port_train.py BF16_VAL_RTOL
+
+
+def test_bf16_lanes_reproduce_the_sequential_bf16_trainer(port_data, record_property):
+    """C4: each lane of a 3-trial bf16 group (dropout on, a plateau decay)
+    against the port's sequential bf16 train_dcn of its trial, at the bf16
+    trainer's bar; the lanes' cross stack runs the trial axis on bf16 tensors."""
+    splits, dims = port_data
+    trials = [_trial(3e-3, 1e-5, 0.2), _trial(1e-3, 1e-4, 0.5, patience=2, factor=0.1),
+              _trial(5e-2, 1e-6, 0.1, patience=0)]
+    mkw, tkw = _cfgs(trials[0])
+    group = run_group(splits, dims, ModelConfig(**mkw, **BF16), TrainConfig(**tkw), trials, device="cpu")
+    worst = 0.0
+    for t, lane in zip(trials, group):
+        mkw, tkw = _cfgs(t)
+        seq = train_dcn(splits, dims, ModelConfig(**mkw, **BF16), TrainConfig(**tkw), device="cpu")
+        assert len(lane.history) == len(seq.history) == 3
+        for a, b in zip(lane.history, seq.history):
+            assert a["val_loss"] == pytest.approx(b["val_loss"], **BF16_BAR)
+            assert a["train_loss"] == pytest.approx(b["train_loss"], **BF16_BAR)
+            assert a["lr"] == b["lr"]
+            worst = max(worst, abs(a["val_loss"] / b["val_loss"] - 1), abs(a["train_loss"] / b["train_loss"] - 1))
+        assert lane.best_epoch == seq.best_epoch
+        assert lane.final_metrics["val_logloss"] == pytest.approx(seq.final_metrics["val_logloss"], **BF16_BAR)
+        assert lane.final_metrics["val_auc"] == pytest.approx(seq.final_metrics["val_auc"], abs=AUC_BAR)
+        assert all(v.dtype == np.float32 for v in jax.tree.leaves(lane.params))
+    assert len({h["lr"] for h in group[2].history}) > 1  # a plateau decision was taken
+    record_property("max_rel_gap", worst)
+
+
+def test_bf16_group_matches_jax_bf16_run_group_at_dropout_0(data_dir, record_property):
+    """C4: the port's bf16 run_group against JAX's bf16 run_group from the
+    same initialization, splits and batches, dropout 0: each lane's val loss
+    at the bf16 trainer's bar in every epoch, the same LR decisions and best
+    epoch."""
+    csv = os.path.join(data_dir, REVIEWS)
+    jsplits, art = jax_splits(csv)
+    jdims = JaxModelDims.from_artifacts(art)
+    splits, _ = port_splits(csv)
+    trials = [_trial(3e-3, 1e-5, 0.0), _trial(1e-2, 1e-4, 0.0, patience=0)]
+    mkw, tkw = _cfgs(trials[0], n_epochs=3, seed=3)
+    init_rng, _ = jax.random.split(jax.random.PRNGKey(3))
+    params, bn_state = jax.tree.map(np.asarray, init_dcn(init_rng, jdims, JaxModelConfig(**mkw)))
+    want = jax_run_group(jsplits, jdims, JaxModelConfig(**mkw, **BF16), JaxTrainConfig(**tkw), trials)
+    got = run_group(splits, port_dims(jdims), ModelConfig(**mkw, **BF16), TrainConfig(**tkw), trials,
+                    init_state=(params, bn_state), device="cpu")
+    worst = 0.0
+    for a, b in zip(got, want):
+        assert len(a.history) == len(b.history)
+        for ha, hb in zip(a.history, b.history):
+            assert ha["val_loss"] == pytest.approx(hb["val_loss"], **BF16_BAR)
+            assert ha["lr"] == pytest.approx(hb["lr"])
+            worst = max(worst, abs(ha["val_loss"] / hb["val_loss"] - 1))
+        assert a.best_epoch == b.best_epoch
+        assert a.final_metrics["val_logloss"] == pytest.approx(b.final_metrics["val_logloss"], **BF16_BAR)
+    record_property("max_rel_gap", worst)
+
+
 def test_lane_pruning_and_early_stop_stay_isolated(port_data):
     """A pruned lane stops reporting while its siblings run to the cap; a
     lane that stops improving early-stops alone."""
