@@ -2036,65 +2036,127 @@ def _trial_counts(cross) -> dict:
     return {"fwd": f.launches, "bwd": b.launches, "fwd_bf16": f.launches_bf16, "bwd_bf16": b.launches_bf16}
 
 
+def bf16_flip_reach(cross, w, b, x0, dy) -> tuple:
+    """How far one bf16 row scalar of the ``code`` stack, rounded to its
+    other bf16 neighbour, moves a row of y and of dx0 (``[B, d]`` each, from
+    the plain version in float64). Two bf16 programs that round at the same
+    points but add a row's f32 sum in other orders round that sum to
+    neighbouring bf16 values where it lies near a midpoint: one ulp, at most
+    2⁻⁷ of the scalar. A gate g_l so moves x_{l+1} by 2⁻⁷·|g_l|·|x_l| and
+    dx_l by 2⁻⁷·|g_l|·|dx_{l+1}|; a backward row sum s_l moves dx_l by
+    2⁻⁷·|s_l|·|w_l|. Bounded here by the row's largest |g| and |s| over the
+    layers times its term scale (the largest |x_l|, |dx_l|) and |w|. The
+    moved value then rounds again: ``_trial_lanes_check`` adds one ulp of
+    the entry, 2⁻⁷ of it."""
+    w, b, x0, dy = (t.detach().double() for t in (w, b, x0, dy))
+    terms, _, xs, _ = cross._walk_back(w, b, x0, dy, "code")
+    g = torch_stack_max([(xs[l] * w[l]).sum(dim=1).abs() for l in range(w.shape[0])])
+    s = torch_stack_max([t[2][:, 0].abs() for t in terms])
+    sy, sdx = cross.cross_stack_term_scale(w, b, x0, dy, "code")[:2]
+    return 2.0 ** -7 * g * sy, 2.0 ** -7 * (g * sdx + s * w.abs().amax(dim=0))
+
+
+def torch_stack_max(rows: list):
+    """The elementwise largest of equal-shaped ``[B]`` tensors, as ``[B, 1]``."""
+    import torch
+
+    return torch.stack(rows).amax(dim=0)[:, None]
+
+
+def _trial_lanes_check(cross, w, b, x0, dy, tol: dict, where: str) -> tuple:
+    """One trial-axis launch each way on ``x0 [K, B, d]`` (f32 or bf16), held
+    lane by lane: y and dx0 bit for bit the single-trial kernels' under
+    ``plan_of``; dw and db bit for bit the single-trial backward's under the
+    trial plan, and within ``tol`` of it under ``plan_of`` (another plan adds
+    the batch in another order); y, dx0, dw and db within ``tol`` of the plain
+    versions, bf16 y and dx0 within ``tol`` plus one row scalar's flip
+    (``bf16_flip_reach``) and one ulp of the entry (ROADMAP C8). Returns the largest dw / db gap to
+    ``plan_of``'s, the largest errors against the plain versions and the
+    count of bf16 row entries past ``tol`` alone."""
+    import torch
+
+    bf16 = x0.dtype == torch.bfloat16
+    flipped = 0
+    y = cross.cross_stack_forward_trials(w, b, x0, "code")
+    grads = cross.cross_stack_backward_trials(w, b, x0, dy, "code")
+    torch.cuda.synchronize()
+    trial, sums_gap, errs = cross.trial_plan_of(x0), 0.0, {"fwd": 0.0, "bwd": 0.0}
+    for k in range(x0.shape[0]):
+        single = (cross.cross_stack_forward(w[k], b[k], x0[k], "code"),
+                  *cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code"))
+        for name, got, want in zip(("y", "dx0"), (y[k], grads[0][k]), single[:2]):
+            if not torch.equal(got, want):
+                raise SmokeFailure(f"trial-axis {name} of lane {k} at {where} is not the single-trial kernel's "
+                                   f"bit for bit")
+        under = cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code", plan=trial)
+        for name, got, want in zip(("dw", "db"), (grads[1][k], grads[2][k]), under[1:]):
+            if not torch.equal(got, want):
+                raise SmokeFailure(f"trial-axis {name} of lane {k} at {where} is not the single-trial kernel's "
+                                   f"under the trial plan {tuple(trial)} bit for bit")
+        scale = cross.cross_stack_term_scale(w[k], b[k], x0[k], dy[k], "code")
+        for i, name in ((2, "dw"), (3, "db")):
+            gap, _ = cross.assert_close_to_scale(grads[i - 1][k], single[i], scale[i], **tol,
+                                                 what=f"trial-axis {name} lane {k} {where} against plan_of's")
+            sums_gap = max(sums_gap, gap)
+        ref = (cross.cross_stack_apply(w[k], b[k], x0[k], "code"),
+               *cross.cross_stack_backward_ref(w[k], b[k], x0[k], dy[k], "code"))
+        reach = bf16_flip_reach(cross, w[k], b[k], x0[k], dy[k]) if bf16 else (0.0, 0.0)
+        for i, (name, got) in enumerate(zip(("y", "dx0", "dw", "db"), (y[k], *(g[k] for g in grads)))):
+            if bf16 and i < 2:
+                bar_scale = scale[i] + (reach[i] + 2.0 ** -7 * ref[i].double().abs()) / tol["rtol"]
+            else:
+                bar_scale = scale[i]
+            err, _ = cross.assert_close_to_scale(got, ref[i], bar_scale, **tol,
+                                                 what=f"trial-axis {name} lane {k} {where}")
+            if bf16 and i < 2:
+                flipped += int(((got.double() - ref[i].double()).abs() > tol["rtol"] * scale[i]).sum())
+            kind = "fwd" if name == "y" else "bwd"
+            errs[kind] = max(errs[kind], err)
+    return sums_gap, errs, flipped
+
+
 def trial_axis_phase(cross, dev, card: str) -> dict:
-    """Phase 11a: the trial-axis cross kernels at K = 8 against the
-    single-trial kernels lane by lane (y and dx0 bit for bit under
-    ``plan_of``; dw and db bit for bit under the trial plan, and within the
-    term-scale bar under ``plan_of``) and against their plain versions
-    (term-scale bar); the trial plan and its waves printed; then the
-    trial-axis launch, K single-trial launches and the plain version timed
-    (CUDA-event means, device time from torch.profiler), with the bound of K
-    stacks; then C5, the widest shape at the full init bound, held to the
-    plain f32 version at its measured-spread bar."""
+    """Phase 11a: the trial-axis cross kernels at K = 8, f32 and bf16 (the
+    f32 draws cast), against the single-trial kernels lane by lane and
+    against their plain versions (``_trial_lanes_check``: f32 at the
+    term-scale bar, bf16 at ``CROSS_BF16_TOL``); the trial plan and its waves
+    printed; then the f32 trial-axis launch, K single-trial launches and the
+    plain version timed (CUDA-event means, device time from torch.profiler),
+    with the bound of K stacks; then C5, the widest shape at the full init
+    bound, held to the plain f32 version at its measured-spread bar."""
     import numpy as np
     import torch
 
     gen = np.random.default_rng(SEED + 11)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
-    K, rows, errs, plans = TRIALS_K, {}, {"fwd": 0.0, "bwd": 0.0}, {}
+    K, rows, plans = TRIALS_K, {}, {}
+    errs = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0, "bwd_bf16": 0.0}
     for B, d, L, calls, w_bound in TRIAL_SHAPES:
         x0, dy = f32(gen.standard_normal((K, B, d))), f32(gen.standard_normal((K, B, d)))
         w, b = f32(gen.uniform(-w_bound, w_bound, (K, L, d)) / np.sqrt(d)), f32(0.1 * gen.standard_normal((K, L, d)))
-        y = cross.cross_stack_forward_trials(w, b, x0, "code")
-        grads = cross.cross_stack_backward_trials(w, b, x0, dy, "code")
-        torch.cuda.synchronize()
-        trial, single_plan = cross.trial_plan_of(x0), cross.plan_of(x0[0], True)
-        cap, trial_cap = cross.capacity(x0[0], True), cross.capacity(x0[0], True, trial.cluster)
-        waves = {"trial": -(-K * trial.grid // trial_cap), "single": -(-K * single_plan.grid // cap)}
-        plans[B] = {"trial_plan": list(trial), "single_plan": list(single_plan), "capacity": cap,
-                    "trial_capacity": trial_cap, "waves": waves}
-        sums_gap = 0.0
-        for k in range(K):
-            single = (cross.cross_stack_forward(w[k], b[k], x0[k], "code"),
-                      *cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code"))
-            for name, got, want in zip(("y", "dx0"), (y[k], grads[0][k]), single[:2]):
-                if not torch.equal(got, want):
-                    raise SmokeFailure(f"trial-axis {name} of lane {k} at B={B}, d={d}, L={L} is not the "
-                                       f"single-trial kernel's bit for bit")
-            under = cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code", plan=trial)
-            for name, got, want in zip(("dw", "db"), (grads[1][k], grads[2][k]), under[1:]):
-                if not torch.equal(got, want):
-                    raise SmokeFailure(f"trial-axis {name} of lane {k} at B={B}, d={d}, L={L} is not the "
-                                       f"single-trial kernel's under the trial plan {tuple(trial)} bit for bit")
-            scale = cross.cross_stack_term_scale(w[k], b[k], x0[k], dy[k], "code")
-            for i, name in ((2, "dw"), (3, "db")):  # another plan adds the batch in another order
-                gap, _ = cross.assert_close_to_scale(grads[i - 1][k], single[i], scale[i], **CROSS_TOL,
-                                                     what=f"trial-axis {name} lane {k} B={B} against plan_of's")
-                sums_gap = max(sums_gap, gap)
-            ref = (cross.cross_stack_apply(w[k], b[k], x0[k], "code"),
-                   *cross.cross_stack_backward_ref(w[k], b[k], x0[k], dy[k], "code"))
-            for i, (name, got) in enumerate(zip(("y", "dx0", "dw", "db"), (y[k], *(g[k] for g in grads)))):
-                err, _ = cross.assert_close_to_scale(got, ref[i], scale[i], **CROSS_TOL,
-                                                     what=f"trial-axis {name} lane {k} B={B}")
-                kind = "fwd" if name == "y" else "bwd"
-                errs[kind] = max(errs[kind], err)
-        plans[B]["dw_db_gap_to_plan_of"] = sums_gap
-        print(f"[trials] K={K} B={B} d={d} L={L}: backward capacity {cap} blocks in clusters of 8, {trial_cap} in "
-              f"clusters of {trial.cluster}; trial plan {tuple(trial)} ({waves['trial']} wave(s) of K grids), "
-              f"single-trial plan {tuple(single_plan)} ({waves['single']} waves); every lane's y and dx0 bit for bit the single-trial kernels' (plan "
-              f"{tuple(cross.plan_of(x0[0], False))} / {tuple(single_plan)}), dw and db bit for bit the single-trial "
-              f"kernel's under the trial plan and within the term-scale bar of it under plan_of (max |Δ| "
-              f"{sums_gap:.3e}); all within the term-scale bar of the plain versions")
+        for name, dtype, tol in (("f32", torch.float32, CROSS_TOL), ("bf16", torch.bfloat16, CROSS_BF16_TOL)):
+            args = [t.to(dtype).contiguous() for t in (w, b, x0, dy)]
+            sums_gap, lane_errs, flipped = _trial_lanes_check(cross, *args, tol, f"B={B} d={d} L={L} {name}")
+            for kind, err in lane_errs.items():
+                key = kind if name == "f32" else f"{kind}_bf16"
+                errs[key] = max(errs[key], err)
+            xk = args[2]
+            trial, single_plan = cross.trial_plan_of(xk), cross.plan_of(xk[0], True)
+            cap, trial_cap = cross.capacity(xk[0], True), cross.capacity(xk[0], True, trial.cluster)
+            waves = {"trial": -(-K * trial.grid // trial_cap), "single": -(-K * single_plan.grid // cap)}
+            plans[f"{B} {name}"] = {"trial_plan": list(trial), "single_plan": list(single_plan), "capacity": cap,
+                                "trial_capacity": trial_cap, "waves": waves, "dw_db_gap_to_plan_of": sums_gap,
+                                "row_entries_past_bf16_tol": flipped}
+            print(f"[trials] K={K} B={B} d={d} L={L} {name}: backward capacity {cap} blocks in clusters of 8, "
+                  f"{trial_cap} in clusters of {trial.cluster}; trial plan {tuple(trial)} ({waves['trial']} wave(s) "
+                  f"of K grids), single-trial plan {tuple(single_plan)} ({waves['single']} waves); every lane's y "
+                  f"and dx0 bit for bit the single-trial kernels' (plan {tuple(cross.plan_of(xk[0], False))} / "
+                  f"{tuple(single_plan)}), dw and db bit for bit the single-trial kernel's under the trial plan and "
+                  f"within rtol={tol['rtol']:.3g} atol={tol['atol']:.3g} of the term scale of it under plan_of (max "
+                  f"|Δ| {sums_gap:.3e}); all within that bar of the plain versions (max |Δ| fwd "
+                  f"{lane_errs['fwd']:.3e}, bwd {lane_errs['bwd']:.3e})"
+                  + (f", y and dx0 with one row scalar's flip and one ulp of the entry beside it ({flipped} of "
+                     f"{2 * xk.numel()} entries past the bar alone)" if name == "bf16" else ""))
         with torch.no_grad():
             timed = {
                 "fwd": (lambda: cross.cross_stack_forward_trials(w, b, x0, "code"),
@@ -2115,7 +2177,7 @@ def trial_axis_phase(cross, dev, card: str) -> dict:
                 rows[(kind, B)] = dict(K=K, B=B, d=d, L=L, ms=ms, device_ms=device_ms, graph_ms=graph_ms,
                                        k_single_launch_ms=single_ms, k_single_device_ms=single_device_ms,
                                        k_single_graph_ms=single_graph_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by, **(plans[B] if kind == "bwd" else {}))
+                                       bound_by=bound_by, **(plans[f"{B} f32"] if kind == "bwd" else {}))
                 print(f"[time] trial-axis cross {kind} K={K} B={B} d={d} L={L}: one launch {ms:.4f} ms (device "
                       f"{ms_text(device_ms, 1e3, 2)} us, in a graph {graph_ms * 1e3:.2f} us); {K} single-trial "
                       f"launches {single_ms:.4f} ms (device {ms_text(single_device_ms, 1e3, 2)} us, in a graph "
@@ -2230,6 +2292,18 @@ def _lane_backward_plan(cross, dims, mcfg, tcfg, dtype, dev):
     return cross.trial_plan_of(torch.empty((TRIALS_K, tcfg.batch_size, d), dtype=dtype, device=dev))
 
 
+def _default_run_bar(lane: float, seq: float, twin: float, default: float, floor: float) -> tuple:
+    """A lane's val loss against the sequential run that users get (its
+    cross backward under ``plan_of``): the gap and its bar, the larger of
+    ``floor`` and twice the largest gap between the three sequential runs
+    (under the lane's plan, its one-ulp twin, under ``plan_of``), which
+    differ from each other by rounding alone: the trajectory's noise floor
+    for a sum order or a one-ulp start."""
+    refs = (seq, twin, default)
+    spread = max(abs(p - q) for p in refs for q in refs)
+    return abs(lane - default), max(floor, 2 * spread)
+
+
 def _sequential_runs(cross, splits, dims, mk, tk, plan, dev, bf16: bool = False) -> tuple:
     """A lane's references: its sequential ``train_dcn`` and that run's
     one-ulp twin with every cross backward under ``plan`` (the lane's sum
@@ -2239,7 +2313,8 @@ def _sequential_runs(cross, splits, dims, mk, tk, plan, dev, bf16: bool = False)
     that rounding (C1) past one-ulp noise (lane 7, epoch 0: 4.39e-3 from the
     run under ``plan_of``, its twin 1.66e-3); the held reference shares the
     lane's order, so it differs from the lane by the K-lane model's own
-    operations alone (PERF.md §6)."""
+    operations alone (PERF.md §6); the run under ``plan_of`` holds the lane
+    too, at ``_default_run_bar``."""
     from hhrs_tpu_torch.train.trainer import train_dcn
 
     real = cross._plan
@@ -2261,8 +2336,9 @@ def run_group_phase(cross, splits, preproc, dev, card: str) -> dict:
     lanes asked of a Study with trial 139's architecture fixed, 3 epochs on
     ``data/``, the trial-axis launches counted from 0; lanes 0 and 7 held to
     the sequential ``train_dcn`` of their trials (its cross backward under
-    the lane's plan, ``_sequential_runs``); the gap to the sequential run
-    under the default plan printed."""
+    the lane's plan, ``_sequential_runs``) at the C1 bars or twice the gap
+    of its one-ulp twin, and to the sequential run under the default plan at
+    ``_default_run_bar``."""
     from hhrs_tpu_torch.config import Config
     from hhrs_tpu_torch.hpo.cli import model_cfg_from_params, train_cfg_from_params
     from hhrs_tpu_torch.hpo.space import reference_search_space
@@ -2309,17 +2385,21 @@ def run_group_phase(cross, splits, preproc, dev, card: str) -> dict:
             gap, twin_gap = abs(a["val_loss"] - b["val_loss"]), abs(t["val_loss"] - b["val_loss"])
             bar = max(c1["atol"] + c1["rtol"] * abs(b["val_loss"]), 2 * twin_gap)
             c1_held &= gap <= c1["atol"] + c1["rtol"] * abs(b["val_loss"])
+            o_gap, o_bar = _default_run_bar(a["val_loss"], b["val_loss"], t["val_loss"], o["val_loss"],
+                                            c1["atol"] + c1["rtol"] * abs(o["val_loss"]))
             print(f"[hpo] lane {k} epoch {e}: val {a['val_loss']:.6f}, sequential under the lane's plan "
                   f"{tuple(plan)} {b['val_loss']:.6f} (rel gap {gap / b['val_loss']:.2e}), its one-ulp twin "
                   f"{t['val_loss']:.6f} (rel gap {twin_gap / b['val_loss']:.2e}); bar {bar / b['val_loss']:.2e} "
-                  f"rel; lr {a['lr']:.4g} / {b['lr']:.4g}; sequential under plan_of {o['val_loss']:.6f} (rel gap "
-                  f"{abs(a['val_loss'] / o['val_loss'] - 1):.2e}, not held)")
+                  f"rel; lr {a['lr']:.4g} / {b['lr']:.4g} / {o['lr']:.4g}; sequential under plan_of "
+                  f"{o['val_loss']:.6f} (rel gap {o_gap / o['val_loss']:.2e}, bar {o_bar / o['val_loss']:.2e} rel)")
             if gap > bar or a["lr"] != b["lr"]:
                 raise SmokeFailure(f"lane {k} epoch {e} is not its sequential trial's: {a} against {b}")
+            if o_gap > o_bar or a["lr"] != o["lr"]:
+                raise SmokeFailure(f"lane {k} epoch {e} is not its sequential trial's under plan_of: {a} against {o}")
         if lane.best_epoch != seq.best_epoch:
             raise SmokeFailure(f"lane {k} best epoch {lane.best_epoch}, sequential {seq.best_epoch}")
         held[k] = c1_held
-        print(f"[hpo] lane {k}: best epoch {lane.best_epoch} both; final val logloss {lane.final_metrics['val_logloss']:.6f} "
+        print(f"[hpo] lane {k}: best epoch {lane.best_epoch} both (under plan_of {default.best_epoch}); final val logloss {lane.final_metrics['val_logloss']:.6f} "
               f"/ {seq.final_metrics['val_logloss']:.6f}, AUC {lane.final_metrics['val_auc']:.5f} / "
               f"{seq.final_metrics['val_auc']:.5f}; the C1 bars alone {'held' if c1_held else 'did NOT hold'}; "
               f"sequential examples_per_s {default.examples_per_s:.1f} on {card}")
@@ -2340,7 +2420,8 @@ def bf16_group_check(cross, splits, dims, trials: list, cfg, want: dict, dev, ca
     each epoch's val loss) or at twice the gap of the sequential run's bf16
     one-ulp twin where the trajectory's own noise is larger (as the f32
     lanes are held), the same LR decisions, and the best epoch of the
-    sequential run or of its twin."""
+    sequential run or of its twin; and to the sequential bf16 run under
+    ``plan_of`` at ``_default_run_bar`` (floor ``BF16_VAL_RTOL``)."""
     import torch
 
     from hhrs_tpu_torch.hpo.cli import model_cfg_from_params, train_cfg_from_params
@@ -2380,12 +2461,18 @@ def bf16_group_check(cross, splits, dims, trials: list, cfg, want: dict, dev, ca
             bar = max(BF16_VAL_RTOL, 2 * twin_gap)
             gaps[(k, e)] = gap
             held[k] &= gap <= BF16_VAL_RTOL
+            o_gap, o_bar = _default_run_bar(a["val_loss"], b["val_loss"], t["val_loss"], o["val_loss"],
+                                            BF16_VAL_RTOL * abs(o["val_loss"]))
             print(f"[hpo] bf16 lane {k} epoch {e}: val {a['val_loss']:.6f}, sequential under the lane's plan "
                   f"{tuple(plan)} {b['val_loss']:.6f} (rel gap {gap:.2e}), its bf16 one-ulp twin {t['val_loss']:.6f} "
-                  f"(rel gap {twin_gap:.2e}); bar {bar:.2e} rel; lr {a['lr']:.4g} / {b['lr']:.4g}; sequential under "
-                  f"plan_of {o['val_loss']:.6f} (rel gap {abs(a['val_loss'] / o['val_loss'] - 1):.2e}, not held)")
+                  f"(rel gap {twin_gap:.2e}); bar {bar:.2e} rel; lr {a['lr']:.4g} / {b['lr']:.4g} / {o['lr']:.4g}; "
+                  f"sequential under plan_of {o['val_loss']:.6f} (rel gap {o_gap / o['val_loss']:.2e}, bar "
+                  f"{o_bar / o['val_loss']:.2e} rel)")
             if gap > bar or a["lr"] != b["lr"]:
                 raise SmokeFailure(f"bf16 lane {k} epoch {e} is not its sequential trial's: {a} against {b}")
+            if o_gap > o_bar or a["lr"] != o["lr"]:
+                raise SmokeFailure(f"bf16 lane {k} epoch {e} is not its sequential trial's under plan_of: {a} "
+                                   f"against {o}")
         # bf16 val losses of neighbouring epochs may lie within the trajectory's
         # noise of each other: the best epoch is held to the sequential run's,
         # or to its one-ulp twin's where the two pick differently
@@ -2393,7 +2480,7 @@ def bf16_group_check(cross, splits, dims, trials: list, cfg, want: dict, dev, ca
             raise SmokeFailure(f"bf16 lane {k} best epoch {lane.best_epoch}, sequential {seq.best_epoch}, its "
                                f"twin {twin.best_epoch}")
         print(f"[hpo] bf16 lane {k}: best epoch {lane.best_epoch}, sequential {seq.best_epoch}, its twin "
-              f"{twin.best_epoch}")
+              f"{twin.best_epoch}, under plan_of {default.best_epoch}")
     print(f"[hpo] bf16 group_examples_per_s {group[0].group_examples_per_s:.1f} on {card}")
     return {"launches": counts, "group_examples_per_s": group[0].group_examples_per_s, "group_s": group_s,
             "max_rel_gap": max(gaps.values()), "bf16_bar_alone_held": held}
@@ -3133,7 +3220,8 @@ def main() -> int:
         kernels.append({
             "name": f"cross_stack_{kind}_trials", "route": "cuda", "source": "hhrs_tpu_torch/csrc/cross_stack.cu",
             "replaces": replaces, "launches": tuning["group"]["launches"][kind],
-            "max_abs_err": tuning["trials"]["errs"][kind], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": tuning["trials"]["errs"][kind], "bf16_max_abs_err": tuning["trials"]["errs"][f"{kind}_bf16"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "graph_ms": r["graph_ms"], "k_single_launch_ms": r["k_single_launch_ms"],
             "k_single_device_ms": r["k_single_device_ms"], "k_single_graph_ms": r["k_single_graph_ms"], "K": r["K"],

@@ -269,7 +269,8 @@ def cross_plan(B: int, blocks: int, cluster: int = 1, align: int = 4) -> CrossPl
 # cluster sums more partial rows, which costs where a block has few rows
 # (PERF.md section 6, kernel_ab.py on an H100: at K = 8, B = 512, d = 113,
 # clusters of 8 leave 20 % of the blocks idle and beat clusters of 2; at B =
-# 4096, d = 145, L = 6 they leave 47 % idle and take 1.6x as long).
+# 4096, d = 145, L = 6 they leave 47 % idle and take 1.6x as long; at K = 16
+# and 64, both shapes, the rule picks clusters of 2, 1.25-1.97x faster).
 TRIAL_IDLE_SHARE = 1 / 3
 
 

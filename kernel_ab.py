@@ -36,7 +36,8 @@ entry points that every tree of the port with both kernels has:
   plan's bit for bit; the float32 backward also at L = 1 and 6 (B = 8192),
   which shows how its time follows the row's chain of 2L reductions;
 * the trial-axis backward (``cross.cross_stack_backward_trials``, where the
-  tree has it) at K = 8 on ``chip_smoke.py``'s phase 11a shapes, both
+  tree has it) at K = 8, 16 and 64 (``TRIAL_KS``) on ``chip_smoke.py``'s
+  phase 11a shapes, both
   dtypes, under the tree's own plan, the single-trial plan of B rows and
   the trial plan in clusters of 8 (the single-trial plan over capacity // K
   blocks in whole clusters, computed here from ``cross.capacity`` and
@@ -76,8 +77,11 @@ CROSS_BF16_B = (1, 5, 9, 512, 4487, 8192, 32768)  # bf16 rows are bulk-copied 8 
 CROSS_WIDE_B = (5, 512, 4096)  # d = 145 with L = 1 and 6
 CROSS_TIMED_B = ((512, 500), (4487, 300), (8192, 200), (32768, 100))  # (B, calls), d = 113, L = 3
 LAYERS_TIMED = ((1, 200), (6, 200))  # (L, calls): the float32 backward at B = 8192 beside L = 3
-TRIAL_K = 8
-# (B, d, L, w bound, calls): chip_smoke.py's TRIAL_SHAPES, phase 11a's K = 8 shapes
+# the trial-axis backward's group sizes: phase 11a's K = 8, and 16 and 64,
+# where the trial plan's choice between clusters of 8 and 2 was not timed
+# before (K = 64 is past the capacity of one cluster of 8 a trial at d = 113)
+TRIAL_KS = (8, 16, 64)
+# (B, d, L, w bound, calls): chip_smoke.py's TRIAL_SHAPES, phase 11a's shapes
 TRIAL_CASES = ((512, 113, 3, 1.0, 300), (4096, 145, 6, 0.25, 100))
 WHOLE_ROWS = 8192  # row outputs of at most this many rows are kept whole beside their digest
 
@@ -305,8 +309,8 @@ def trial_plan(cross, x0, K: int):
 
 
 def trial_run(card: str, dev) -> dict:
-    """The trial-axis backward at K = TRIAL_K under the tree's plan, the
-    single-trial plan and the trial plan: outputs and device times."""
+    """The trial-axis backward at each K of TRIAL_KS under the tree's plan,
+    the single-trial plan and the trial plans: outputs and device times."""
     import numpy as np
     import torch
 
@@ -316,9 +320,9 @@ def trial_run(card: str, dev) -> dict:
         print("[trials] this tree has no trial-axis kernels", flush=True)
         return dict(outputs={}, times=[])
     gen = np.random.default_rng(chip_smoke.SEED + 12)
-    K, outputs, times = TRIAL_K, {}, []
+    outputs, times = {}, []
     with torch.no_grad():
-        for B, d, L, bound, calls in TRIAL_CASES:
+        for (B, d, L, bound, calls), K in ((case, K) for K in TRIAL_KS for case in TRIAL_CASES):
             f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
             x0, dy = f32(gen.standard_normal((K, B, d))), f32(gen.standard_normal((K, B, d)))
             w = f32(gen.uniform(-bound, bound, (K, L, d)) / np.sqrt(d))
@@ -329,7 +333,7 @@ def trial_run(card: str, dev) -> dict:
                 plans = {"tree's plan": None, "single-trial plan": cross.plan_of(args[2][0], True),
                          "trial plan in clusters of 8": trial_plan(cross, args[2][0], K)}
                 if 2 in getattr(cross, "CLUSTER_SIZES", ()):  # a tree whose backward has clusters of 2
-                    per_trial = cross.capacity(args[2][0], True, 2) // K // 2 * 2
+                    per_trial = max(2, cross.capacity(args[2][0], True, 2) // K // 2 * 2)
                     plans["trial plan in clusters of 2"] = cross.cross_plan(
                         B, per_trial, 2, cross.ROW_ALIGN[args[2].dtype])._replace(cluster=2)
                 cap = cross.capacity(args[2][0], True)
@@ -426,7 +430,8 @@ def run(tree: Path, out: Path, parts: str) -> None:
     card = chip_smoke.card_line()
     dev = torch.device("cuda")
     result = dict(tree=str(tree), card=card, parts=parts, library=library_summary(tree),
-                  cross=cross_run(card, dev), trials=trial_run(card, dev))
+                  cross=cross_run(card, dev) if "cross" in parts else dict(outputs={}, times=[]),
+                  trials=trial_run(card, dev))
     result.update(tower_run(tree, card, dev) if "tower" in parts else dict(x0=None, logits={}, times=[]))
     torch.save(result, out)
     print(f"[ab] {tree}: {len(result['logits'])} logit vectors, {len(result['cross']['outputs'])} cross cases, "
@@ -512,7 +517,8 @@ def main() -> int:
     parser.add_argument("--out", type=Path, help="file for this run's outputs and times")
     parser.add_argument("--compare", nargs=2, type=Path, metavar=("A", "B"), help="compare two runs' files")
     parser.add_argument("--parts", default="tower,cross",
-                        help="'tower,cross' (default) or 'cross': the cross and trial-axis cases alone")
+                        help="'tower,cross' (default), 'cross' (the cross and trial-axis cases alone) or "
+                             "'trials' (the trial-axis cases alone)")
     args = parser.parse_args()
     if args.compare:
         return compare(*args.compare)
