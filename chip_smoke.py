@@ -2119,11 +2119,12 @@ def trial_axis_phase(cross, dev, card: str) -> dict:
     """Phase 11a: the trial-axis cross kernels at K = 8, f32 and bf16 (the
     f32 draws cast), against the single-trial kernels lane by lane and
     against their plain versions (``_trial_lanes_check``: f32 at the
-    term-scale bar, bf16 at ``CROSS_BF16_TOL``); the trial plan and its waves
-    printed; then the f32 trial-axis launch, K single-trial launches and the
-    plain version timed (CUDA-event means, device time from torch.profiler),
-    with the bound of K stacks; then C5, the widest shape at the full init
-    bound, held to the plain f32 version at its measured-spread bar."""
+    term-scale bar, bf16 at ``CROSS_BF16_TOL``); the forward's and the
+    backward's trial plans and their waves printed; then each dtype's
+    trial-axis launch, K single-trial launches and the plain version timed
+    (CUDA-event means, device time from torch.profiler), with the bound of K
+    stacks; then C5, the widest shape at the full init bound, held to the
+    plain f32 version at its measured-spread bar."""
     import numpy as np
     import torch
 
@@ -2144,46 +2145,64 @@ def trial_axis_phase(cross, dev, card: str) -> dict:
             trial, single_plan = cross.trial_plan_of(xk), cross.plan_of(xk[0], True)
             cap, trial_cap = cross.capacity(xk[0], True), cross.capacity(xk[0], True, trial.cluster)
             waves = {"trial": -(-K * trial.grid // trial_cap), "single": -(-K * single_plan.grid // cap)}
+            fwd_trial, fwd_single = cross.fwd_trial_plan_of(xk), cross.plan_of(xk[0], False)
+            fwd_cap = cross.capacity(xk[0], False)
+            fwd_waves = {"trial": -(-K * fwd_trial.grid // fwd_cap), "single": -(-K * fwd_single.grid // fwd_cap)}
             plans[f"{B} {name}"] = {"trial_plan": list(trial), "single_plan": list(single_plan), "capacity": cap,
                                 "trial_capacity": trial_cap, "waves": waves, "dw_db_gap_to_plan_of": sums_gap,
-                                "row_entries_past_bf16_tol": flipped}
-            print(f"[trials] K={K} B={B} d={d} L={L} {name}: backward capacity {cap} blocks in clusters of 8, "
-                  f"{trial_cap} in clusters of {trial.cluster}; trial plan {tuple(trial)} ({waves['trial']} wave(s) "
-                  f"of K grids), single-trial plan {tuple(single_plan)} ({waves['single']} waves); every lane's y "
-                  f"and dx0 bit for bit the single-trial kernels' (plan {tuple(cross.plan_of(xk[0], False))} / "
+                                "row_entries_past_bf16_tol": flipped, "fwd_trial_plan": list(fwd_trial),
+                                "fwd_single_plan": list(fwd_single), "fwd_capacity": fwd_cap,
+                                "fwd_waves": fwd_waves}
+            print(f"[trials] K={K} B={B} d={d} L={L} {name}: forward capacity {fwd_cap} blocks; forward trial plan "
+                  f"{tuple(fwd_trial)} ({fwd_waves['trial']} wave(s) of K grids), single-trial plan "
+                  f"{tuple(fwd_single)} ({fwd_waves['single']} waves); backward capacity {cap} blocks in clusters "
+                  f"of 8, {trial_cap} in clusters of {trial.cluster}; trial plan {tuple(trial)} ({waves['trial']} "
+                  f"wave(s) of K grids), single-trial plan {tuple(single_plan)} ({waves['single']} waves); every "
+                  f"lane's y and dx0 bit for bit the single-trial kernels' (plan {tuple(fwd_single)} / "
                   f"{tuple(single_plan)}), dw and db bit for bit the single-trial kernel's under the trial plan and "
                   f"within rtol={tol['rtol']:.3g} atol={tol['atol']:.3g} of the term scale of it under plan_of (max "
                   f"|Δ| {sums_gap:.3e}); all within that bar of the plain versions (max |Δ| fwd "
                   f"{lane_errs['fwd']:.3e}, bwd {lane_errs['bwd']:.3e})"
                   + (f", y and dx0 with one row scalar's flip and one ulp of the entry beside it ({flipped} of "
                      f"{2 * xk.numel()} entries past the bar alone)" if name == "bf16" else ""))
-        with torch.no_grad():
-            timed = {
-                "fwd": (lambda: cross.cross_stack_forward_trials(w, b, x0, "code"),
-                        lambda: [cross.cross_stack_forward(w[k], b[k], x0[k], "code") for k in range(K)],
-                        lambda: cross.cross_stack_apply_trials(w, b, x0, "code")),
-                "bwd": (lambda: cross.cross_stack_backward_trials(w, b, x0, dy, "code"),
-                        lambda: [cross.cross_stack_backward(w[k], b[k], x0[k], dy[k], "code") for k in range(K)],
-                        lambda: cross.cross_stack_backward_ref_trials(w, b, x0, dy, "code")),
-            }
-            for kind, (trial_fn, singles, plain) in timed.items():
-                ms, single_ms = time_cuda(trial_fn, calls), time_cuda(singles, calls)
-                plain_ms = time_cuda(plain, max(calls // 20, 5))
-                device_ms = device_ms_per_call(trial_fn, 50, "cross_")
-                single_device_ms = device_ms_per_call(singles, 20, "cross_", launches=K)
-                graph_ms, single_graph_ms = graph_ms_per_call(trial_fn, 20), graph_ms_per_call(singles, 20)
-                flops, nbytes = cross_work(B, d, L, kind)
-                bound_ms, bound_by = bound(K * flops, K * nbytes)
-                rows[(kind, B)] = dict(K=K, B=B, d=d, L=L, ms=ms, device_ms=device_ms, graph_ms=graph_ms,
-                                       k_single_launch_ms=single_ms, k_single_device_ms=single_device_ms,
-                                       k_single_graph_ms=single_graph_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by, **(plans[f"{B} f32"] if kind == "bwd" else {}))
-                print(f"[time] trial-axis cross {kind} K={K} B={B} d={d} L={L}: one launch {ms:.4f} ms (device "
-                      f"{ms_text(device_ms, 1e3, 2)} us, in a graph {graph_ms * 1e3:.2f} us); {K} single-trial "
-                      f"launches {single_ms:.4f} ms (device {ms_text(single_device_ms, 1e3, 2)} us, in a graph "
-                      f"{single_graph_ms * 1e3:.2f} us); plain {plain_ms:.4f} ms; bound "
-                      f"{bound_ms * 1e3:.3f} us ({bound_by}; {K * flops / 1e6:.3f} MFLOP, {K * nbytes / 1e6:.3f} MB) "
-                      f"on {card}")
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            wt, bt, xt, dyt = (t.to(dtype).contiguous() for t in (w, b, x0, dy))
+            with torch.no_grad():
+                timed = {
+                    "fwd": (lambda: cross.cross_stack_forward_trials(wt, bt, xt, "code"),
+                            lambda: [cross.cross_stack_forward(wt[k], bt[k], xt[k], "code") for k in range(K)],
+                            lambda: cross.cross_stack_apply_trials(wt, bt, xt, "code")),
+                    "bwd": (lambda: cross.cross_stack_backward_trials(wt, bt, xt, dyt, "code"),
+                            lambda: [cross.cross_stack_backward(wt[k], bt[k], xt[k], dyt[k], "code") for k in range(K)],
+                            lambda: cross.cross_stack_backward_ref_trials(wt, bt, xt, dyt, "code")),
+                }
+                for kind, (trial_fn, singles, plain) in timed.items():
+                    ms, single_ms = time_cuda(trial_fn, calls), time_cuda(singles, calls)
+                    plain_ms = time_cuda(plain, max(calls // 20, 5))
+                    device_ms = device_ms_per_call(trial_fn, 50, "cross_")
+                    single_device_ms = device_ms_per_call(singles, 20, "cross_", launches=K)
+                    graph_ms, single_graph_ms = graph_ms_per_call(trial_fn, 20), graph_ms_per_call(singles, 20)
+                    flops, nbytes = cross_work(B, d, L, kind, elem=xt.element_size())
+                    bound_ms, bound_by = bound(K * flops, K * nbytes)
+                    shown = plans[f"{B} {name}"]
+                    timing = dict(K=K, B=B, d=d, L=L, ms=ms, device_ms=device_ms, graph_ms=graph_ms,
+                                  k_single_launch_ms=single_ms, k_single_device_ms=single_device_ms,
+                                  k_single_graph_ms=single_graph_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by,
+                                  **(shown if kind == "bwd" else {"plan": shown["fwd_trial_plan"],
+                                                                  "single_plan": shown["fwd_single_plan"],
+                                                                  "capacity": shown["fwd_capacity"],
+                                                                  "waves": shown["fwd_waves"]}))
+                    if name == "f32":
+                        rows[(kind, B)] = timing
+                    else:
+                        rows[(kind, B)]["bf16"] = timing
+                    print(f"[time] trial-axis cross {kind} {name} K={K} B={B} d={d} L={L}: one launch {ms:.4f} ms "
+                          f"(device {ms_text(device_ms, 1e3, 2)} us, in a graph {graph_ms * 1e3:.2f} us); {K} "
+                          f"single-trial launches {single_ms:.4f} ms (device {ms_text(single_device_ms, 1e3, 2)} us, "
+                          f"in a graph {single_graph_ms * 1e3:.2f} us); plain {plain_ms:.4f} ms; bound "
+                          f"{bound_ms * 1e3:.3f} us ({bound_by}; {K * flops / 1e6:.3f} MFLOP, {K * nbytes / 1e6:.3f} "
+                          f"MB) on {card}")
     return {"rows": rows, "errs": errs, "plans": plans, "c5": full_bound_check(cross, dev, gen)}
 
 
@@ -2976,6 +2995,9 @@ def main() -> int:
         (OUT_DIR / f"ptxas_{lib_path.stem}.log").write_text(log_file.read_text())
         for kernel, regs, spills in ptxas_summary(log_file.read_text()):
             print(f"[build] {kernel}: {regs} registers, {spills} bytes spilled")
+        spilled = [k for k, _, n in ptxas_summary(log_file.read_text()) if n and k.startswith("cross_")]
+        if spilled:
+            return fail(f"ptxas spilled registers in the cross kernel instances {spilled}")
 
     # ---- phase 3: kernel against its plain version ----------------------
     limits = tower._device_limits(torch.cuda.current_device())
@@ -3225,6 +3247,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "graph_ms": r["graph_ms"], "k_single_launch_ms": r["k_single_launch_ms"],
             "k_single_device_ms": r["k_single_device_ms"], "k_single_graph_ms": r["k_single_graph_ms"], "K": r["K"],
+            "plan": r["plan"] if kind == "fwd" else r["trial_plan"], "waves": r["waves"], "bf16": r["bf16"],
             "by_shape": [trial_rows[(kind, B)] for B, *_ in TRIAL_SHAPES[1:]],
             "bf16_group_launches": tuning["group"]["bf16"]["launches"][f"{kind}_bf16"],
             **({"full_bound_check": tuning["trials"]["c5"]} if kind == "bwd" else {}),

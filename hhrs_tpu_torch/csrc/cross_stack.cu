@@ -53,29 +53,70 @@
 //    depends on the plan alone, and the ticket counter is back at 0 when
 //    the launch ends, so a captured CUDA graph replays correctly.
 //
-// The row arithmetic is the first kernel's, instruction for instruction: a
-// warp per row, lane k owning columns k, k + 32, ... (NPL = ceil(d/32) of
-// them, a template parameter), the gate as one fmaf chain and a shuffle
-// tree, the updates with __fmul_rn / __fadd_rn (never a contracted FMA, so
-// they round as the plain version's separate operations). So y and dx0 are
-// bit for bit those of the earlier kernels, at any position in any tile and
-// under any plan.
+// The row arithmetic is the first kernel's, operation for operation: lane k
+// of a warp owns columns k, k + 32, ... of a row (NPL = ceil(d/32) of them,
+// a template parameter), the gate is one fmaf chain and a shuffle tree, the
+// updates use __fmul_rn / __fadd_rn (never a contracted FMA, so they round as
+// the plain version's separate operations). So y and dx0 are bit for bit
+// those of the earlier kernels, at any position in any tile and under any
+// plan.
 //
 // The element type T is a template parameter beside NPL: float, or
 // __nv_bfloat16 for a model run at model.compute_dtype=bfloat16, where the
-// Pallas kernel computes on bf16 refs. A bf16 instantiation loads bf16 rows,
-// w and b, computes every operation in f32 and rounds its result to bf16
-// where the plain version (ops/cross.py, the JAX ops and their VJP) rounds:
-// after each elementwise product and sum, a gate or row sum once after its
-// f32 sum (the product of two bf16 values is exact in f32), dw and db once
-// after the same deterministic f32 batch sums. Its tiles hold bf16 rows, so a
-// tile is a multiple of 16 bytes when its row count is a multiple of 8
-// (kRowAlign<T>); the float instantiation is the code above, unchanged.
+// Pallas kernel computes on bf16 refs. A bf16 instance loads bf16 rows, w
+// and b and rounds each result to bf16 where the plain version (ops/cross.py,
+// the JAX ops and their VJP) rounds: after each elementwise product and sum,
+// a gate or row sum once after its f32 sum (the product of two bf16 values
+// is exact in f32), dw and db once after the same deterministic f32 batch
+// sums. Its tiles hold bf16 rows, so a tile is a multiple of 16 bytes when
+// its row count is a multiple of 8 (kRowAlign<T>).
 //
+// bf16 on pairs. Rounding every elementwise f32 result through an f32 ->
+// bf16 -> f32 round trip costs two or three instructions a value. Both bf16
+// instances keep a row as bf16x2 pairs from load to store (a lane's columns
+// k + 64q and k + 64q + 32 in pair q) and do the elementwise products and
+// sums with mul.rn / add.rn.bf16x2: one instruction for two values, rounded
+// once, as the plain version's f32 operation rounded to bf16 is (the f32 sum
+// of two bf16 values rounds to the same bf16; so does their f32 product,
+// which is exact unless it falls below f32's normal range, |p| < 2^-126).
+// One device function (layer_pairs) is a layer of the bf16 forward and of
+// the bf16 backward's recompute, so the two cannot drift apart. What the
+// plain version sums in f32 stays in f32, in the same order: the gates' fmaf
+// chains, the row sums of bf16-rounded products, dw and db. So y and dx0 are
+// the earlier f32-rounding instance's bit for bit on every input whose
+// products stay above 2^-126. b reaches the update as pairs in the lanes'
+// layout, w the gates as f32 values.
+//
+// A warp's rows (PERF.md, section 6). A row is a chain of dependent shuffle
+// reductions (L forward, 2L backward) with little work between them, so a
+// warp walking one row at a time leaves the chain's latency between every
+// two of its rows. A warp walks R rows at once (rows r, r + 8, ... of its
+// tile, interleaved: each reduction's butterfly steps of the R rows issue
+// together and overlap), then its last rows one at a time. R is 2 where two
+// rows' registers fit the instance's budget, else 1 (fwd_rows_at_once,
+// bwd_rows_at_once). The backward's rows' terms enter the warp's dw, db sums
+// one row after another, in row order, so dw and db do not depend on R; its
+// per-row arrays are sized by the instance's most layers, LMAX = 3 or 6 (the
+// launch takes the smaller that holds L).
+//
+// The forward's weights and small batches. A forward layer reads the lane's
+// columns of w_l and b_l into registers once for its R rows (the two rows'
+// reads of one shared address are not merged otherwise, and the shared
+// memory pipe then carries twice the loads). Where the plan gives every
+// block one tile of at most R rows a warp (B up to about 16 rows a block:
+// the training batch, 4487 and 8192 rows, K trials of 512), a second kernel,
+// cross_fwd_direct_kernel, reads the rows, w and b straight from global
+// memory (w and b through L1, which the trial's blocks on an SM share): no
+// shared memory, mbarrier or barrier, so every warp starts on its rows at
+// once. Larger batches stream through the ring, whose bulk copies keep a
+// tile's loads in flight together, at most 64 rows a block
+// (ops/cross.py::fwd_plan evens the tiles out where a block takes several),
+// so four blocks fit an SM at d = 145 in float32.
+
 // The trial axis. Vectorized HPO trains K trials of one architecture as one
 // program: x0 [K, B, d] with w, b [K, L, d], the counterpart of jax.vmap of
 // cross_stack_pallas, which Pallas batches by adding a grid axis. Here grid
-// axis y is the trial: block (x, k) runs block x of the single-trial plan on
+// axis y is the trial: block (x, k) runs block x of a single-trial plan on
 // trial k's rows and weights, and the backward's sums of trial k go through
 // its own slice of `partial` and its own ticket counter. The blocks of one
 // trial do what the single-trial launch's blocks do, in the same order, so
@@ -85,38 +126,15 @@
 // grids need not be resident at once: past the card's capacity they run in
 // waves. The single-trial entry points are the launches with K = 1.
 //
-// The backward's rows on an H100 (PERF.md, section 6). A row's backward is
-// a chain of 2L dependent shuffle reductions with little work between them,
-// so a warp walking one row at a time leaves the chain's latency between
-// every two of its rows. A warp walks R rows at once (rows r, r + 8, ... of
-// its tile, interleaved: each reduction's butterfly steps of the R rows
-// issue together and overlap), then its last rows one at a time; the rows'
-// terms enter the warp's dw, db sums one row after another, in row order, so
-// dw and db do not depend on R. R is 2 where the registers of two rows fit
-// the instance's budget, else 1 (bwd_rows_at_once); the per-row arrays are
-// sized by the instance's most layers, LMAX = 3 or 6 (the launch takes the
-// smaller that holds L).
-// bf16: rounding every elementwise f32 result through an f32 -> bf16 -> f32
-// round trip costs two or three instructions a value (five a value and layer
-// on the walk back). The bf16 instance keeps a row as bf16x2 pairs (a lane's
-// columns k + 64q and k + 64q + 32 in pair q) and does its elementwise
-// products and sums with mul.rn / add.rn.bf16x2: one instruction for two
-// values, rounded once, as the plain version's f32 operation rounded to bf16
-// is (the f32 sum of two bf16 values rounds to the same bf16; so does their
-// f32 product, which is exact unless it falls below f32's normal range,
-// |p| < 2^-126). What the plain version sums in f32 stays in f32, in the
-// same order: the gates' fmaf chains, the row sums of bf16-rounded products,
-// dw and db. So dx0 is the f32-rounding instance's bit for bit on every input
-// whose products stay above 2^-126.
-//
-// The trial axis's plan (ops/cross.py::trial_plan) gives each of the K
-// grids capacity / K blocks in whole clusters, so the K grids fit the card
-// in one wave and a block carries more rows; lane k is the single-trial
-// launch under that plan, bit for bit. Clusters are of 8 blocks unless that
-// rounding leaves over a third of the card idle: the card holds 15
-// clusters of 8 at d = 145 (one block an SM), so 8 trials would get 8
-// blocks each; clusters of 2 give them 16. A cluster of 2 sums more partial
-// rows, which costs where blocks have few rows.
+// The trial axis's plans (ops/cross.py::fwd_trial_plan, trial_plan) give
+// each of the K grids capacity / K blocks (the backward's in whole
+// clusters), so the K grids fit the card in one wave and a block carries
+// more rows; lane k is the single-trial launch under that plan, bit for bit
+// (y under any plan). The backward's clusters are of 8 blocks unless that
+// rounding leaves over a third of the card idle: the card holds 15 clusters
+// of 8 at d = 145 (one block an SM), so 8 trials would get 8 blocks each;
+// clusters of 2 give them 16. A cluster of 2 sums more partial rows, which
+// costs where blocks have few rows.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -137,6 +155,7 @@ constexpr int kMaxPerLane = 8;        // d <= 256
 constexpr int kMaxRows = 48;          // rows per tile
 constexpr int kMaxStages = 3;         // tiles in flight per block
 constexpr int kMaxRing = 96;          // stages x rows
+constexpr int kFwdRing = 64;          // stages x rows of the forward's plans
 constexpr int kHeadBytes = 128;       // the stages' mbarriers, padded
 constexpr int kCluster = 8;           // backward: blocks that sum through shared memory
 constexpr int kSmallCluster = 2;      // a trial plan's other cluster size
@@ -163,16 +182,11 @@ __device__ __forceinline__ T from_f(float v) {
   }
 }
 
-// An f32 result rounded to T and back: where the plain version rounds.
-template <class T>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// Shared memory: mbarriers | w, b [L][d] each | (bf16 backward: w, b again
-// as bf16x2 pairs in the lanes' layout [L][kPairs][32] each) | the ring of
-// tiles [stages][streams][T][d], which the backward reuses for the warps'
-// sums [kWarps][2][L][d] once the tiles are done.
+// Shared memory: mbarriers | w, b [L][d] each | (bf16: w, b again as bf16x2
+// pairs in the lanes' layout [L][kPairs][32] each) | the ring of tiles
+// [stages][streams][T][d], which the backward reuses for the warps' sums
+// [kWarps][2][L][d] once the tiles are done. The direct forward kernel
+// uses none of it.
 __host__ __device__ constexpr size_t weights_bytes(int d, int L) {
   return round_up(2 * sizeof(float) * L * d, 128);
 }
@@ -188,7 +202,7 @@ size_t smem_bytes(int rows, int stages, int d, int L, bool backward, size_t elem
     const size_t sums = sizeof(float) * kWarps * 2 * L * d;
     if (sums > body) body = sums;
   }
-  const size_t pairs = backward && elem == sizeof(bf16) ? pairs_bytes(L) : 0;
+  const size_t pairs = elem == sizeof(bf16) ? pairs_bytes(L) : 0;
   return kHeadBytes + weights_bytes(d, L) + pairs + body;
 }
 
@@ -291,64 +305,51 @@ __device__ __forceinline__ void finish_tile(const TileRing<T>& ring, int k, int 
   if (threadIdx.x == 0) ring.issue(k + ring.stages, a, c);
 }
 
-// ---- the row arithmetic (the first kernel's) -------------------------------
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// ---- the row arithmetic -----------------------------------------------------
 
 // The lane's share of sum_c a[c] * v[c] over the row, a held by the lanes,
-// v in memory: one fmaf chain.
-template <int NPL>
-__device__ __forceinline__ float lane_dot(const float (&a)[NPL], const float* v, int lane, int d) {
+// v(j) the value at the lane's column j (c = lane + 32 j): one fmaf chain.
+template <int NPL, class V>
+__device__ __forceinline__ float lane_dot(const float (&a)[NPL], V v, int lane, int d) {
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c < d) s = fmaf(a[j], v[c], s);
+    if (lane + 32 * j < d) s = fmaf(a[j], v(j), s);
   }
   return s;
 }
 
-// sum_c a[c] * v[c] over the row, a held by the lanes, v in memory.
-template <int NPL>
-__device__ __forceinline__ float row_dot(const float (&a)[NPL], const float* v, int lane, int d) {
-  return warp_sum(lane_dot<NPL>(a, v, lane, d));
-}
-
-// One cross layer on a row held in registers. Columns past d stay zero.
-template <class T, int NPL>
-__device__ __forceinline__ void layer_step(float (&x)[NPL], const float (&x0)[NPL], float g,
-                                           const float* b, int lane, int d, int canonical) {
+// One float32 cross layer on a row held in registers, each product and sum
+// rounded on its own (b(j): b_l at the lane's column j). Columns past d stay
+// zero.
+template <int NPL, class Bias>
+__device__ __forceinline__ void layer_step(float (&x)[NPL], const float (&x0)[NPL], float g, Bias b, int lane,
+                                           int d, int canonical) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c < d) {
-      const float bc = b[c];
-      x[j] = canonical
-                 ? rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(x0[j], g)), bc)), x[j]))
-                 : rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(x[j], rnd<T>(__fmul_rn(x[j], g)))), bc));
+    if (lane + 32 * j < d) {
+      const float bc = b(j);
+      x[j] = canonical ? __fadd_rn(__fadd_rn(__fmul_rn(x0[j], g), bc), x[j])
+                       : __fadd_rn(__fadd_rn(x[j], __fmul_rn(x[j], g)), bc);
     }
   }
 }
 
-template <int NPL, class T>
-__device__ __forceinline__ void load_row(float (&r)[NPL], const T* src, int lane, int d) {
+template <int NPL>
+__device__ __forceinline__ void load_row(float (&r)[NPL], const float* src, int lane, int d) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
-    r[j] = c < d ? to_f(src[c]) : 0.f;
+    r[j] = c < d ? src[c] : 0.f;
   }
 }
 
-template <int NPL, class T>
-__device__ __forceinline__ void store_row(T* dst, const float (&r)[NPL], int lane, int d) {
+template <int NPL>
+__device__ __forceinline__ void store_row(float* dst, const float (&r)[NPL], int lane, int d) {
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
     const int c = lane + 32 * j;
-    if (c < d) dst[c] = from_f<T>(r[j]);
+    if (c < d) dst[c] = r[j];
   }
 }
 
@@ -357,7 +358,7 @@ __device__ __forceinline__ void store_row(T* dst, const float (&r)[NPL], int lan
 struct Layout {
   uint64_t* bars;
   float *ws, *bs;
-  uint32_t* pairs;  // bf16 backward: w, b as bf16x2 pairs [2][L][kPairs][32]
+  uint32_t* pairs;  // bf16: w, b as bf16x2 pairs [2][L][kPairs][32]
   unsigned char* ring;
   __device__ Layout(unsigned char* smem, int d, int L, bool with_pairs = false)
       : bars(reinterpret_cast<uint64_t*>(smem)),
@@ -370,43 +371,6 @@ struct Layout {
 __device__ __forceinline__ int tiles_of_block(int B, int rows) {
   const int n_tiles = (B + rows - 1) / rows;
   return n_tiles > (int)blockIdx.x ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-}
-
-template <class T, int NPL>
-__global__ void __launch_bounds__(kThreads)
-    cross_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ w,
-                     const T* __restrict__ b, T* __restrict__ y, int B, int d, int L,
-                     int canonical, int rows, int stages, long long x_stride) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  // This block's trial (grid axis y): its rows and its weights.
-  x0 += blockIdx.y * x_stride;
-  y += blockIdx.y * x_stride;
-  w += (size_t)blockIdx.y * L * d;
-  b += (size_t)blockIdx.y * L * d;
-  const Layout s(smem, d, L);
-  const TileRing<T> ring{s.bars, reinterpret_cast<T*>(s.ring), B, d, rows, stages, 1};
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int mine = tiles_of_block(B, rows);
-  start(ring, mine, x0, static_cast<const T*>(nullptr), w, b, s.ws, s.bs, L * d);
-
-  for (int k = 0; k < mine; ++k) {
-    ring.wait(k);
-    const int r0 = ring.first_row(k), n = ring.n_rows(k), copied = ring.copied_rows(k);
-    const T* tile = ring.tile(k, 0);
-    for (int r = warp; r < n; r += kWarps) {
-      const bool staged = r < copied;
-      float xin[NPL], x[NPL];
-      load_row<NPL>(xin, staged ? tile + r * d : x0 + (size_t)(r0 + r) * d, lane, d);
-#pragma unroll
-      for (int j = 0; j < NPL; ++j) x[j] = xin[j];
-      for (int l = 0; l < L; ++l) {
-        const float g = rnd<T>(row_dot<NPL>(x, s.ws + l * d, lane, d));
-        layer_step<T, NPL>(x, xin, g, s.bs + l * d, lane, d, canonical);
-      }
-      store_row<NPL>(y + (size_t)(r0 + r) * d, x, lane, d);
-    }
-    finish_tile(ring, k, mine, x0, static_cast<const T*>(nullptr));
-  }
 }
 
 // Thread 0 takes a ticket on `counter`; true in every thread of the block
@@ -468,7 +432,7 @@ __device__ __forceinline__ void ordered_sums(const float* src, size_t stride, in
   }
 }
 
-// ---- the backward's rows ----------------------------------------------------
+// ---- a warp's rows, R at once --------------------------------------------
 
 // R sums over the warp at once: the R sums' butterfly steps issue together,
 // so their shuffles overlap; each sum adds as warp_sum adds.
@@ -521,13 +485,14 @@ __device__ __forceinline__ void rows_f32(const float* (&xr)[R], const float* (&d
       for (int i = 0; i < R; ++i) {
 #pragma unroll
         for (int j = 0; j < NPL; ++j) xs[i][l][j] = x[i][j];
-        t[i] = lane_dot<NPL>(x[i], ws + l * d, lane, d);
+        t[i] = lane_dot<NPL>(x[i], [=](int j) { return ws[l * d + lane + 32 * j]; }, lane, d);
       }
       warp_sums<R>(t);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         g[i][l] = t[i];
-        layer_step<float, NPL>(x[i], xin[i], g[i][l], bs + l * d, lane, d, canonical);
+        layer_step<NPL>(
+            x[i], xin[i], g[i][l], [=](int j) { return bs[l * d + lane + 32 * j]; }, lane, d, canonical);
       }
     }
   }
@@ -598,15 +563,19 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 __device__ __forceinline__ float lo_f(uint32_t p) { return __uint_as_float(p << 16); }
 __device__ __forceinline__ float hi_f(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
 
+// Pair q of a lane's columns of the row at src (0 past d).
+template <int NPL>
+__device__ __forceinline__ uint32_t pair_at(const bf16* src, int q, int lane, int d) {
+  const int c0 = lane + 64 * q, c1 = c0 + 32;
+  const uint32_t lo = c0 < d ? __bfloat16_as_ushort(src[c0]) : 0u;
+  const uint32_t hi = 2 * q + 1 < NPL && c1 < d ? __bfloat16_as_ushort(src[c1]) : 0u;
+  return lo | hi << 16;
+}
+
 template <int NPL>
 __device__ __forceinline__ void load_pairs(uint32_t (&p)[(NPL + 1) / 2], const bf16* src, int lane, int d) {
 #pragma unroll
-  for (int q = 0; q < (NPL + 1) / 2; ++q) {
-    const int c0 = lane + 64 * q, c1 = c0 + 32;
-    const uint32_t lo = c0 < d ? __bfloat16_as_ushort(src[c0]) : 0u;
-    const uint32_t hi = 2 * q + 1 < NPL && c1 < d ? __bfloat16_as_ushort(src[c1]) : 0u;
-    p[q] = lo | hi << 16;
-  }
+  for (int q = 0; q < (NPL + 1) / 2; ++q) p[q] = pair_at<NPL>(src, q, lane, d);
 }
 
 template <int NPL>
@@ -629,6 +598,43 @@ __device__ __forceinline__ void pack_weights(uint32_t* wp, uint32_t* bp, const f
     bp[i] = pack2(c0 < d ? bs[l * d + c0] : 0.f, c1 < d ? bs[l * d + c1] : 0.f);
   }
   __syncthreads();
+}
+
+// One cross layer on R rows of bf16x2 pairs, interleaved: the bf16
+// forward's layer, and the bf16 backward's recompute of its layer inputs.
+// Each row's gate is an f32 fmaf chain of exact products (x_l's bf16 values
+// times w_l's, wl(j) the f32 value of w_l at the lane's column j) in column
+// order j = 0, 1, ..., the R sums go over the warp together and are rounded once to
+// bf16 (g2, the gate in both halves); then the update on pairs, each
+// elementwise product and sum one mul.rn / add.rn.bf16x2, rounded once where
+// the plain version rounds (bl(q): pair q of b_l in the lane's layout).
+template <int NPL, int R, class W, class Bias>
+__device__ __forceinline__ void layer_pairs(uint32_t (&x)[R][(NPL + 1) / 2],
+                                            const uint32_t (&xin)[R][(NPL + 1) / 2], uint32_t (&g2)[R],
+                                            W wl, Bias bl, int lane, int d, int canonical) {
+  constexpr int P = (NPL + 1) / 2;
+  float t[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    t[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+      const int c = lane + 32 * j;
+      const float xj = j % 2 ? hi_f(x[i][j / 2]) : lo_f(x[i][j / 2]);
+      if (c < d) t[i] = fmaf(xj, wl(j), t[i]);
+    }
+  }
+  warp_sums<R>(t);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    g2[i] = pack2(t[i], t[i]);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const uint32_t b2 = bl(q);
+      x[i][q] = canonical ? add2(add2(mul2(xin[i][q], g2[i]), b2), x[i][q])
+                          : add2(add2(x[i][q], mul2(x[i][q], g2[i])), b2);
+    }
+  }
 }
 
 // bfloat16: R rows of the backward on bf16x2 pairs. The gates (f32 products
@@ -656,30 +662,19 @@ __device__ __forceinline__ void rows_bf16(const bf16* (&xr)[R], const bf16* (&dy
 #pragma unroll
   for (int l = 0; l < LMAX; ++l) {
     if (l < L) {
-      float t[R];
+      uint32_t gl[R];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        t[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < NPL; ++j) {
-          const int c = lane + 32 * j;
-          const float xj = j % 2 ? hi_f(x[i][j / 2]) : lo_f(x[i][j / 2]);
-          if (c < d) t[i] = fmaf(xj, ws[l * d + c], t[i]);
-        }
 #pragma unroll
         for (int q = 0; q < P; ++q) xs[i][l][q] = x[i][q];
       }
-      warp_sums<R>(t);
+      const float* wl = ws + l * d;
+      const uint32_t* bl = bp + l * kPairs * 32;
+      layer_pairs<NPL, R>(
+          x, xin, gl, [=](int j) { return wl[lane + 32 * j]; }, [=](int q) { return bl[q * 32 + lane]; }, lane,
+          d, canonical);
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        g2[i][l] = pack2(t[i], t[i]);  // the gate, rounded to bf16, in both halves
-#pragma unroll
-        for (int q = 0; q < P; ++q) {
-          const uint32_t b2 = bp[(l * kPairs + q) * 32 + lane];
-          x[i][q] = canonical ? add2(add2(mul2(xin[i][q], g2[i][l]), b2), x[i][q])
-                              : add2(add2(x[i][q], mul2(x[i][q], g2[i][l])), b2);
-        }
-      }
+      for (int i = 0; i < R; ++i) g2[i][l] = gl[i];
     }
   }
 #pragma unroll
@@ -867,6 +862,193 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(kThreads, NPL <= 4 
   });
 }
 
+// ---- the forward -----------------------------------------------------------
+
+// Rows a warp of the forward walks at once: 2 where two rows' registers (x0
+// and x_l of each, f32 values or bf16x2 pairs) and a layer's w and b (the
+// lane's columns) fit 64 registers a thread (four blocks an SM) with 24 to
+// spare for addresses, the gates and the loop; else 1.
+template <class T, int NPL>
+__host__ __device__ constexpr int fwd_rows_at_once() {
+  constexpr bool kBf16 = std::is_same_v<T, bf16>;
+  constexpr int pairs = (NPL + 1) / 2, per_row = 2 * (kBf16 ? pairs : NPL);
+  constexpr int weights = kBf16 ? NPL + pairs : 2 * NPL;
+  return 2 * per_row + weights + 24 <= 64 ? 2 : 1;
+}
+
+// float32: R rows of the forward, interleaved. Each layer's w and b (the
+// lane's columns) come into registers once for the R rows; the R gates (fmaf
+// chains) go over the warp together, then each row's update as layer_step
+// makes it, so y does not depend on R. wl(l, j), bl(l, j): w_l, b_l at the
+// lane's column j.
+template <int NPL, int R, class W, class Bias>
+__device__ __forceinline__ void fwd_rows_f32(const float* (&xr)[R], float* (&out)[R], W wl, Bias bl, int lane,
+                                             int d, int L, int canonical) {
+  float xin[R][NPL], x[R][NPL];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    load_row<NPL>(xin[i], xr[i], lane, d);
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) x[i][j] = xin[i][j];
+  }
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    float wr[NPL], br[NPL], t[R];
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+      wr[j] = lane + 32 * j < d ? wl(l, j) : 0.f;
+      br[j] = lane + 32 * j < d ? bl(l, j) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) t[i] = lane_dot<NPL>(x[i], [&](int j) { return wr[j]; }, lane, d);
+    warp_sums<R>(t);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      layer_step<NPL>(x[i], xin[i], t[i], [&](int j) { return br[j]; }, lane, d, canonical);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) store_row<NPL>(out[i], x[i], lane, d);
+}
+
+// bfloat16: R rows of the forward on bf16x2 pairs from load to store. Each
+// layer's w (f32 values, exact) and b (pairs) come into registers once for
+// the R rows. wl(l, j): w_l's f32 value at the lane's column j; bl(l, q):
+// pair q of b_l in the lane's layout.
+template <int NPL, int R, class W, class Bias>
+__device__ __forceinline__ void fwd_rows_bf16(const bf16* (&xr)[R], bf16* (&out)[R], W wl, Bias bl, int lane,
+                                              int d, int L, int canonical) {
+  constexpr int P = (NPL + 1) / 2;
+  uint32_t xin[R][P], x[R][P];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    load_pairs<NPL>(xin[i], xr[i], lane, d);
+#pragma unroll
+    for (int q = 0; q < P; ++q) x[i][q] = xin[i][q];
+  }
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    float wr[NPL];
+    uint32_t br[P], g2[R];
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) wr[j] = lane + 32 * j < d ? wl(l, j) : 0.f;
+#pragma unroll
+    for (int q = 0; q < P; ++q) br[q] = bl(l, q);
+    layer_pairs<NPL, R>(
+        x, xin, g2, [&](int j) { return wr[j]; }, [&](int q) { return br[q]; }, lane, d, canonical);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) store_pairs<NPL>(out[i], x[i], lane, d);
+}
+
+// Where a forward block's lanes read w and b: its shared memory (s: the f32
+// copies, and b's pairs for bf16), or global memory through L1 (s null).
+template <class T>
+struct FwdWeights {
+  const T* w;
+  const T* b;
+  const Layout* s;
+};
+
+// The warp's rows r, r + 8, ..., r + 8 (R - 1) of a tile of rows from row
+// r0: its first `copied` rows from `staged` (the ring), the rest from x0.
+template <class T, int NPL, int R, bool kShared>
+__device__ __forceinline__ void fwd_tile_rows(int r, const T* staged, int copied, int r0,
+                                              const T* __restrict__ x0, T* __restrict__ y,
+                                              const FwdWeights<T>& wb, int lane, int d, int L, int canonical) {
+  const T* xr[R];
+  T* out[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int rr = r + kWarps * i;
+    const size_t row = r0 + rr;
+    xr[i] = rr < copied ? staged + rr * d : x0 + row * d;
+    out[i] = y + row * d;
+  }
+  if constexpr (std::is_same_v<T, bf16>) {
+    if constexpr (kShared) {
+      const float* ws = wb.s->ws;
+      const uint32_t* bp = wb.s->pairs + L * kPairs * 32;
+      fwd_rows_bf16<NPL, R>(
+          xr, out, [=](int l, int j) { return ws[l * d + lane + 32 * j]; },
+          [=](int l, int q) { return bp[(l * kPairs + q) * 32 + lane]; }, lane, d, L, canonical);
+    } else {
+      const bf16* w = wb.w;
+      const bf16* b = wb.b;
+      fwd_rows_bf16<NPL, R>(
+          xr, out, [=](int l, int j) { return to_f(w[l * d + lane + 32 * j]); },
+          [=](int l, int q) { return pair_at<NPL>(b + l * d, q, lane, d); }, lane, d, L, canonical);
+    }
+  } else {
+    const float* w = kShared ? wb.s->ws : wb.w;
+    const float* b = kShared ? wb.s->bs : wb.b;
+    fwd_rows_f32<NPL, R>(
+        xr, out, [=](int l, int j) { return w[l * d + lane + 32 * j]; },
+        [=](int l, int j) { return b[l * d + lane + 32 * j]; }, lane, d, L, canonical);
+  }
+}
+
+// A tile's rows through the forward: the warp's rows warp, warp + 8, ... R
+// at a time, then the last ones one at a time.
+template <class T, int NPL, bool kShared>
+__device__ __forceinline__ void fwd_tile(const T* staged, int copied, int r0, int n, const T* __restrict__ x0,
+                                         T* __restrict__ y, const FwdWeights<T>& wb, int lane, int warp, int d,
+                                         int L, int canonical) {
+  constexpr int R = fwd_rows_at_once<T, NPL>();
+  int r = warp;
+  if constexpr (R > 1) {
+    for (; r + kWarps * (R - 1) < n; r += kWarps * R)
+      fwd_tile_rows<T, NPL, R, kShared>(r, staged, copied, r0, x0, y, wb, lane, d, L, canonical);
+  }
+  for (; r < n; r += kWarps) fwd_tile_rows<T, NPL, 1, kShared>(r, staged, copied, r0, x0, y, wb, lane, d, L, canonical);
+}
+
+// The forward through the ring: w and b into shared memory once a block,
+// tiles by bulk copies. Four blocks an SM (64 registers a thread at most),
+// as the plans take them.
+template <class T, int NPL>
+__global__ void __launch_bounds__(kThreads, 4)
+    cross_fwd_kernel(const T* __restrict__ x0, const T* __restrict__ w,
+                     const T* __restrict__ b, T* __restrict__ y, int B, int d, int L,
+                     int canonical, int rows, int stages, long long x_stride) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // This block's trial (grid axis y): its rows and its weights.
+  x0 += blockIdx.y * x_stride;
+  y += blockIdx.y * x_stride;
+  w += (size_t)blockIdx.y * L * d;
+  b += (size_t)blockIdx.y * L * d;
+  constexpr bool kBf16 = std::is_same_v<T, bf16>;
+  const Layout s(smem, d, L, kBf16);
+  const TileRing<T> ring{s.bars, reinterpret_cast<T*>(s.ring), B, d, rows, stages, 1};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mine = tiles_of_block(B, rows);
+  start(ring, mine, x0, static_cast<const T*>(nullptr), w, b, s.ws, s.bs, L * d);
+  if constexpr (kBf16) pack_weights(s.pairs, s.pairs + L * kPairs * 32, s.ws, s.bs, d, L);
+  const FwdWeights<T> wb{w, b, &s};
+  for (int k = 0; k < mine; ++k) {
+    ring.wait(k);
+    fwd_tile<T, NPL, true>(ring.tile(k, 0), ring.copied_rows(k), ring.first_row(k), ring.n_rows(k), x0, y, wb,
+                           lane, warp, d, L, canonical);
+    finish_tile(ring, k, mine, x0, static_cast<const T*>(nullptr));
+  }
+}
+
+// The forward where every block has one tile of at most R rows a warp: the
+// block reads its rows, w and b straight from global memory (w and b
+// through L1, where the trial's blocks on an SM share them), with no shared
+// memory, mbarrier or barrier, so its warps start on their rows at once.
+template <class T, int NPL>
+__global__ void __launch_bounds__(kThreads, 4)
+    cross_fwd_direct_kernel(const T* __restrict__ x0, const T* __restrict__ w,
+                            const T* __restrict__ b, T* __restrict__ y, int B, int d, int L,
+                            int canonical, int rows, long long x_stride) {
+  x0 += blockIdx.y * x_stride;
+  y += blockIdx.y * x_stride;
+  const FwdWeights<T> wb{w + (size_t)blockIdx.y * L * d, b + (size_t)blockIdx.y * L * d, nullptr};
+  const int r0 = blockIdx.x * rows;
+  fwd_tile<T, NPL, false>(nullptr, 0, r0, min(rows, B - r0), x0, y, wb, threadIdx.x & 31, threadIdx.x >> 5, d, L,
+                          canonical);
+}
+
 bool valid_cluster(int cluster) {
   return cluster == kCluster || cluster == kSmallCluster;
 }
@@ -927,13 +1109,21 @@ cudaError_t fwd_capacity(size_t smem, int* n) {
   return err;
 }
 
+// The direct kernel where the plan gives every block one tile of at most R
+// rows a warp, else the ring's.
 template <class T, int NPL>
 cudaError_t launch_fwd(const T* x0, const T* w, const T* b, T* y, int K, long long x_stride, int B,
                        int d, int L, int canonical, int rows, int grid, int stages,
                        cudaStream_t stream) {
-  cross_fwd_kernel<T, NPL>
-      <<<dim3(grid, K), kThreads, smem_bytes(rows, stages, d, L, false, sizeof(T)), stream>>>(
-          x0, w, b, y, B, d, L, canonical, rows, stages, x_stride);
+  const int tiles = (B + rows - 1) / rows;
+  if (tiles <= grid && rows <= kWarps * fwd_rows_at_once<T, NPL>()) {
+    cross_fwd_direct_kernel<T, NPL>
+        <<<dim3(tiles, K), kThreads, 0, stream>>>(x0, w, b, y, B, d, L, canonical, rows, x_stride);
+  } else {
+    cross_fwd_kernel<T, NPL>
+        <<<dim3(grid, K), kThreads, smem_bytes(rows, stages, d, L, false, sizeof(T)), stream>>>(
+            x0, w, b, y, B, d, L, canonical, rows, stages, x_stride);
+  }
   return cudaGetLastError();
 }
 
@@ -984,7 +1174,7 @@ cudaError_t launch_bwd(const T* x0, const T* w, const T* b, const T* dy, T* dx0,
 
 template <class T>
 int capacity_typed(int d, bool backward, int cluster, int* n) {
-  const size_t smem = smem_bytes(kMaxRing, 1, d, kMaxLayers, backward, sizeof(T));
+  const size_t smem = smem_bytes(backward ? kMaxRing : kFwdRing, 1, d, kMaxLayers, backward, sizeof(T));
 #define HHRS_CAPACITY(NPL)                                                                 \
   (!backward                ? fwd_capacity<T, NPL>(smem, n)                                 \
    : cluster == kCluster ? bwd_capacity<T, NPL, kCluster>(smem, n)                       \
@@ -1048,9 +1238,9 @@ int hhrs_cross_prepare() {
 // Blocks of the forward or the backward for rows of width d (1 <= d <= 256)
 // and the element type (is_bf16 != 0: bfloat16, else float32) that the current
 // device runs at once (the backward in whole clusters of `cluster` blocks, 8
-// or 2), at the shared memory of the largest plan (96 rows in flight, 6
-// layers), so that every plan's grid fits; a negative CUDA error code on
-// failure. Call after hhrs_cross_prepare.
+// or 2), at the shared memory of the largest plan (6 layers; 96 rows in
+// flight, the forward's plans 64), so that every plan's grid fits; a
+// negative CUDA error code on failure. Call after hhrs_cross_prepare.
 int hhrs_cross_capacity(int d, int backward, int is_bf16, int cluster) {
   if (backward && !valid_cluster(cluster)) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;

@@ -27,10 +27,10 @@ stacked ``[L, d]``. Two variants:
   :func:`cross_stack_apply_trials` and :func:`cross_stack_backward_ref_trials`
   are the plain versions (K single-trial calls); :func:`cross_stack_forward_trials`
   and :func:`cross_stack_backward_trials` launch the kernels once for all K
-  trials: the forward each trial under the single-trial plan of B rows, the
-  backward under :func:`trial_plan` (the K grids in one wave), so lane k's y
-  and dx0 are bit for bit the single-trial kernels' on lane k's inputs, and
-  its dw and db those of :func:`cross_stack_backward` under the trial plan;
+  trials: the forward under :func:`fwd_trial_plan`, the backward under
+  :func:`trial_plan` (each the K grids in one wave), so lane k's y and dx0
+  are bit for bit the single-trial kernels' on lane k's inputs, and its dw
+  and db those of :func:`cross_stack_backward` under the trial plan;
   :class:`CrossStackTrialsFn` and :func:`cross_stack_trials` are the
   autograd function and the model's call.
 
@@ -211,7 +211,9 @@ def _kernels() -> _Kernels:
 # The launch plan. csrc/cross_stack.cu runs 8 warps a block and takes tiles
 # of up to 48 rows (a multiple of ROW_ALIGN[dtype], 4 float32 rows or 8
 # bfloat16 rows: a bulk copy moves a multiple of 16 bytes at any width),
-# up to 3 tiles and 96 rows in flight per block. A plan takes as
+# up to 3 tiles and 96 rows in flight per block (the forward's plans 64,
+# FWD_RING, at whose shared memory the card's capacity for it is asked, so
+# four blocks of it fit an SM at d = 145 in float32). A plan takes as
 # many blocks as the card reports it runs at once, at the largest plan's
 # shared memory: for the forward at most 4 an SM; for the backward, with
 # its per-warp gradient sums in registers, at most 2 (up to d = 128; the
@@ -222,6 +224,7 @@ WARPS = 8
 MAX_ROWS = 48
 MAX_STAGES = 3
 MAX_RING = 96
+FWD_RING = 64
 FWD_BLOCKS_PER_SM = 4
 BWD_BLOCKS_PER_SM = 2
 CLUSTER = 8
@@ -262,6 +265,43 @@ def cross_plan(B: int, blocks: int, cluster: int = 1, align: int = 4) -> CrossPl
     tiles = -(-B // rows)
     grid = -(-min(tiles, blocks) // cluster) * cluster
     return CrossPlan(rows, grid, min(MAX_STAGES, MAX_RING // rows, -(-tiles // grid)))
+
+
+@functools.cache
+def fwd_plan(B: int, blocks: int, align: int = 4) -> CrossPlan:
+    """The forward's plan for ``B >= 1`` rows on a card that runs ``blocks``
+    forward blocks at once: :func:`cross_plan`'s (no clusters), except where
+    a block's share of the batch is more than ``MAX_ROWS`` rows. There the
+    tiles are the fewest of at most ``FWD_RING / 2`` rows that hold a
+    block's share, of equal rows (a multiple of ``align``), so two are in
+    flight at once and no block carries a tile more than another where
+    tiles of ``MAX_ROWS`` would (at 4096 rows over 66 blocks: two tiles of 48
+    rows on 20 blocks, one on 46; here two of 32 on every block). At most
+    ``FWD_RING`` rows are in flight a block."""
+    per_block = -(-B // blocks)
+    if per_block <= MAX_ROWS:
+        plan = cross_plan(B, blocks, 1, align)
+    else:
+        share = -(-per_block // -(-per_block // (FWD_RING // 2)))
+        rows = -(-share // align) * align
+        tiles = -(-B // rows)
+        grid = min(tiles, blocks)
+        plan = CrossPlan(rows, grid, -(-tiles // grid))
+    return plan._replace(stages=min(plan.stages, MAX_STAGES, FWD_RING // plan.rows))
+
+
+@functools.cache
+def fwd_trial_plan(B: int, K: int, blocks: int, align: int = 4) -> CrossPlan:
+    """The plan of the trial-axis forward for ``K`` trials of ``B >= 1``
+    rows on a card that runs ``blocks`` forward blocks at once: the
+    single-trial :func:`fwd_plan` of B rows over ``blocks // K`` blocks (at
+    least one). The K grids then fit the card together, in one wave,
+    whenever ``K <= blocks``, and each block carries more rows (the
+    kernel's warps walk two of them at once), where the single-trial plan of
+    B rows took the whole card for each trial and the K grids ran in waves.
+    Where K single-trial grids already fit the card, this is the
+    single-trial plan."""
+    return fwd_plan(B, max(1, blocks // K), align)
 
 
 # A trial plan leaves clusters of 8 for clusters of 2 only where clusters of
@@ -313,8 +353,21 @@ def plan_of(x0: torch.Tensor, backward: bool) -> CrossPlan:
 
 @functools.cache
 def _plan(B: int, device_index: int, d: int, backward: bool, dtype: torch.dtype) -> CrossPlan:
-    return cross_plan(B, _capacity(device_index, d, backward, dtype), CLUSTER if backward else 1,
-                      ROW_ALIGN[dtype])
+    if backward:
+        return cross_plan(B, _capacity(device_index, d, True, dtype), CLUSTER, ROW_ALIGN[dtype])
+    return fwd_plan(B, _capacity(device_index, d, False, dtype), ROW_ALIGN[dtype])
+
+
+def fwd_trial_plan_of(x0: torch.Tensor) -> CrossPlan:
+    """The plan the trial-axis forward takes for a CUDA ``x0 [K, B, d]``:
+    :func:`fwd_trial_plan` on the card's capacity."""
+    K, B, d = x0.shape
+    return _fwd_trial_plan(max(B, 1), K, x0.get_device(), d, x0.dtype)
+
+
+@functools.cache
+def _fwd_trial_plan(B: int, K: int, device_index: int, d: int, dtype: torch.dtype) -> CrossPlan:
+    return fwd_trial_plan(B, K, _capacity(device_index, d, False, dtype), ROW_ALIGN[dtype])
 
 
 def trial_plan_of(x0: torch.Tensor) -> CrossPlan:
@@ -722,9 +775,9 @@ def _laid_out(t: torch.Tensor, stride: int) -> torch.Tensor:
 def cross_stack_forward_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str,
                                plan: CrossPlan | None = None) -> torch.Tensor:
     """One launch of the forward kernel for K trials on CUDA tensors → y
-    ``[K, B, d]``, each trial under :func:`plan_of`'s plan for its ``[B, d]``
-    rows unless one is given, so lane k is :func:`cross_stack_forward` on
-    lane k's inputs bit for bit. ``.launches`` counts the float32 launches,
+    ``[K, B, d]``, each trial under :func:`fwd_trial_plan_of`'s plan unless
+    one is given; lane k is :func:`cross_stack_forward` on lane k's inputs
+    bit for bit under any plan. ``.launches`` counts the float32 launches,
     ``.launches_bf16`` the bfloat16 ones."""
     _check_trial_inputs({"x0": x0, "w": w, "b": b}, variant)
     if plan is not None:
@@ -743,7 +796,7 @@ def _forward_trials(w, b, x0, canonical: bool, plan: CrossPlan | None) -> torch.
     stride = _lane_stride(x0)
     xa = _laid_out(x0, stride)
     y = torch.empty_like(xa)
-    p = plan or _plan(B, index, d, False, x0.dtype)
+    p = plan or _fwd_trial_plan(B, K, index, d, x0.dtype)
     lib = _kernels().lib
     err = lib.hhrs_cross_fwd_trials(xa.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), K, stride, B, d,
                                     w.shape[1], canonical, p.rows, p.grid, p.stages,

@@ -30,26 +30,31 @@ entry points that every tree of the port with both kernels has:
   term-scale bar (bf16: entries outside ``CROSS_BF16_TOL`` are counted and
   printed, not refused: a bf16 gate that rounds the other way moves a row by
   2⁻⁷·|g|·|x0|, past that bar where |g| > 1/2, in the parent as well), and a
-  repeated backward held to the first bit for bit; timed at B = 512, 4487, 8192 and 32768 (d =
-  113, L = 3), both dtypes, and, where the tree has ``cross.plan_of``, at
+  repeated backward held to the first bit for bit; timed at B = 512, 4487,
+  8192 and 32768, both dtypes, at d = 113, L = 3 and at d = 145, L = 6
+  (``CROSS_TIMED_SHAPES``), and, where the tree has ``cross.plan_of``, at
   each alternative plan of tile rows, whose y and dx0 must equal the chosen
-  plan's bit for bit; the float32 backward also at L = 1 and 6 (B = 8192),
-  which shows how its time follows the row's chain of 2L reductions;
-* the trial-axis backward (``cross.cross_stack_backward_trials``, where the
-  tree has it) at K = 8, 16 and 64 (``TRIAL_KS``) on ``chip_smoke.py``'s
-  phase 11a shapes, both
-  dtypes, under the tree's own plan, the single-trial plan of B rows and
-  the trial plan in clusters of 8 (the single-trial plan over capacity // K
-  blocks in whole clusters, computed here from ``cross.capacity`` and
+  plan's bit for bit; both kernels also at d = 113, L = 1 and 6 (B = 8192,
+  float32), which shows how their time follows the row's chain of L or 2L
+  reductions;
+* the trial-axis kernels (``cross.cross_stack_forward_trials`` and
+  ``cross_stack_backward_trials``, where the tree has them) at K = 8, 16 and
+  64 (``TRIAL_KS``) on ``chip_smoke.py``'s phase 11a shapes, both dtypes:
+  the backward under the tree's own plan, the single-trial plan of B rows
+  and the trial plan in clusters of 8 (the single-trial plan over capacity
+  // K blocks in whole clusters, computed here from ``cross.capacity`` and
   ``cross.cross_plan``, so any tree with a trial axis takes it through
   ``plan=``) and, in a tree with clusters of 2, the same in clusters of 2:
-  dx0 under
-  every plan, and dw / db under each named plan, kept for the comparison;
-  each plan timed;
+  dx0 under every plan, and dw / db under each named plan, kept for the
+  comparison; the forward under the tree's own plan, the single-trial plan
+  and the forward trial plan (the single-trial plan over capacity // K
+  forward blocks, computed here the same way) and that plan's tiles of 16
+  and 32 rows: y under every plan, which must be the tree's own plan's bit
+  for bit; each plan timed with its waves;
 * the tree's cross library as built: ptxas's registers and spills for each
   kernel instance and, where the toolkit has ``cuobjdump``, the static SASS
-  instruction counts of each backward instance by kind (conversions,
-  shuffles, f32 and bf16x2 arithmetic, shared-memory loads).
+  instruction counts of each forward and backward instance by kind
+  (conversions, shuffles, f32 and bf16x2 arithmetic, shared-memory loads).
 
 Times are CUDA-event means and each kernel's device time per call from
 torch.profiler (for the backward, every kernel of one call: one in a tree
@@ -75,11 +80,12 @@ KERNEL = "tower_eval_kernel"
 CROSS_B = (1, 3, 5, 512, 1000, 4487, 8192, 32768)
 CROSS_BF16_B = (1, 5, 9, 512, 4487, 8192, 32768)  # bf16 rows are bulk-copied 8 at a time
 CROSS_WIDE_B = (5, 512, 4096)  # d = 145 with L = 1 and 6
-CROSS_TIMED_B = ((512, 500), (4487, 300), (8192, 200), (32768, 100))  # (B, calls), d = 113, L = 3
-LAYERS_TIMED = ((1, 200), (6, 200))  # (L, calls): the float32 backward at B = 8192 beside L = 3
-# the trial-axis backward's group sizes: phase 11a's K = 8, and 16 and 64,
-# where the trial plan's choice between clusters of 8 and 2 was not timed
-# before (K = 64 is past the capacity of one cluster of 8 a trial at d = 113)
+CROSS_TIMED_B = ((512, 500), (4487, 300), (8192, 200), (32768, 100))  # (B, calls)
+CROSS_TIMED_SHAPES = ((113, 3), (145, 6))  # (d, L): the hpo_r5 stack and the search space's widest
+LAYERS_TIMED = ((1, 200), (6, 200))  # (L, calls): both float32 kernels at d = 113, B = 8192 beside L = 3
+# the trial-axis kernels' group sizes: phase 11a's K = 8, and 16 and 64,
+# where the backward's trial plan chooses between clusters of 8 and 2 (K =
+# 64 is past the capacity of one cluster of 8 a trial at d = 113)
 TRIAL_KS = (8, 16, 64)
 # (B, d, L, w bound, calls): chip_smoke.py's TRIAL_SHAPES, phase 11a's shapes
 TRIAL_CASES = ((512, 113, 3, 1.0, 300), (4096, 145, 6, 0.25, 100))
@@ -246,11 +252,12 @@ def cross_run(card: str, dev) -> dict:
     print(f"[cross] {len(outputs)} cases", flush=True)
 
     times = []
-    t = inputs[113]
     with torch.no_grad():
-        timed = [(dtype, B, 3, calls) for dtype in ("float32", "bfloat16") for B, calls in CROSS_TIMED_B]
-        timed += [("float32", 8192, L, calls) for L, calls in LAYERS_TIMED]
-        for dtype, B, L, calls in timed:
+        timed = [(dtype, d, L, B, calls) for dtype in ("float32", "bfloat16") for d, L in CROSS_TIMED_SHAPES
+                 for B, calls in CROSS_TIMED_B]
+        timed += [("float32", 113, L, 8192, calls) for L, calls in LAYERS_TIMED]
+        for dtype, d, L, B, calls in timed:
+            t = inputs[d]
             cast = (lambda a: a.to(torch.bfloat16).contiguous()) if dtype == "bfloat16" else (lambda a: a)
             x0, dy = cast(t["x0"][:B].contiguous()), cast(t["dy"][:B].contiguous())
             if L <= t["w"].shape[0]:
@@ -259,8 +266,6 @@ def cross_run(card: str, dev) -> dict:
                 w = cast(inputs[145]["w"][:L, :113].contiguous() * (145 / 113) ** 0.5)
                 b = cast(inputs[145]["b"][:L, :113].contiguous())
             for kind, name in (("fwd", "cross_fwd"), ("bwd", "cross_bwd")):
-                if L != 3 and kind == "fwd":
-                    continue
 
                 def call(plan=None):
                     extra = {} if plan is None else {"plan": plan}
@@ -277,14 +282,14 @@ def cross_run(card: str, dev) -> dict:
                     for what, plan in plans.items():
                         got = call(plan) if kind == "fwd" else call(plan)[0]
                         if not torch.equal(got, want):
-                            raise SystemExit(f"kernel_ab: cross {dtype} {kind} at B={B} under {what} differs "
-                                             "from the chosen plan's output")
+                            raise SystemExit(f"kernel_ab: cross {dtype} {kind} at B={B} d={d} L={L} under {what} "
+                                             "differs from the chosen plan's output")
                 for what, plan in plans.items():
                     ms = chip_smoke.time_cuda(lambda: call(plan), calls)
                     device_ms = chip_smoke.device_ms_per_call(lambda: call(plan), 50, name, launches)
-                    times.append(dict(dtype=dtype, B=B, L=L, kind=kind, what=what, ms=ms, device_ms=device_ms,
-                                      kernels=launches))
-                    print(f"[time] cross {dtype} {kind} B={B} L={L} {what}: {ms:.4f} ms (device "
+                    times.append(dict(dtype=dtype, B=B, d=d, L=L, kind=kind, what=what, ms=ms,
+                                      device_ms=device_ms, kernels=launches))
+                    print(f"[time] cross {dtype} {kind} B={B} d={d} L={L} {what}: {ms:.4f} ms (device "
                           f"{chip_smoke.ms_text(device_ms, 1e3, 2)} us, {launches} kernels a call) on {card}",
                           flush=True)
     return dict(outputs=outputs, times=times)
@@ -308,9 +313,30 @@ def trial_plan(cross, x0, K: int):
     return cross.cross_plan(x0.shape[0], per_trial, cross.CLUSTER, cross.ROW_ALIGN[x0.dtype])
 
 
+def fwd_trial_plans(cross, x0, K: int) -> dict:
+    """The forward's plans of K trials of x0's B rows besides the tree's own
+    and the single-trial one: the single-trial plan over capacity // K
+    forward blocks (at least one; the forward has no clusters), which puts
+    the K grids on the card in one wave, and the same blocks with tiles of
+    16 and 32 rows."""
+    B, align = x0.shape[0], cross.ROW_ALIGN[x0.dtype]
+    per_trial = max(1, cross.capacity(x0, False) // K)
+    plan = cross.cross_plan(B, per_trial, 1, align)
+    plans = {"forward trial plan": plan}
+    for rows in (16, 32):
+        tiles = -(-B // rows)
+        grid = min(tiles, per_trial)
+        other = cross.CrossPlan(rows, grid, min(cross.MAX_STAGES, cross.MAX_RING // rows, -(-tiles // grid)))
+        if other != plan:
+            plans[f"forward trial plan, tiles of {rows}"] = other
+    return plans
+
+
 def trial_run(card: str, dev) -> dict:
-    """The trial-axis backward at each K of TRIAL_KS under the tree's plan,
-    the single-trial plan and the trial plans: outputs and device times."""
+    """The trial-axis kernels at each K of TRIAL_KS: the backward under the
+    tree's plan, the single-trial plan and the trial plans, the forward under
+    the tree's plan, the single-trial plan and the forward trial plans:
+    outputs and device times."""
     import numpy as np
     import torch
 
@@ -321,6 +347,15 @@ def trial_run(card: str, dev) -> dict:
         return dict(outputs={}, times=[])
     gen = np.random.default_rng(chip_smoke.SEED + 12)
     outputs, times = {}, []
+
+    def timed(kind: str, fn, key: str, shown, held: int, calls: int, row: dict) -> None:
+        ms = chip_smoke.time_cuda(fn, calls)
+        device_ms = chip_smoke.device_ms_per_call(fn, 50, f"cross_{kind}")
+        waves = -(-row["K"] * shown.grid // held)
+        times.append(dict(row, kind=kind, plan=tuple(shown), waves=waves, ms=ms, device_ms=device_ms))
+        print(f"[time] trial-axis cross {kind} {key.removeprefix('fwd ')} {tuple(shown)} ({waves} waves of {held} "
+              f"blocks): {ms:.4f} ms (device {chip_smoke.ms_text(device_ms, 1e3, 2)} us) on {card}", flush=True)
+
     with torch.no_grad():
         for (B, d, L, bound, calls), K in ((case, K) for K in TRIAL_KS for case in TRIAL_CASES):
             f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()  # noqa: E731
@@ -347,18 +382,28 @@ def trial_run(card: str, dev) -> dict:
                         raise SystemExit(f"kernel_ab: a repeated trial-axis backward differs at B={B} {what}")
                     key = f"{dtype} K={K} B={B} d={d} L={L} {what}"
                     outputs[key] = {"dx0": kept(dx0), "dw": dw.cpu(), "db": db.cpu()}
-                    ms = chip_smoke.time_cuda(fn, calls)
-                    device_ms = chip_smoke.device_ms_per_call(fn, 50, "cross_bwd")
                     own = cross.trial_plan_of(args[2]) if hasattr(cross, "trial_plan_of") else plans["single-trial plan"]
                     shown = plan or own
                     cluster = getattr(shown, "cluster", cross.CLUSTER)
                     held = cap if cluster == cross.CLUSTER else cross.capacity(args[2][0], True, cluster)
-                    waves = -(-K * shown.grid // held)
-                    times.append(dict(dtype=dtype, K=K, B=B, d=d, L=L, what=what, plan=tuple(shown), waves=waves,
-                                      ms=ms, device_ms=device_ms))
-                    print(f"[time] trial-axis cross bwd {dtype} K={K} B={B} d={d} L={L} {what} "
-                          f"{tuple(shown)} ({waves} waves of {held} blocks): {ms:.4f} ms "
-                          f"(device {chip_smoke.ms_text(device_ms, 1e3, 2)} us) on {card}", flush=True)
+                    timed("bwd", fn, key, shown, held, calls, dict(dtype=dtype, K=K, B=B, d=d, L=L, what=what))
+
+                single = cross.plan_of(args[2][0], False)
+                plans = {"tree's plan": None, "single-trial plan": single, **fwd_trial_plans(cross, args[2][0], K)}
+                own = cross.fwd_trial_plan_of(args[2]) if hasattr(cross, "fwd_trial_plan_of") else single
+                held, want = cross.capacity(args[2][0], False), None
+                for what, plan in plans.items():
+                    extra = {} if plan is None else {"plan": plan}
+                    fn = lambda extra=extra: cross.cross_stack_forward_trials(*args[:3], "code", **extra)  # noqa: E731
+                    y = fn()
+                    torch.cuda.synchronize()
+                    want = y if want is None else want
+                    if not torch.equal(y, want):
+                        raise SystemExit(f"kernel_ab: the trial-axis forward at {dtype} K={K} B={B} under {what} "
+                                         "differs from the tree's plan's y")
+                    key = f"fwd {dtype} K={K} B={B} d={d} L={L} {what}"
+                    outputs[key] = {"y": kept(y)}
+                    timed("fwd", fn, key, plan or own, held, calls, dict(dtype=dtype, K=K, B=B, d=d, L=L, what=what))
     return dict(outputs=outputs, times=times)
 
 
@@ -371,8 +416,8 @@ SASS_KINDS = {  # SASS opcode prefixes counted by kind
 
 def library_summary(tree: Path) -> dict:
     """The tree's cross library as built: ptxas's (kernel, registers, spill
-    bytes), and the static SASS instruction counts of each backward instance
-    by kind where the toolkit has cuobjdump."""
+    bytes), and the static SASS instruction counts of each forward and
+    backward instance by kind where the toolkit has cuobjdump."""
     import re
     import shutil
     import subprocess
@@ -395,7 +440,8 @@ def library_summary(tree: Path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = chip_smoke.demangled(m.group(1)) if "cross_bwd_kernel" in m.group(1) else None
+            cross_kernel = re.search(r"cross_(fwd|fwd_direct|bwd)_kernel", m.group(1))
+            name = chip_smoke.demangled(m.group(1)) if cross_kernel else None
             if name:
                 counts[name] = dict.fromkeys(["total", *SASS_KINDS], 0)
             continue
@@ -485,27 +531,36 @@ def compare(a_path: Path, b_path: Path) -> int:
           f"{n_sums} of {n_cases} (same inputs, each tree's plan_of); dw/db max|Δ| f32 {worst_sums['float32']:.3e}, "
           f"bf16 {worst_sums['bfloat16']:.3e}")
 
-    n_trial, n_trial_sums, trial_keys = 0, 0, [k for k in a["trials"]["outputs"] if k in b["trials"]["outputs"]]
+    n_trial, n_trial_sums, n_fwd, trial_keys = 0, 0, 0, [k for k in a["trials"]["outputs"]
+                                                           if k in b["trials"]["outputs"]]
     for key in trial_keys:
         oa, ob = a["trials"]["outputs"][key], b["trials"]["outputs"][key]
+        if "y" in oa:  # a forward case
+            same = oa["y"]["digest"] == ob["y"]["digest"]
+            n_trial += same
+            n_fwd += 1
+            print(f"[identity] trial-axis {key}: y bitwise equal {'yes' if same else 'no'} (max|Δ| "
+                  f"{_row_delta(oa['y'], ob['y'])})")
+            continue
         same = oa["dx0"]["digest"] == ob["dx0"]["digest"]
         n_trial += same
         delta = _sums_delta(oa, ob)
         n_trial_sums += delta == 0
         print(f"[identity] trial-axis {key}: dx0 bitwise equal {'yes' if same else 'no'}; dw/db max|Δ| {delta:.3e}")
-    print(f"[identity] trial-axis: dx0 bitwise equal in {n_trial} of {len(trial_keys)} cases, dw/db in "
-          f"{n_trial_sums} (equal only under the same plan)")
+    print(f"[identity] trial-axis: y (forward, {n_fwd} cases) and dx0 (backward, {len(trial_keys) - n_fwd} cases) "
+          f"bitwise equal in {n_trial} of {len(trial_keys)} cases, dw/db in {n_trial_sums} (equal only under the "
+          "same plan)")
 
     for run, label in ((a, "A"), (b, "B")):
         for t in run["times"]:
             print(f"[time] {label} tower B={t['B']} {t['what']}: {t['ms']:.4f} ms (device {chip_smoke.ms_text(t['device_ms'])} ms)")
         for t in run["cross"]["times"]:
-            print(f"[time] {label} cross {t.get('dtype', 'float32')} {t['kind']} B={t['B']} L={t.get('L', 3)} "
-                  f"{t['what']}: {t['ms']:.4f} ms (device {chip_smoke.ms_text(t['device_ms'], 1e3, 2)} us, "
+            print(f"[time] {label} cross {t.get('dtype', 'float32')} {t['kind']} B={t['B']} d={t.get('d', 113)} "
+                  f"L={t.get('L', 3)} {t['what']}: {t['ms']:.4f} ms (device {chip_smoke.ms_text(t['device_ms'], 1e3, 2)} us, "
                   f"{t['kernels']:g} kernels a call)")
         for t in run["trials"]["times"]:
-            print(f"[time] {label} trial-axis bwd {t['dtype']} K={t['K']} B={t['B']} d={t['d']} L={t['L']} "
-                  f"{t['what']} {t['plan']} ({t['waves']} waves): {t['ms']:.4f} ms "
+            print(f"[time] {label} trial-axis {t.get('kind', 'bwd')} {t['dtype']} K={t['K']} B={t['B']} "
+                  f"d={t['d']} L={t['L']} {t['what']} {t['plan']} ({t['waves']} waves): {t['ms']:.4f} ms "
                   f"(device {chip_smoke.ms_text(t['device_ms'], 1e3, 2)} us)")
     tower_ok = n_equal == len(a["logits"])
     return 0 if tower_ok and n_cross == n_cases and n_trial == len(trial_keys) else 2
@@ -518,7 +573,7 @@ def main() -> int:
     parser.add_argument("--compare", nargs=2, type=Path, metavar=("A", "B"), help="compare two runs' files")
     parser.add_argument("--parts", default="tower,cross",
                         help="'tower,cross' (default), 'cross' (the cross and trial-axis cases alone) or "
-                             "'trials' (the trial-axis cases alone)")
+                             "'trials' (the trial-axis forward and backward cases alone)")
     args = parser.parse_args()
     if args.compare:
         return compare(*args.compare)

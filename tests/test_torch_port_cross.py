@@ -262,6 +262,37 @@ def test_trial_plan_covers_every_row_once_in_16_byte_copies(B, K, sm_count, dtyp
         assert plan == cross.cross_plan(B, capacities[0][1], cross.CLUSTER, align)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_sm", [4, 3])
+@pytest.mark.parametrize("sm_count", [132, 120, 60, 1])
+@pytest.mark.parametrize("K", [1, 2, 8, 64])
+@pytest.mark.parametrize("B", [1, 5, 512, 4096, 4487, 100000])
+def test_forward_trial_plan_covers_every_row_once_and_fits_one_wave(B, K, sm_count, per_sm, dtype):
+    """The trial-axis forward's plan on a card that runs ``per_sm`` forward
+    blocks an SM: the single-trial forward plan of B rows over capacity // K
+    blocks (at least one), covering each trial's rows once in 16-byte copies
+    with at most FWD_RING rows in flight a block; no block carries more tiles
+    than its share of the rows needs; the K grids fit the card at once
+    whenever K <= capacity; where K single-trial grids already fit it, the
+    single-trial plan itself (so K = 1 is the single-trial plan); where a
+    block's share is at most MAX_ROWS rows, the backward's kind of plan."""
+    align = cross.ROW_ALIGN[dtype]
+    blocks = per_sm * sm_count
+    per_trial = max(1, blocks // K)
+    plan = cross.fwd_trial_plan(B, K, blocks, align)
+    _assert_plan_covers_every_row_once(plan, B, per_trial, 1, dtype)
+    assert plan == cross.fwd_plan(B, per_trial, align) and plan.stages * plan.rows <= cross.FWD_RING
+    tiles, share = -(-B // plan.rows), -(-B // per_trial)
+    assert -(-tiles // plan.grid) <= -(-share // plan.rows)
+    if share <= cross.MAX_ROWS:
+        assert plan == cross.cross_plan(B, per_trial, 1, align)
+    if K <= blocks:
+        assert K * plan.grid <= blocks
+    single = cross.fwd_plan(B, blocks, align)
+    if K * single.grid <= blocks:
+        assert plan == single
+
+
 def _assert_plan_covers_every_row_once(plan, B: int, blocks: int, cluster: int, dtype) -> None:
     align, elem = cross.ROW_ALIGN[dtype], torch.finfo(dtype).bits // 8
     rows, grid, stages = plan.rows, plan.grid, plan.stages

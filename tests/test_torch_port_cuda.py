@@ -938,6 +938,50 @@ def test_cuda_trial_plan_fits_the_card_and_sums_to_the_bar(dtype, K, B, d, L, bo
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("K,B,d,L", [(8, 512, 113, 3), (3, 4487, 113, 3), (8, 4096, 145, 6), (2, 5, 33, 1)])
+def test_cuda_trial_forward_lanes_are_the_single_trial_kernel_under_every_plan(dtype, variant, K, B, d, L):
+    """The trial-axis forward under its trial plan (the default: the K grids
+    on the card at once), under the single-trial plan and under a small
+    forced plan (three blocks, two tiles in flight, a warp's rows two at a
+    time): every lane's y bit for bit the single-trial kernel's on its
+    inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, _ = _trial_inputs(K, B, d, L, seed=29)
+    if dtype == "bfloat16":
+        w, b, x0 = _bf16(w, b, x0)
+    cap = cross.capacity(x0[0], False)
+    trial = cross.fwd_trial_plan_of(x0)
+    assert trial == cross.fwd_trial_plan(B, K, cap, cross.ROW_ALIGN[x0.dtype]) and K * trial.grid <= cap
+    single = [cross.cross_stack_forward(w[k], b[k], x0[k].clone(), variant) for k in range(K)]
+    for plan in (None, cross.plan_of(x0[0], False), cross.CrossPlan(8, 3, 2)):
+        y = cross.cross_stack_forward_trials(w, b, x0, variant, plan=plan)
+        torch.cuda.synchronize()
+        assert all(torch.equal(y[k], single[k]) for k in range(K)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["code", "canonical"])
+@pytest.mark.parametrize("B,d,L,seed", [(1, 113, 3, 5), (7, 113, 3, 5), (9, 33, 2, 5), (32768, 113, 3, 9)])
+def test_cuda_bf16_forward_on_pairs_meets_the_plain_version(variant, B, d, L, seed):
+    """The bf16 forward on bf16x2 pairs, a warp's rows two at a time where it
+    has two (B = 9: warp 0 has rows 0 and 8): y within CROSS_BF16_TOL of the
+    plain bf16 version on the inputs of the bf16 and tuned-batch tests, bit
+    for bit under plan_of's plan, one block of 8-row tiles and a repeat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    w, b, x0, dy = _bf16(*_cross_inputs(B, d, L, seed=seed))
+    y = cross.cross_stack_forward(w, b, x0, variant)
+    ref = cross.cross_stack_apply(w, b, x0, variant)
+    scale = cross.cross_stack_term_scale(w, b, x0, dy, variant)[0]
+    cross.assert_close_to_scale(y, ref, scale, **CROSS_BF16_TOL, what="y")
+    for plan in (None, cross.CrossPlan(8, 1, 3)):
+        assert torch.equal(cross.cross_stack_forward(w, b, x0, variant, plan=plan), y), plan
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["code", "canonical"])
 @pytest.mark.parametrize("B,d,L,bound", [(512, 113, 3, 1.0), (4487, 113, 3, 1.0), (8192, 113, 1, 1.0),
                                          (32768, 113, 3, 1.0), (4096, 145, 6, 0.25), (1003, 256, 6, 0.25)])
