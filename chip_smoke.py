@@ -193,7 +193,29 @@ Phases (any failure exits non-zero and prints no result line):
    and bf16) and ``hhrs::tower_eval`` launches counted from 0 over the
    exported calls, CUDA-event ms beside the direct route; (d) phase 10a's
    500,000 rows read with ``engine="native"`` and ``engine="python"``:
-   equal tables and splits, both times.
+   equal tables and splits, both times;
+13. serving over a device mesh (``serve/engine.py``'s ``mesh``;
+   ``parallel/``): (a) a world of one rank on NCCL in this process: the
+   golden sweep at buckets 1 and 8 through the mesh engine, graphed and
+   eager, equal to phase 4's engine's JSON, one tower launch per eager
+   batch, the collectives made inside the bucket captures counted, and
+   ``recommend`` p50 beside phase 4's engine in turns;
+   (b) a gloo world of 2 ranks sharing the card (hpo_r5, 300 items a
+   rank): the sweep at buckets 1 and 8 under the serve-correct rule against
+   phase 4's engine (equal JSON, or trades of places only between hotels
+   whose logits differ by less than ``SWAP_TOL``), ``similar_items`` of
+   every item equal, each rank's tower on its rows held to
+   ``tower_eval_ref`` at ``TOL``, its launches, the largest |Δlogit| of a
+   rank's rows against one single-device launch, and one bf16 batch that
+   launches the bf16 cross forward on each rank and no tower and meets the
+   bf16 golden file at phase 5b's bar; (c) the same
+   on phase 10a's data (4,000 items, 500,000 reviews) with a seeded random
+   model at hpo_r5's widths over 3 ranks (4,002 rows), 64 requests, the
+   one-request batch p50 (ranks that share one card: not a multi-GPU
+   speed); (d) ``python -m hhrs_tpu_torch.serve.cli --mesh 2`` boots,
+   answers ``/healthz`` and one ``POST /recommendations`` equal to the
+   single-device answer, and leaves no rank after SIGTERM. Each world's
+   backend and whether it ran graphed are printed.
 
 The last lines are one JSON object of kernel measurements, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -2951,6 +2973,480 @@ def retriever_export_ingest_phase(splits, preproc, bundle, dev, card: str) -> di
     return out
 
 
+# ---- phase 13: serving over a device mesh ------------------------------------ #
+
+PHASE13_DIR = REPO / "build" / "phase13"
+MESH_TUNED_REQUESTS = 64
+MESH_SIMILAR_N = 10
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _engine_logits(engine, req: list, resp: dict) -> list:
+    """A single-device engine's logits of the hotels ranked in ``resp``
+    (the tie rule's inputs)."""
+    import torch
+
+    uni, d = engine.gen.universe, engine._dev
+    rows = torch.as_tensor([uni.item_index[h["hotel_id"]] for h in resp.get("ranked_hotels", [])],
+                           dtype=torch.int64, device=engine.device)
+    users = torch.full_like(rows, engine._user_map.get(req[0], engine._unknown_user))
+    with torch.no_grad():
+        return engine._logits(users, d["item_internal"][rows], d["x_cat"][rows], d["x_num"][rows]).tolist()
+
+
+def _held(got: list, want: list, logits: list, what: str) -> tuple:
+    """(equal JSON count, tie swaps) of mesh responses against the
+    single-device engine's under the serve-correct rule; fails otherwise."""
+    equal = swaps = 0
+    for i, (g, w, lg) in enumerate(zip(got, want, logits)):
+        g = json.loads(json.dumps(g))
+        s = compare_response(g, w, lg)
+        if s is None:
+            raise SmokeFailure(f"{what}: response {i} breaks the serve-correct rule against the single-device engine")
+        equal += g == w
+        swaps += s
+    if len(got) != len(want):
+        raise SmokeFailure(f"{what}: {len(got)} responses for {len(want)} requests")
+    return equal, swaps
+
+
+def mesh_rank_main(spec: dict) -> dict | None:
+    """One rank of a phase-13 gloo world (13b, 13c): the mesh engine over
+    ``spec``'s artifact and data. Every rank holds its tower logits to
+    ``tower_eval_ref`` on the same rows; rank 0 serves ``spec``'s requests
+    (and 13b's ``similar_items`` and bf16 batch) while the others follow;
+    every rank's launches and checks come back to rank 0 → its answers."""
+    import torch
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.ops import cross, tower
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(spec["device"]) if spec["device"] == "cpu" else torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    mesh = make_mesh(-1, 1, dev)
+    t0 = time.perf_counter()
+    eng = RecommendationEngine.from_dirs(spec["artifacts"], spec["data"], device=dev, mesh=mesh)
+    mine = {"rank": rank, "device": str(dev), "cuda_device": torch.cuda.current_device() if dev.type == "cuda" else None,
+            "backend": dist.get_backend(), "graphs": eng.graphs, "rows": (eng.gen.items.start, eng.gen.items.stop),
+            "build_s": time.perf_counter() - t0}
+
+    # each rank's tower on its own rows, against the plain version on the same x0
+    d, m = eng._dev, eng.gen.items.rows
+    local_logits = {}
+    err = bad = 0.0
+    with torch.no_grad():
+        for u in spec["logit_users"]:
+            users = torch.full((m,), u, dtype=torch.int64, device=dev)
+            x0 = tower.build_x0(eng.model, users, d["item_internal"], d["x_cat"], d["x_num"]).contiguous()
+            out = tower.tower_eval(eng._folded, x0, eng.model.cfg.cross_variant)
+            ref = tower.tower_eval_ref(eng._folded, x0, eng.model.cfg.cross_variant)
+            e = (out - ref).abs()
+            err = max(err, float(e.max()))
+            bad += int((e > TOL + TOL * ref.abs()).sum())
+            local_logits[u] = out.cpu().numpy()
+    mine.update(tower_max_abs_err=err, tower_outside_tol=bad, logits=local_logits)
+
+    _sync(dev)
+    tower.tower_eval.launches = 0
+    reset_cross_counts(cross)
+    answers = None
+    if rank == 0:
+        try:
+            times = []
+            sweep = []
+            for req in spec["requests"]:
+                t = time.perf_counter()
+                sweep.append(eng.recommend(*req))
+                times.append(time.perf_counter() - t)
+            batches = [eng.recommend_many(b, pad_to=8) for b in spec["batches"]]
+            similar = [eng.similar_items(i, MESH_SIMILAR_N) for i in spec["similar"]]
+            answers = {"sweep": sweep, "batches": batches, "similar": similar, "batch_s": times}
+        finally:
+            eng.shutdown()
+    else:
+        eng.follow()
+    _sync(dev)
+    mine["tower_launches"] = tower.tower_eval.launches
+    mine["cross_launches"] = cross_counts(cross)
+    mine["tower_route"] = eng._folded is not None  # f32 dcnr: the tower scores, no cross forward runs
+
+    if spec["bf16_batch"]:  # one bf16 batch: cross-forward launches only, no tower launch
+        e16 = RecommendationEngine.from_dirs(spec["artifacts"], spec["data"], device=dev, mesh=mesh, bf16=True)
+        _sync(dev)
+        tower.tower_eval.launches = 0
+        reset_cross_counts(cross)
+        if rank == 0:
+            try:
+                answers["bf16"] = e16.recommend_many(spec["bf16_batch"], pad_to=8)
+            finally:
+                e16.shutdown()
+        else:
+            e16.follow()
+        _sync(dev)
+        mine["bf16_launches"] = {"tower": tower.tower_eval.launches, **cross_counts(cross)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if rank == 0:
+        answers["ranks"] = every
+        return answers
+    return None
+
+
+def _mesh_report(label: str, out: dict, single, reqs: list, card: str) -> dict:
+    """Hold a gloo world's answers (13b, 13c) to the single-device engine
+    and print its ranks: backend, rows, tower parity and launches."""
+    import numpy as np
+
+    want = [single.recommend(*r) for r in reqs]
+    want = [json.loads(json.dumps(w)) for w in want]
+    logits = [_engine_logits(single, r, w) for r, w in zip(reqs, want)]
+    equal, swaps = _held(out["sweep"], want, logits, f"{label} sweep")
+    n_batch = 0
+    for batch, got in zip(out["batches_req"], out["batches"]):
+        w = [json.loads(json.dumps(x)) for x in single.recommend_many(batch, pad_to=8)]
+        e, s = _held(got, w, [_engine_logits(single, r, x) for r, x in zip(batch, w)], f"{label} batch")
+        equal, swaps, n_batch = equal + e, swaps + s, n_batch + len(batch)
+    # the largest |Δlogit| of a rank's rows (B = its rows) against the same rows in one single-device launch
+    import torch
+
+    delta = 0.0
+    M = single.gen.M
+    with torch.no_grad():
+        for u in out["logit_users"]:
+            users = torch.full((M,), u, dtype=torch.int64, device=single.device)
+            d = single._dev
+            full = single._logits(users, d["item_internal"], d["x_cat"], d["x_num"]).cpu().numpy()
+            for r in out["ranks"]:
+                a, b = r["rows"]
+                n = max(0, min(b, M) - a)
+                delta = max(delta, float(np.abs(r["logits"][u][:n] - full[a:a + n]).max()) if n else 0.0)
+    for r in out["ranks"]:
+        print(f"[mesh] {label} rank {r['rank']}: {r['device']} (current cuda:{r['cuda_device']}), backend "
+              f"{r['backend']}, {'graphed' if r['graphs'] else 'eager (no graphs)'}, item rows {r['rows']}, engine "
+              f"built in {r['build_s']:.2f} s; tower_eval on its rows vs tower_eval_ref: max abs err "
+              f"{r['tower_max_abs_err']:.3e}, outside rtol=atol={TOL}: {r['tower_outside_tol']}; launches over the "
+              f"sweep: tower {r['tower_launches']}, cross {r['cross_launches']}")
+        if r["tower_outside_tol"] or r["tower_launches"] <= 0:
+            raise SmokeFailure(f"{label} rank {r['rank']}: tower parity or launches failed")
+        if r["tower_route"] and (r["cross_launches"]["fwd"] or r["cross_launches"]["fwd_bf16"]):
+            raise SmokeFailure(f"{label} rank {r['rank']}: the f32 dcnr sweep launched the cross forward "
+                               f"{r['cross_launches']} beside the tower")
+    print(f"[mesh] {label}: {len(reqs)} requests and {n_batch} batched held to the single-device engine: "
+          f"{equal} equal JSON, {swaps} tie swaps (logits within {SWAP_TOL}); largest |Δlogit| of a rank's "
+          f"rows against one single-device launch {delta:.3e} on {card}")
+    return {"equal": equal, "swaps": swaps, "max_dlogit": delta,
+            "launches": [r["tower_launches"] for r in out["ranks"]]}
+
+
+def mesh_nccl_phase(golden: dict, single, dev, card: str) -> dict:
+    """Phase 13a: a world of one rank on NCCL (the card's own; gloo on the
+    CPU, to rehearse) in this process: the golden sweep at buckets 1 and 8
+    through the mesh engine, graphed and eager, equal to the single-device
+    engine's JSON; one tower launch per eager batch; the collectives made
+    inside each bucket's capture counted; ``recommend`` p50 over the sweep
+    beside the single-device engine's, in turns."""
+    import torch
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.ops import tower
+    from hhrs_tpu_torch.parallel.distributed import init_world
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    t0 = time.perf_counter()
+    store = PHASE13_DIR / "nccl_store"
+    store.unlink(missing_ok=True)
+    init_world(0, 1, f"file://{store}", dev)
+    captured = {"in_capture": 0, "outside": 0}
+    originals = {n: getattr(dist, n) for n in ("all_gather_into_tensor", "all_reduce", "broadcast")}
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+            captured["in_capture" if capturing else "outside"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    try:
+        for n, fn in originals.items():
+            setattr(dist, n, counting(fn))
+        backend = dist.get_backend()
+        mesh = make_mesh(1, 1, dev)
+        eng = RecommendationEngine.from_dirs(str(REPO / ARTIFACT), str(REPO / "data"), device=dev, mesh=mesh)
+        reqs = golden["requests"]
+        many = [reqs[i] for i in golden["many"]]
+        want = [single.recommend(*r) for r in reqs]
+        want_many = single.recommend_many(many, pad_to=8)
+        tower.tower_eval.launches = 0
+        got = [eng.recommend(*r) for r in reqs]
+        got_many = eng.recommend_many(many, pad_to=8)
+        _sync(dev)
+        graphed_launches = tower.tower_eval.launches
+        if got != want or got_many != want_many:
+            raise SmokeFailure(f"13a: the NCCL mesh engine's graphed JSON differs from the single-device engine's "
+                               f"({sum(a != b for a, b in zip(got, want))} of {len(reqs)} requests)")
+        tower.tower_eval.launches = 0
+        eager = [eng._recommend_eager([r])[0] for r in reqs]
+        eager_many = eng._recommend_eager(many, pad_to=8)
+        _sync(dev)
+        eager_launches = tower.tower_eval.launches
+        if eager != want or eager_many != want_many:
+            raise SmokeFailure("13a: the NCCL mesh engine's eager JSON differs from the single-device engine's")
+        p50 = {"single": [], "mesh": []}
+        for label in ("single", "mesh", "mesh", "single"):  # in turns: graphed recommend over the sweep
+            e = single if label == "single" else eng
+            lat = []
+            for r in reqs:
+                t = time.perf_counter()
+                e.recommend(*r)
+                lat.append(time.perf_counter() - t)
+            p50[label].append(statistics.median(lat) * 1e3)
+        if eager_launches != len(reqs) + 1:
+            raise SmokeFailure(f"13a: {eager_launches} tower launches for {len(reqs) + 1} eager batches, not one each")
+        buckets = sorted(eng._buckets)
+        if dev.type == "cuda" and (not eng.graphs or buckets != [(1, False), (8, False)]
+                                   or captured["in_capture"] == 0):
+            raise SmokeFailure(f"13a: the NCCL mesh engine did not run graphs with collectives inside "
+                               f"(graphs {eng.graphs}, buckets {buckets}, {captured})")
+        eng.close()
+    finally:
+        for n, fn in originals.items():
+            setattr(dist, n, fn)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"[mesh] 13a: a world of 1 rank on {backend}, {'graphed' if eng.graphs else 'eager (no graphs)'}: "
+          f"{len(reqs)} requests (bucket 1) and recommend_many(K={len(many)}, pad_to=8) equal the single-device "
+          f"JSON {'graphed and eager' if eng.graphs else 'eagerly'}; tower launches: {graphed_launches} graphed (an eager run and a capture of "
+          f"buckets {buckets}), {eager_launches} over {len(reqs) + 1} eager batches; collectives made inside "
+          f"the captures {captured['in_capture']}, outside {captured['outside']}; recommend p50 over the sweep, in "
+          f"turns: single-device {', '.join(f'{x:.3f}' for x in p50['single'])} ms, the 1-rank mesh "
+          f"{', '.join(f'{x:.3f}' for x in p50['mesh'])} ms; {time.perf_counter() - t0:.1f} s on {card}")
+    return {"backend": backend, "graphed": eng.graphs, "eager_launches": eager_launches,
+            "graphed_launches": graphed_launches, "collectives_in_capture": captured["in_capture"],
+            "recommend_p50_ms": p50}
+
+
+def mesh_gloo_phase(golden: dict, single, dev, card: str) -> dict:
+    """Phase 13b: a gloo world of 2 ranks sharing the card (hpo_r5, 600
+    items, 300 a rank): the golden sweep at buckets 1 and 8 under the
+    serve-correct rule, ``similar_items`` of every item equal, each rank's
+    tower held to its plain version, its launches, and one bf16 batch with
+    cross-forward launches only, held to the bf16 golden file at phase 5b's
+    bar."""
+    from hhrs_tpu_torch.parallel.distributed import launch
+
+    t0 = time.perf_counter()
+    reqs = golden["requests"]
+    many = [reqs[i] for i in golden["many"]]
+    items = [int(i) for i in single.bundle.preproc.item_id_mapping]
+    golden_bf16 = json.loads((REPO / GOLDEN_BF16).read_text())
+    bf16_tol = BF16_BAR * max(abs(a - b) for xs, ys in zip(golden_bf16["logits"], golden_bf16["logits_f32"])
+                              for a, b in zip(xs, ys))
+    spec = {"artifacts": str(REPO / ARTIFACT), "data": str(REPO / "data"), "device": dev.type,
+            "requests": reqs, "batches": [many, many[:5]], "similar": items,
+            "bf16_batch": [golden_bf16["requests"][i] for i in golden_bf16["many"]], "logit_users": [0, 7, 1234]}
+    out = launch(mesh_rank_main, 2, (spec,), device=dev, timeout_s=600, store_dir=str(PHASE13_DIR))
+    out.update(batches_req=spec["batches"], logit_users=spec["logit_users"])
+    report = _mesh_report("13b", out, single, reqs, card)
+    want_similar = [single.similar_items(i, MESH_SIMILAR_N) for i in items]
+    if out["similar"] != want_similar:
+        raise SmokeFailure(f"13b: similar_items differs for "
+                           f"{sum(a != b for a, b in zip(out['similar'], want_similar))} of {len(items)} items")
+    bf16 = [r["bf16_launches"] for r in out["ranks"]]
+    if any(b["tower"] or b["fwd_bf16"] <= 0 or b["fwd"] for b in bf16):
+        raise SmokeFailure(f"13b: the bf16 batch did not run on the bf16 cross forward alone: {bf16}")
+    bf16_swaps = 0
+    for i, got in zip(golden_bf16["many"], out["bf16"]):
+        n = compare_response(json.loads(json.dumps(got)), golden_bf16["responses"][i], golden_bf16["logits"][i],
+                             bf16_tol)
+        if n is None:
+            raise SmokeFailure(f"13b: the bf16 mesh batch differs from the bf16 golden response {i}")
+        bf16_swaps += n
+    print(f"[mesh] 13b: similar_items of all {len(items)} items equal the single-device engine's; one bf16 batch "
+          f"(K={len(spec['bf16_batch'])}, pad_to=8) meets the bf16 golden file at tol {bf16_tol:.3e} (phase 5b's bar; "
+          f"tie swaps {bf16_swaps}) and launched per rank: {bf16}; phase 13b took {time.perf_counter() - t0:.1f} s")
+    report.update(similar_items=len(items), bf16_launches=bf16)
+    return report
+
+
+def _tuned_artifact(dev) -> tuple:
+    """13c's artifact: phase 10a's tuned data with a seeded random model at
+    hpo_r5's widths → (artifact dir, data dir)."""
+    import numpy as np
+    import torch
+
+    from hhrs_tpu_torch.config import Config
+    from hhrs_tpu_torch.models.convert import jax_from_dcnr
+    from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
+    from hhrs_tpu_torch.train.artifacts import export_artifacts, load_artifact_bundle
+    from hhrs_tpu_torch.train.cli import build_dataset
+
+    data = REPO / "build" / "tuned" / "data"
+    if not (data / "hackathon_augmented_data.csv").exists():  # phase 10a writes it; a rehearsal may not have run it
+        from hhrs_tpu_torch.data.synthetic import write_synthetic_dataset
+
+        write_synthetic_dataset(str(data), **TUNED_DATA)
+    _, preproc = build_dataset(str(data), Config())
+    cfg = load_artifact_bundle(str(REPO / ARTIFACT)).model_cfg
+    dims = ModelDims.from_artifacts(preproc)
+    params, bn_state = jax_from_dcnr(DCNR(dims, cfg, torch.Generator().manual_seed(SEED + 13)))
+    rng = np.random.default_rng(SEED + 13)
+    for block in bn_state["res_blocks"]:
+        for bn in block.values():
+            bn["mean"] = rng.normal(0, 0.3, bn["mean"].shape).astype(np.float32)
+            bn["var"] = rng.uniform(0.5, 1.5, bn["var"].shape).astype(np.float32)
+    out = PHASE13_DIR / "tuned_artifact"
+    export_artifacts(str(out), params, bn_state, cfg, dims, preproc, {})
+    return str(out), str(data)
+
+
+def mesh_padded_phase(dev, card: str) -> dict:
+    """Phase 13c: the tuned preset's data (4,000 items, 500,000 reviews)
+    with a seeded random model at hpo_r5's widths, on a gloo world of 3
+    ranks (4,000 → 4,002 rows): 64 requests and a batch under the
+    serve-correct rule, tower parity and launches per rank, the batch p50."""
+    import statistics as st
+
+    import numpy as np
+
+    from hhrs_tpu_torch.parallel.distributed import launch
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    t0 = time.perf_counter()
+    artifacts, data = _tuned_artifact(dev)
+    single = RecommendationEngine.from_dirs(artifacts, data, device=dev, city_bounded=False)
+    uni = single.gen.universe
+    rng = np.random.default_rng(SEED + 13)
+    reqs = [[int(rng.choice(uni.user_ids)), uni.cities[int(rng.integers(len(uni.cities)))],
+             ("friends", "personal")[i % 2], (0.7, 1.0)[(i // 2) % 2]] for i in range(MESH_TUNED_REQUESTS)]
+    spec = {"artifacts": artifacts, "data": data, "device": dev.type, "requests": reqs, "batches": [reqs[:8]],
+            "similar": [], "bf16_batch": None, "logit_users": [0, single.bundle.dims.n_users - 1]}
+    out = launch(mesh_rank_main, 3, (spec,), device=dev, timeout_s=600, store_dir=str(PHASE13_DIR))
+    out.update(batches_req=spec["batches"], logit_users=spec["logit_users"])
+    report = _mesh_report("13c", out, single, reqs, card)
+    p50 = st.median(out["batch_s"]) * 1e3
+    rows = [r["rows"] for r in out["ranks"]]
+    print(f"[mesh] 13c: {uni.n_items} items over 3 ranks as rows {rows}; one-request batch p50 {p50:.2f} ms "
+          f"(host clock; three ranks share one card over gloo: a correctness and launch check, not a multi-GPU "
+          f"speed); phase 13c took {time.perf_counter() - t0:.1f} s on {card}")
+    report.update(batch_p50_ms=p50, rows=rows)
+    return report
+
+
+def _ranks_of(pid: int) -> list:
+    """The spawned ranks of process ``pid``: its children whose command
+    line is multiprocessing's spawn entry."""
+    import os
+
+    out = []
+    for entry in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{entry}/cmdline") as f:
+                cmdline = f.read()
+        except (OSError, ValueError):
+            continue
+        if ppid == pid and "spawn_main" in cmdline:
+            out.append(int(entry))
+    return out
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def mesh_cli_phase(golden: dict, single, dev, card: str) -> dict:
+    """Phase 13d: ``python -m hhrs_tpu_torch.serve.cli --mesh 2`` boots,
+    ``/healthz`` answers, one ``POST /recommendations`` equals the
+    single-device answer, and no rank is left after SIGTERM."""
+    import os
+    import signal
+    import socket
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log_path = OUT_DIR / "phase13d_cli.log"
+    cmd = [sys.executable, "-m", "hhrs_tpu_torch.serve.cli", "--artifacts", str(REPO / ARTIFACT), "--data",
+           str(REPO / "data"), "--mesh", "2", "--host", "127.0.0.1", "--port", str(port), "--batch-window-ms", "2"]
+    if dev.type == "cpu":
+        cmd += ["--device", "cpu"]
+    req = golden["requests"][1]
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT)
+        ranks = []
+        try:
+            deadline, health = time.monotonic() + 180, None
+            while time.monotonic() < deadline and proc.poll() is None:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                        health = json.loads(r.read())
+                    break
+                except OSError:
+                    time.sleep(0.3)
+            if not health or health.get("status") != "ok":
+                raise SmokeFailure(f"13d: the --mesh 2 CLI did not answer /healthz (see {log_path})")
+            boot_s = time.perf_counter() - t0
+            ranks = _ranks_of(proc.pid)
+            body = json.dumps({"user_id": req[0], "city": req[1], "type": req[2], "lambda_param": req[3]}).encode()
+            post = urllib.request.Request(f"http://127.0.0.1:{port}/recommendations", data=body,
+                                          headers={"content-type": "application/json"})
+            with urllib.request.urlopen(post, timeout=60) as r:
+                got = json.loads(r.read())
+            want = json.loads(json.dumps(single.recommend(*req)))
+            if got != want:
+                raise SmokeFailure("13d: the --mesh 2 CLI's answer differs from the single-device engine's")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=20)
+    deadline = time.monotonic() + 20
+    while any(map(_alive, ranks)) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = [p for p in ranks if _alive(p)]
+    if rc != 0 or len(ranks) != 2 or left:
+        raise SmokeFailure(f"13d: exit code {rc}, ranks {ranks}, left after SIGTERM {left} (see {log_path})")
+    backend = re.findall(r"backend (\w+) \(([^)]*)\)", log_path.read_text())
+    print(f"[mesh] 13d: serve.cli --mesh 2 answered /healthz {boot_s:.1f} s after the start (2 ranks {ranks}, "
+          f"{sorted(set(backend))}); POST /recommendations equals the single-device answer; SIGTERM: exit {rc}, "
+          f"no rank left; {time.perf_counter() - t0:.1f} s on {card}")
+    return {"boot_s": boot_s, "ranks": len(ranks), "exit": rc}
+
+
+def mesh_phase(golden: dict, single, dev, card: str) -> dict:
+    """Phase 13: serving over a device mesh (13a–13d). ``single`` is phase
+    4's single-device engine; it runs on the CPU too, to rehearse."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+    PHASE13_DIR.mkdir(parents=True)
+    out = {"nccl": mesh_nccl_phase(golden, single, dev, card),
+           "gloo": mesh_gloo_phase(golden, single, dev, card),
+           "padded": mesh_padded_phase(dev, card),
+           "cli": mesh_cli_phase(golden, single, dev, card)}
+    print(f"[mesh] phase 13 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3188,6 +3684,9 @@ def main() -> int:
     # ---- phase 12: the two-tower retriever, every exported arch, the native reader
     phase12 = retriever_export_ingest_phase(splits, preproc, bundle, dev, card)
 
+    # ---- phase 13: serving over a device mesh ------------------------------
+    mesh = mesh_phase(golden, engine, dev, card)
+
     r = rows[128]
     kernels.append({
         "name": "tower_eval", "route": "cuda", "source": "hhrs_tpu_torch/csrc/tower_eval.cu",
@@ -3204,6 +3703,9 @@ def main() -> int:
         "batch_cli_users_per_s": tuning["batch"]["users_per_s"],
         "two_tower_serve_launches": phase12["serve"]["launches"],
         "export_all_launches": phase12["export"]["launches"]["tower"],
+        "mesh_launches": {"13a_eager": mesh["nccl"]["eager_launches"], "13a_graphed": mesh["nccl"]["graphed_launches"],
+                          "13b_per_rank": mesh["gloo"]["launches"], "13c_per_rank": mesh["padded"]["launches"]},
+        "mesh_max_dlogit": {"13b": mesh["gloo"]["max_dlogit"], "13c": mesh["padded"]["max_dlogit"]},
     })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
                            ("bwd", "hhrs_tpu/ops/pallas/cross_kernel.py:82")):
@@ -3233,7 +3735,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "by_batch": [cross_rows_bf16[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
             "retrain_launches": {k: v[kind] for k, v in retrain_bf16.items()},
-            **({"export_all_launches": phase12["export"]["launches"]["cross_fwd_bf16"]} if kind == "fwd" else {}),
+            **({"export_all_launches": phase12["export"]["launches"]["cross_fwd_bf16"],
+                "mesh_launches_per_rank": [r["fwd_bf16"] for r in mesh["gloo"]["bf16_launches"]]}
+               if kind == "fwd" else {}),
         })
     trial_rows = tuning["trials"]["rows"]
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),

@@ -11,7 +11,7 @@ environment → CLI tokens), and of ``hhrs_tpu/utils/shapes.py::round_up``.
 An artifact manifest's ``model_config`` loads into :class:`ModelConfig`
 field for field; :func:`check_dtypes` holds its dtypes to the JAX model's
 rules. Options whose paths are not ported yet (the ``mesh`` section and
-``train.mesh_resident_data``, ROADMAP A11) are rejected by
+``train.mesh_resident_data``, ROADMAP A11b) are rejected by
 :func:`unported_train_options` and :func:`unported_mesh_options`.
 """
 
@@ -97,7 +97,7 @@ class TrainConfig:
 # Trainer options whose paths are not ported yet: (field, value that is
 # ported, the ROADMAP item that brings the rest).
 _UNPORTED_TRAIN = (
-    ("mesh_resident_data", False, "ROADMAP A11 (multi-device training)"),
+    ("mesh_resident_data", False, "ROADMAP A11b (multi-device training)"),
 )
 
 
@@ -113,7 +113,7 @@ def unported_train_options(cfg: TrainConfig) -> None:
 @dataclass
 class MeshConfig:
     """The JAX package's device-mesh layout (same fields and defaults). The
-    port has no mesh: every field set away from its default is refused by
+    port trains on no mesh yet: every field set away from its default is refused by
     :func:`unported_mesh_options`."""
 
     data_axis: int = -1
@@ -124,13 +124,13 @@ class MeshConfig:
 
 
 def unported_mesh_options(cfg: MeshConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A11 for the first
+    """Raise ``NotImplementedError`` naming ROADMAP A11b for the first
     ``mesh`` field set away from its default."""
     for f in dataclasses.fields(cfg):
         value = getattr(cfg, f.name)
         if value != f.default:
             raise NotImplementedError(
-                f"mesh.{f.name}={value!r} is not ported yet: ROADMAP A11 (multi-device training)")
+                f"mesh.{f.name}={value!r} is not ported yet: ROADMAP A11b (multi-device training)")
 
 
 @dataclass

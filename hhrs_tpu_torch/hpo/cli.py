@@ -13,7 +13,7 @@ Trials train one at a time through ``train/trainer.py::train_dcn``, or with
 ``--vectorize K`` K at a time through ``hpo/vectorized.py::run_group``. The
 device defaults to ``cuda`` and the sweep fails without a card.
 ``--mesh`` and ``--vectorize-shard`` are refused as usage errors naming
-ROADMAP A11.
+ROADMAP A11c.
 """
 
 from __future__ import annotations
@@ -176,7 +176,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dir", default=None,
                    help="preprocessed-dataset cache (skips ingest on repeat runs)")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="run each trial over a device mesh (not ported yet: ROADMAP A11)")
+                   help="run each trial over a device mesh (not ported yet: ROADMAP A11c)")
     p.add_argument("--vectorize", type=int, default=1, metavar="K",
                    help="propose K trials per round and train each same-architecture group as ONE "
                         "K-lane program (hpo/vectorized.py); by default the K trials share one "
@@ -193,7 +193,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "sharing the architecture dims (groups then degenerate to singletons)")
     p.add_argument("--vectorize-shard", action="store_true",
                    help="with --vectorize: shard the trial axis over all visible devices (not "
-                        "ported yet: ROADMAP A11)")
+                        "ported yet: ROADMAP A11c)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("overrides", nargs="*")
     return p
@@ -208,7 +208,7 @@ def main(argv=None) -> int:
     if args.vectorize_shard and args.vectorize <= 1:
         p.error("--vectorize-shard requires --vectorize K (K > 1)")
     if args.mesh or args.vectorize_shard:
-        p.error("--mesh and --vectorize-shard are not ported yet: ROADMAP A11 (multi-device HPO)")
+        p.error("--mesh and --vectorize-shard are not ported yet: ROADMAP A11c (multi-device HPO)")
     if args.reclaim_lanes and args.vectorize <= 1:
         p.error("--reclaim-lanes requires --vectorize K>1 (lanes to reclaim)")
     try:

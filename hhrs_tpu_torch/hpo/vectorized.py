@@ -375,7 +375,7 @@ def run_group(
     ``device`` defaults to ``cuda`` and raises without a card.
 
     ``shard_lanes`` (the trial axis over several devices) is not ported:
-    it raises naming ROADMAP A11.
+    it raises naming ROADMAP A11c.
 
     ``refill_fn`` enables lane reclamation: at each epoch boundary every
     newly-dead lane is finalized and refilled with a freshly asked
@@ -393,7 +393,7 @@ def run_group(
     if len(keys) != 1:
         raise ValueError(f"trials span {len(keys)} architectures; group first")
     if shard_lanes:
-        raise NotImplementedError("shard_lanes is not ported yet: ROADMAP A11 (multi-device HPO)")
+        raise NotImplementedError("shard_lanes is not ported yet: ROADMAP A11c (multi-device HPO)")
     if tcfg.lazy_table_updates:
         raise ValueError("vectorized HPO does not support lazy_table_updates")
     if tcfg.rng_impl not in RNG_IMPLS:

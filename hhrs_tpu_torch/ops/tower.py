@@ -93,6 +93,16 @@ def build_x0(model, user_ids, item_ids, cat_features, num_features) -> torch.Ten
     return model.embed(user_ids, item_ids, cat_features, num_features)
 
 
+def score_rows(model, folded: dict | None, users, items, x_cat, x_num) -> torch.Tensor:
+    """The serving route of a model → ``[B]`` logits: the fused tower on
+    :func:`build_x0` where ``folded`` (:func:`fold_eval_params`) is given,
+    which :func:`uses_tower` models are, else ``DCNR.forward`` (on a card
+    through the ``hhrs::cross_stack_fwd`` operator)."""
+    if folded is not None:
+        return tower_eval(folded, build_x0(model, users, items, x_cat, x_num), model.cfg.cross_variant)
+    return model(users, items, x_cat, x_num)
+
+
 def tower_eval_ref(folded: dict, x0: torch.Tensor, variant: str = "code") -> torch.Tensor:
     """Plain PyTorch version of the fused tower: ``[B, d]`` → ``[B]`` logits."""
     deep = x0 @ folded["w0"] + folded["b0"]

@@ -16,6 +16,17 @@ semantics are the reference's:
 Requests carry a leading batch dimension ``K``. Every scatter is an integer
 ``index_add_`` followed by ``> 0``: exact and deterministic on CUDA, where a
 plain assignment with duplicate indices is not.
+
+With ``mesh`` (``parallel/mesh.py``), the counterpart of the JAX
+generator's sharded state: the item axis pads to the mesh size (``Mp``,
+pad rows never candidates) and each rank holds only its slice — its rows
+of the review arrays, of ``s2t_valid`` and of the kNN and ghost tables,
+its columns of the city masks. A batch then takes three collectives: one
+``all_reduce(MAX)`` of the positive and negative masks scattered from the
+rank's review rows, one of the kNN and ghost expansion from its kNN rows,
+and the candidate count by ``all_reduce(SUM)``; the fallback and the city
+intersection run on the rank's own columns. ``generate_batch`` returns the
+rank's columns of the masks.
 """
 
 from __future__ import annotations
@@ -24,10 +35,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hhrs_tpu_torch.config import RetrievalConfig, round_up
 from hhrs_tpu_torch.data import schema
 from hhrs_tpu_torch.data.table import map_fill, unique_first
+from hhrs_tpu_torch.parallel.mesh import all_gather, row_shardings
 from hhrs_tpu_torch.retrieval.similarity import build_neighbor_table
 
 
@@ -80,8 +93,9 @@ def _any_into(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor
 
 
 class CandidateGenerator:
-    """Builds the per-item masks and tables once on ``device``; answers
-    batches of requests with fixed-shape tensor work."""
+    """Builds the per-item masks and tables once on ``device`` (under
+    ``mesh``, this rank's slice of them); answers batches of requests with
+    fixed-shape tensor work."""
 
     def __init__(
         self,
@@ -92,8 +106,10 @@ class CandidateGenerator:
         max_sources: int = 256,
         universe: ServeUniverse | None = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         self.cfg = cfg or RetrievalConfig()
+        self.mesh = mesh
         self.universe = uni = universe if universe is not None else ServeUniverse.from_table(main)
         self.device = torch.device(device)
         M, U, C = uni.n_items, uni.n_users, len(uni.cities)
@@ -171,40 +187,72 @@ class CandidateGenerator:
         city_rows[cc, np.arange(len(cc)) - starts[cc]] = items_in_city
         self.city_rows_np = city_rows
 
+        # --- this rank's slice: item rows [start, stop) of the Mp-padded
+        #     axis (the dump slot moves from M to Mp) and review rows of the
+        #     R-padded axis (pad rows select no user's positives or negatives)
+        self.items = items = row_shardings(mesh, M)
+        self.Mp = Mp = items.padded
+        reviews = row_shardings(mesh, len(r_user))
+        nbr = np.where(nbr_by_serve == M, Mp, nbr_by_serve)
+        nbr = np.concatenate([nbr, np.full((Mp - M, E), Mp, np.int32)])
+        ghost_nbr = np.concatenate([ghost_by_serve, np.full((Mp - M, E), G, np.int32)])
+        r_pad = reviews.padded - len(r_user)
+        rows = slice(reviews.start, reviews.stop)
+        cols = slice(items.start, items.stop)
+        pad_r = lambda a: np.concatenate([a, np.zeros(r_pad, a.dtype)])[rows]  # noqa: E731
+        pad_c = lambda a: np.pad(a, ((0, 0), (0, Mp - M)))[:, cols]  # noqa: E731
+
         t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=self.device)  # noqa: E731
         self.dev = {
-            "r_user": t(r_user, torch.int64),
-            "r_item": t(r_item, torch.int64),
-            "r_pos": t(r_rating >= 8.0, torch.bool),
-            "r_neg": t(r_rating <= 4.0, torch.bool),
-            "s2t_valid": t(s2t_valid, torch.bool),
-            "nbr": t(nbr_by_serve.reshape(-1), torch.int64),
-            "ghost_nbr": t(ghost_by_serve.reshape(-1), torch.int64),
-            "city_item": t(city_item, torch.bool),
-            "city_pop": t(city_pop, torch.bool),
-            "city_rows": t(city_rows, torch.int64),
+            "r_user": t(pad_r(r_user), torch.int64),
+            "r_item": t(pad_r(r_item), torch.int64),
+            "r_pos": t(pad_r(r_rating >= 8.0), torch.bool),
+            "r_neg": t(pad_r(r_rating <= 4.0), torch.bool),
+            "s2t_valid": t(np.pad(s2t_valid, (0, Mp - M))[cols], torch.bool),
+            "nbr": t(nbr[cols].reshape(-1), torch.int64),
+            "ghost_nbr": t(ghost_nbr[cols].reshape(-1), torch.int64),
+            "city_item": t(pad_c(city_item), torch.bool),
+            "city_pop": t(pad_c(city_pop), torch.bool),
         }
+        if mesh is None:  # the city-bounded ranking (single device only)
+            self.dev["city_rows"] = t(city_rows, torch.int64)
+
+    def _any_over_ranks(self, mask: torch.Tensor) -> torch.Tensor:
+        """Under a mesh, the OR of every rank's ``mask`` (``all_reduce(MAX)``)."""
+        if self.mesh is None:
+            return mask
+        mask = mask.to(torch.uint8)
+        dist.all_reduce(mask, dist.ReduceOp.MAX)
+        return mask.bool()
 
     def generate_batch(self, sources: torch.Tensor, city_idx: torch.Tensor):
         """sources ``[K, S]`` serve-user indices (dump = U); city_idx ``[K]``
-        (C = unknown city). Returns (cand ``[K, M]``, neg ``[K, M]``, count ``[K]``)."""
-        dev, M, U = self.dev, self.M, self.U
+        (C = unknown city). Returns (cand ``[K, Mp/W]``, neg ``[K, Mp/W]``,
+        count ``[K]``): this rank's columns of the masks (all M of them
+        without a mesh) and the whole batch's candidate counts."""
+        dev, Mp, U, G = self.dev, self.Mp, self.U, self.n_ghosts
         E = self.cfg.expand_neighbors
+        cols = slice(self.items.start, self.items.stop)
         K = sources.shape[0]
         user_mask = torch.zeros(K, U + 1, dtype=torch.bool, device=sources.device)
         user_mask = user_mask.scatter_(1, sources, True)[:, :U]
-        row_sel = user_mask[:, dev["r_user"]]  # [K, R]
-        pos_mask = _any_into(M, dev["r_item"], row_sel & dev["r_pos"])
-        neg_mask = _any_into(M, dev["r_item"], row_sel & dev["r_neg"])
+        row_sel = user_mask[:, dev["r_user"]]  # [K, R/W]
+        pos_neg = torch.stack([_any_into(Mp, dev["r_item"], row_sel & dev["r_pos"]),
+                               _any_into(Mp, dev["r_item"], row_sel & dev["r_neg"])])
+        pos_mask, neg_mask = self._any_over_ranks(pos_neg)  # [K, Mp] each
 
-        contrib = (pos_mask & dev["s2t_valid"]).repeat_interleave(E, dim=1)  # [K, M*E]
-        expanded = _any_into(M + 1, dev["nbr"], contrib)[:, :M]
-        cand = pos_mask | expanded
-        ghosts = _any_into(self.n_ghosts + 1, dev["ghost_nbr"], contrib)[:, : self.n_ghosts]
-        count_before = cand.sum(dim=1) + ghosts.sum(dim=1)
+        contrib = (pos_mask[:, cols] & dev["s2t_valid"]).repeat_interleave(E, dim=1)  # [K, Mp/W*E]
+        reach = torch.cat([_any_into(Mp + 1, dev["nbr"], contrib)[:, :Mp],
+                           _any_into(G + 1, dev["ghost_nbr"], contrib)[:, :G]], dim=1)
+        reach = self._any_over_ranks(reach)
+        cand = pos_mask | reach[:, :Mp]
+        count_before = cand.sum(dim=1) + reach[:, Mp:].sum(dim=1)
         fallback = (count_before < self.cfg.min_candidates)[:, None] & dev["city_pop"][city_idx]
-        cand = (cand | fallback) & dev["city_item"][city_idx] & ~neg_mask
-        return cand, neg_mask, cand.sum(dim=1)
+        cand = (cand[:, cols] | fallback) & dev["city_item"][city_idx] & ~neg_mask[:, cols]
+        count = cand.sum(dim=1)
+        if self.mesh is not None:
+            dist.all_reduce(count)
+        return cand, neg_mask[:, cols], count
 
     def sources_for(self, user_id: int, mode: str, friend_graph) -> np.ndarray:
         """Host-side source selection → padded serve-user index vector."""
@@ -220,10 +268,13 @@ class CandidateGenerator:
         return self.universe.city_index.get(city, len(self.universe.cities))
 
     def generate(self, user_id: int, city: str, mode: str, friend_graph) -> tuple:
-        """One request → (cand mask ``[M]`` numpy bool, count int)."""
+        """One request → (cand mask ``[M]`` numpy bool, count int). Under a
+        mesh every rank calls it, and the columns are gathered."""
         src = torch.as_tensor(
             self.sources_for(user_id, mode, friend_graph)[None], dtype=torch.int64, device=self.device
         )
         cidx = torch.tensor([self.city_index(city)], dtype=torch.int64, device=self.device)
         cand, _neg, count = self.generate_batch(src, cidx)
+        if self.mesh is not None:
+            cand = all_gather(cand).permute(1, 0, 2).reshape(1, self.Mp)[:, : self.M]
         return cand[0].cpu().numpy(), int(count[0])

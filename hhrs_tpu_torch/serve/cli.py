@@ -15,7 +15,19 @@ defaults, then the preset named by ``HHRS_PRESET``, then
 then ``section.field=value`` overrides, then the flags.
 ``--retrieval-embeddings NPY`` (``retrieval/two_tower.py``'s export) reaches
 every engine the stack builds: the primary, the canary and the shadow, and
-each hot-reload rebuild. ``--mesh`` (A11) raises ``NotImplementedError``.
+each hot-reload rebuild.
+
+``--mesh DATAxMODEL`` serves over a mesh of ``DATA·MODEL`` ranks
+(``serve/engine.py``'s mesh mode): when the environment configures a
+world (torchrun's ``MASTER_ADDR``…, or ``COORDINATOR_ADDRESS``…;
+``parallel/distributed.py``) this process is one of its ranks; otherwise
+it builds the kernels, launches the ranks on this node and waits for them.
+Rank 0 binds the port and serves through the batcher; the other ranks
+follow it. SIGTERM or Ctrl-C to the launching process stops every rank. A
+device call that fails part way ends rank 0 (exit code 1), and with it the
+world: the launch raises, or torchrun stops the other ranks.
+``--mesh`` with ``--shadow``, ``--canary`` or a hot-reload poller raises
+``NotImplementedError`` (ROADMAP A11c).
 """
 
 from __future__ import annotations
@@ -23,8 +35,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import signal
 import sys
 import threading
+
+import torch
 
 from hhrs_tpu_torch.config import build_config
 from hhrs_tpu_torch.device import resolve_device
@@ -81,7 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help=">0: poll the data CSVs every N seconds and rebuild and hot-swap "
                         "the serving stack when they change")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="serve over a device mesh (not ported yet: ROADMAP A11)")
+                   help="serve over a device mesh, e.g. 2 or 2x2: the item axis (catalog features, "
+                        "masks, kNN table) shards over DATA*MODEL ranks; responses equal "
+                        "single-device serving")
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default cuda, which raises without a "
                         "card; cpu only when asked)")
@@ -89,9 +106,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet: ROADMAP A11 (multi-device serving)")
+def _refuse_unported(args: argparse.Namespace, data_poll_s: float | None = None) -> None:
+    data_poll_s = args.data_poll_s if data_poll_s is None else data_poll_s
+    if args.mesh and (args.shadow or args.canary or args.reload_poll_s > 0 or (data_poll_s or 0) > 0):
+        raise NotImplementedError("--mesh with --shadow, --canary, --reload-poll-s or --data-poll-s is not "
+                                  "ported yet: ROADMAP A11c (their stacks under a mesh)")
 
 
 @dataclasses.dataclass
@@ -106,10 +125,12 @@ class ServeStack:
     data_reloader: object = None
 
 
-def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None = None) -> ServeStack:
+def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None = None,
+                mesh=None) -> ServeStack:
     """Build the serving stack of parsed flags (:func:`build_parser`), every
     bucket it serves captured unless ``--no-warmup``; raises on a startup
-    failure."""
+    failure. With ``mesh`` (a rank of a ``--mesh`` world), ranks other than
+    0 get the bare engine, to :meth:`follow`."""
     parser = parser or build_parser()
     _refuse_unported(args)
     bad = [t for t in args.overrides if "=" not in t]
@@ -129,6 +150,8 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
     window_ms = args.batch_window_ms if args.batch_window_ms is not None else cfg.batch_window_ms
     max_batch = args.max_batch if args.max_batch is not None else cfg.max_batch
     cap = args.candidate_cap if args.candidate_cap is not None else cfg.candidate_cap
+    _refuse_unported(args, args.data_poll_s if args.data_poll_s is not None else cfg.data_poll_s)
+    leader = mesh is None or torch.distributed.get_rank() == 0
     quantize = args.quantize_tables or cfg.quantize_tables
     stack = ServeStack(None, args.host if args.host is not None else cfg.host,
                        args.port if args.port is not None else cfg.port)
@@ -150,7 +173,9 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
             adir, data_dir, retrieval_cfg=cfg_all.retrieval, device=device,
             city_bounded=cfg.city_bounded, bf16=args.bf16, quantize_tables=quantize,
             candidate_cap=cap, use_pallas=cfg.use_pallas, frames=frames,
-            retrieval_embeddings_path=args.retrieval_embeddings)
+            retrieval_embeddings_path=args.retrieval_embeddings, mesh=mesh)
+        if not leader:
+            return eng
         if not args.no_warmup:
             log.info("warming up: capturing the serving buckets...")
             eng.warmup(batch_pad=batch_pad)
@@ -166,7 +191,7 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
         """The primary stack for one artifact dir, at startup and verbatim on
         every hot reload."""
         eng = new_engine(adir, frames, max_batch if want_batching else None)
-        if want_batching:
+        if want_batching and leader:
             from hhrs_tpu_torch.serve.batcher import BatchingEngine
 
             eng = BatchingEngine(eng, max_batch=max_batch, window_ms=window_ms)
@@ -174,6 +199,9 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
         return eng
 
     engine = build_primary(artifacts_dir, frames=frames)
+    if not leader:
+        stack.engine = engine
+        return stack
     data_poll_s = args.data_poll_s if args.data_poll_s is not None else cfg.data_poll_s
     registry_reload = args.reload_poll_s > 0
     if registry_reload and not artifacts.startswith("registry:"):
@@ -248,12 +276,75 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
     return stack
 
 
+def _build_kernels() -> None:
+    """Build the kernel libraries once, before ranks start (one nvcc each,
+    started together), so that no two ranks compile the same source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hhrs_tpu_torch.ops import cross, cuda_build, tower
+
+    libs = [(tower._LIB_NAME, tower._LIB_SOURCES), (cross._LIB_NAME, cross._LIB_SOURCES)]
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: cuda_build.build(*lib), libs))
+
+
+def serve_rank(argv: list) -> int:
+    """One rank of a ``--mesh`` world (joined already): build the stack over
+    the mesh, then serve (rank 0) or follow it (the others)."""
+    setup_logging()
+    from hhrs_tpu_torch.parallel.mesh import mesh_from_spec
+    from hhrs_tpu_torch.serve.http import serve_forever
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    mesh = mesh_from_spec(args.mesh, device)
+    stack = build_stack(args, parser, mesh=mesh)
+    if torch.distributed.get_rank() != 0:
+        # a launcher that signals every rank (torchrun) must not stop a
+        # follower under rank 0: rank 0 drains, then stops the followers
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)
+        stack.engine.follow()
+        return 0
+    try:
+        serve_forever(stack.engine, stack.host, stack.port)
+    finally:
+        stack.engine.close()  # ends every follower (serve_forever closes it too once it has started)
+    return 0
+
+
+def serve_mesh(argv: list, args: argparse.Namespace) -> int:
+    """``--mesh``: join the world the environment configures, or launch one
+    of ``DATA·MODEL`` ranks on this node and wait for it."""
+    from hhrs_tpu_torch.parallel.distributed import initialize_distributed, launch
+    from hhrs_tpu_torch.parallel.mesh import parse_mesh_spec
+
+    device = resolve_device(args.device)
+    if initialize_distributed(device=device):
+        return serve_rank(argv)
+    data, model = parse_mesh_spec(args.mesh)
+    if device.type == "cuda":
+        _build_kernels()
+    log.info("launching a mesh of %dx%d ranks on %s", data, model, device)
+    return launch(serve_rank, data * model, (argv,), device=device, timeout_s=float("inf"))
+
+
 def main(argv=None) -> int:
     setup_logging()
     parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     _refuse_unported(args)
     resolve_device(args.device)  # no card and no --device: raises, never falls back to the CPU
+    if args.mesh:
+        from hhrs_tpu_torch.parallel.mesh import parse_mesh_spec
+
+        try:
+            parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            parser.error(str(e))
+        return serve_mesh(argv, args)
     try:
         stack = build_stack(args, parser)
     except Exception as e:

@@ -57,6 +57,33 @@ Options, with the JAX engine's meaning:
   ``recommend_many`` always runs the full program. The responses are the
   uncapped engine's.
 
+* ``mesh`` (a ``DeviceMesh`` of ``parallel/mesh.py::make_mesh``; every
+  rank of the world builds the engine from the same artifact and data):
+  the item axis pads to the mesh size and each rank holds its rows of the
+  candidate state (``retrieval/candidates.py``), of the item features and
+  of the train table of ``similar_items``; the model, ``embedded`` and
+  ``emb_norm`` are whole on every rank (as the train table of the
+  queries is). A batch scores each rank's ``[K, Mp/W]`` rows through the
+  model's route (one ``tower_eval`` launch a rank for f32 ``dcnr``) and
+  all-gathers the scores with the candidate mask in one collective; rank
+  0 then takes the stable order and runs the single-device MMR over the
+  whole item axis, with no collective of its own. ``similar_items`` runs
+  ``retrieval/sharded.py``. ``candidate_cap`` and ``city_bounded`` are
+  switched off, as in the JAX engine. Rank 0 leads: it does the host work
+  and every device call starts with a broadcast of an op header (and a
+  batch's packed inputs) from it, under one lock, so every rank makes
+  its collectives in the same order; the other ranks run :meth:`follow`
+  until rank 0's :meth:`shutdown` (or :meth:`close`). An idle leader sends
+  a keep-alive header every ``KEEPALIVE_S``, inside the world's collective
+  timeout. A device call that fails part way leaves the ranks out of step
+  for good: rank 0's process then exits (code 1) and its launcher (the
+  port's ``launch`` or torchrun) stops every rank; a follower's failure
+  raises out of :meth:`follow`. On an NCCL world each bucket is a CUDA
+  graph with its collectives inside (the input broadcast stays before the
+  replay); a gloo world cannot capture its collectives and runs the same
+  launches eagerly. The engine logs which (``self.graphs``). Responses
+  equal the single-device engine's.
+
 Edge semantics match the reference:
 unknown user → model id ``n_users // 2``; no candidates → a message
 response; λ = 1.0 returns the full sorted candidate list, λ < 1 the MMR
@@ -65,6 +92,7 @@ top-20.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -74,6 +102,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hhrs_tpu_torch.config import RetrievalConfig, round_up
 from hhrs_tpu_torch.data import schema
@@ -85,20 +114,20 @@ from hhrs_tpu_torch.device import capture_stream, resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax
 from hhrs_tpu_torch.ops.mmr import NEG_INF, mmr_rerank
 from hhrs_tpu_torch.ops.quant import quantize_embedding_params
-from hhrs_tpu_torch.ops.tower import build_x0, fold_eval_params, tower_eval, uses_tower
+from hhrs_tpu_torch.ops.tower import fold_eval_params, score_rows, uses_tower
 from hhrs_tpu_torch.retrieval.candidates import CandidateGenerator, ServeUniverse
+from hhrs_tpu_torch.parallel.mesh import all_gather, mesh_size, row_shardings
 from hhrs_tpu_torch.retrieval.graph import FriendGraph
+from hhrs_tpu_torch.retrieval.sharded import shard_k, sharded_cosine_topk
 from hhrs_tpu_torch.retrieval.similarity import cosine_topk, normalize_rows, require_full_f32_matmul
 from hhrs_tpu_torch.train.artifacts import ArtifactBundle, load_artifact_bundle
 from hhrs_tpu_torch.utils.logging import LatencyHistogram
 
 log = logging.getLogger(__name__)
 
-# Serve options of the JAX engine that this port does not have yet, with
-# the ROADMAP item that brings each.
-_NOT_PORTED = {
-    "mesh": "ROADMAP A11 (multi-device serving)",
-}
+# The op header of a mesh engine's device calls: [op, a, b] int64.
+_OP_STOP, _OP_BATCH, _OP_SIMILAR, _OP_NOOP = 0, 1, 2, 3
+KEEPALIVE_S = 60.0  # an idle leader's keep-alive period (the world's timeout is 600 s)
 
 # Held by every CUDA-graph capture of the process: torch.cuda.graph
 # synchronizes the card and empties the allocator's cache as it starts,
@@ -123,14 +152,6 @@ def bucket_size(K: int, pad_to: int | None = None) -> int:
     return 1 << (K - 1).bit_length()
 
 
-def _reject_unported(options: dict) -> None:
-    for name, value in options.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"unexpected option {name!r}")
-        if value:
-            raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
-
-
 class RecommendationEngine:
     def __init__(
         self,
@@ -146,9 +167,19 @@ class RecommendationEngine:
         candidate_cap: int = 0,
         use_pallas: bool = False,
         retrieval_embeddings=None,
-        **options,
+        mesh=None,
     ):
-        _reject_unported(options)
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh of parallel/mesh.py::make_mesh, got {type(mesh).__name__}")
+            if candidate_cap:
+                log.warning("candidate_cap is ignored under --mesh (arbitrary-row gathers from sharded "
+                            "arrays); the row-sharded full-universe program is the mesh fast path")
+                candidate_cap = 0
+            city_bounded = False  # the row-sharded full item axis is the mesh program
+        self.mesh = mesh
         if use_pallas:
             log.warning("use_pallas is retired in the JAX engine and a no-op here: "
                         "scoring does not change")
@@ -171,25 +202,34 @@ class RecommendationEngine:
         self.gen = CandidateGenerator(
             main, art.item_id_mapping, bundle.item_embeddings, self.retrieval_cfg,
             max_sources=max(256, round_up(self.graph.max_degree, 64)),
-            universe=uni, device=dev,
+            universe=uni, device=dev, mesh=mesh,
         )
+        rows = self.gen.items  # this rank's item rows (all of them without a mesh)
 
         # Serve-item feature matrix: the first row of each item, in
         # serve-index order (the reference's drop_duplicates ranking frame).
         items = take(main, first_occurrence(main[schema.ITEM_COL]))
         _, x_cat, x_num = encode_item_features(art, items)
         item_internal = self.gen.s2t_np  # unknown → 0 (fallback parity)
-        emb_serve = torch.as_tensor(bundle.item_embeddings[item_internal], dtype=torch.float32)
-        self._dev = {
-            "item_internal": torch.as_tensor(item_internal, dtype=torch.int64, device=dev),
-            "x_cat": torch.as_tensor(x_cat, dtype=torch.int64, device=dev),
-            "x_num": torch.as_tensor(x_num, dtype=torch.float32, device=dev),
-            "embedded": torch.as_tensor(self.gen.s2t_valid_np, device=dev),
-            "emb_norm": normalize_rows(emb_serve.to(dev)),
+        emb_serve = np.asarray(bundle.item_embeddings[item_internal], np.float32)
+
+        def local(a, dtype, layout=rows):  # the rank's rows, zero padded
+            a = np.asarray(a)
+            a = np.concatenate([a, np.zeros((layout.padded - layout.n, *a.shape[1:]), a.dtype)])
+            return torch.as_tensor(a[layout.start:layout.stop], dtype=dtype, device=dev)
+
+        self._dev = {  # the item features sharded; MMR's inputs whole on every rank
+            "item_internal": local(item_internal, torch.int64),
+            "x_cat": local(x_cat, torch.int64),
+            "x_num": local(x_num, torch.float32),
+            "embedded": torch.as_tensor(self.gen.s2t_valid_np, dtype=torch.bool, device=dev),
+            "emb_norm": normalize_rows(torch.as_tensor(emb_serve, dtype=torch.float32, device=dev)),
         }
-        emb_train = torch.as_tensor(bundle.item_embeddings, dtype=torch.float32, device=dev)
-        self._emb_train = emb_train
-        self._table_norm_train = normalize_rows(emb_train)
+        # similar_items: the queries' table, whole on every rank as in JAX, and
+        # the normalized table searched (under a mesh, the rank's rows of it)
+        self._emb_train = torch.as_tensor(bundle.item_embeddings, dtype=torch.float32, device=dev)
+        self._train_rows = row_shardings(mesh, bundle.item_embeddings.shape[0])
+        self._table_norm_train = normalize_rows(local(bundle.item_embeddings, torch.float32, self._train_rows))
         self._reverse_item_map = {v: k for k, v in art.item_id_mapping.items()}
 
         cfg = bundle.model_cfg
@@ -199,7 +239,6 @@ class RecommendationEngine:
         if bf16:
             cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
         self.model = dcnr_from_jax(params, bundle.bn_state, bundle.dims, cfg, dev)
-        self._variant = cfg.cross_variant
         tables = "int8 tables" if quantize_tables else "f32 tables"
         if uses_tower(cfg):
             self._folded = fold_eval_params(self.model)
@@ -229,24 +268,36 @@ class RecommendationEngine:
 
         W = int(self.gen.city_rows_np.shape[1])
         self._city_bounded = bool(city_bounded and W < self.gen.M)
-        self._order_width = W if self._city_bounded else self.gen.M
+        self._order_width = W if self._city_bounded else self.gen.Mp
         # the cap applies where it is narrower than the rows ranked without it
         self._cap = int(candidate_cap) if 0 < candidate_cap < self._order_width else 0
         self.cap_branches = {"capped": 0, "full": 0}  # one-request calls answered by each branch
         self._count_lock = threading.Lock()
-        self._all_rows = torch.arange(self.gen.M, dtype=torch.int64, device=dev)
+        self._all_rows = torch.arange(rows.rows, dtype=torch.int64, device=dev)
         self._buckets: dict = {}  # (Kp, capped) -> _Bucket (on a card)
         self._graph_lock = threading.Lock()  # one replay at a time: buckets share buffers and a pool
         self._graph_pool = None
         self._graph_stream = capture_stream(self, dev) if dev.type == "cuda" else None
+        # Buckets run as CUDA graphs on a card, under a mesh only on NCCL:
+        # gloo's collectives cannot be captured.
+        self.graphs = dev.type == "cuda" and (mesh is None or dist.get_backend() == "nccl")
+        if mesh is not None:
+            self._leader = dist.get_rank() == 0
+            # headers and gloo's input broadcast travel on the host; NCCL's on the card
+            self._wire = dev if dist.get_backend() == "nccl" else torch.device("cpu")
+            self._mesh_lock = threading.RLock()  # rank 0: one device call at a time, in one order
+            self._stopped = threading.Event()
+            self._last_send = time.monotonic()
+            log.info("mesh %s (%s, %d ranks): rank %d holds item rows [%d, %d) of %d; %s", tuple(mesh.shape),
+                     dist.get_backend(), mesh_size(mesh), dist.get_rank(), rows.start, rows.stop, rows.padded,
+                     "CUDA graphs with the collectives inside" if self.graphs else "eager launches (no graphs)")
+            if self._leader and mesh_size(mesh) > 1:
+                threading.Thread(target=self._keepalive, name="mesh-keepalive", daemon=True).start()
 
     # ------------------------------------------------------------------ #
 
     def _logits(self, users, items, x_cat, x_num) -> torch.Tensor:
-        if self._folded is not None:
-            x0 = build_x0(self.model, users, items, x_cat, x_num)
-            return tower_eval(self._folded, x0, self._variant)
-        return self.model(users, items, x_cat, x_num)
+        return score_rows(self.model, self._folded, users, items, x_cat, x_num)
 
     @torch.no_grad()
     def _rank_rows(self, cand, count, user_internal, lam, idx) -> torch.Tensor:
@@ -264,6 +315,12 @@ class RecommendationEngine:
         users = user_internal[:, None].expand(K, W).reshape(-1)
         logits = self._logits(users, d["item_internal"][flat], d["x_cat"][flat], d["x_num"][flat])
         scores = torch.where(valid, logits.reshape(K, W), torch.full((), NEG_INF, device=idx.device))
+        return self._order_and_mmr(scores, valid, count, lam, idx, safe)
+
+    def _order_and_mmr(self, scores, valid, count, lam, idx, safe) -> torch.Tensor:
+        """The stable order and the MMR picks of the scored rows ``idx``
+        (``safe``: clamped into M) → the packed output."""
+        d = self._dev
         mmr = mmr_rerank(
             scores, d["emb_norm"][safe], valid, d["embedded"][safe] & valid, lam,
             top_k=self.retrieval_cfg.mmr_top_k,
@@ -276,6 +333,24 @@ class RecommendationEngine:
         """Every serve item ranked (``city_bounded=False``)."""
         idx = self._all_rows.expand(cand.shape[0], -1)
         return self._rank_rows(cand, count, user_internal, lam, idx)
+
+    def _rank_sharded(self, cand, count, user_internal, lam) -> torch.Tensor:
+        """Under a mesh: score this rank's ``[K, Mp/W]`` rows (one scoring
+        call), gather every rank's scores and candidate mask in one
+        collective, then (rank 0) rank the whole padded axis as
+        :meth:`_rank_full` does; pad rows are never candidates. The other
+        ranks' output (the scores) is not read."""
+        K, m = cand.shape
+        d = self._dev
+        flat = self._all_rows.expand(K, -1).reshape(-1)
+        users = user_internal[:, None].expand(K, m).reshape(-1)
+        logits = self._logits(users, d["item_internal"][flat], d["x_cat"][flat], d["x_num"][flat])
+        scores = torch.where(cand, logits.reshape(K, m), torch.full((), NEG_INF, device=cand.device))
+        every = all_gather(torch.stack([scores, cand.to(scores.dtype)])).permute(1, 2, 0, 3).reshape(2, K, self.gen.Mp)
+        if not self._leader:
+            return every
+        idx = torch.arange(self.gen.Mp, device=cand.device).expand(K, -1)
+        return self._order_and_mmr(every[0], every[1] > 0, count, lam, idx, torch.clamp(idx, max=self.gen.M - 1))
 
     def _rank_capped(self, cand, count, user_internal, lam) -> torch.Tensor:
         """The JAX engine's ``_rank_capped``: rank only the first ``cap``
@@ -340,7 +415,7 @@ class RecommendationEngine:
         ``candidate_cap`` branch when its candidates fit."""
         t0 = time.perf_counter()
         req = [(user_id, city, mode, lambda_param)]
-        out = self._recommend(req, None, graphed=self.device.type == "cuda", capped=bool(self._cap))[0]
+        out = self._recommend(req, None, graphed=self.graphs, capped=bool(self._cap))[0]
         self.latency.observe(time.perf_counter() - t0)
         return out
 
@@ -349,7 +424,7 @@ class RecommendationEngine:
         runs at :func:`bucket_size` rows with one upload and one device→host
         copy; on a card as one replay of the bucket's CUDA graph."""
         t0 = time.perf_counter()
-        out = self._recommend(requests, pad_to, graphed=self.device.type == "cuda")
+        out = self._recommend(requests, pad_to, graphed=self.graphs)
         dt = time.perf_counter() - t0
         for _ in out:
             self.latency.observe(dt)  # the whole batch's wall time, once per request
@@ -365,6 +440,8 @@ class RecommendationEngine:
         K = len(requests)
         if K == 0:
             return []
+        if self.mesh is not None and not self._leader:
+            raise RuntimeError("rank 0 leads a mesh engine; the other ranks run follow()")
         S = self.gen.max_sources
         host = np.empty((bucket_size(K, pad_to), S + 3), np.int32)
         for k, (u, c, mode, _l) in enumerate(requests):
@@ -373,6 +450,8 @@ class RecommendationEngine:
         host[K:] = host[K - 1]  # pad rows copy the last real row
 
         def run(capped: bool) -> np.ndarray:
+            if self.mesh is not None:
+                return self._mesh_batch(host, graphed).numpy()
             if graphed:
                 return self._replay(host, capped).numpy()
             return self._device_rank(torch.from_numpy(host).to(self.device), capped).cpu().numpy()  # the copy back
@@ -395,6 +474,8 @@ class RecommendationEngine:
         sources, city, user = inputs[:, :S].long(), inputs[:, S].long(), inputs[:, S + 1].long()
         lam = inputs.view(torch.float32)[:, S + 2]
         cand, _neg, count = self.gen.generate_batch(sources, city)
+        if self.mesh is not None:
+            return self._rank_sharded(cand, count, user, lam)
         if capped:
             return self._rank_capped(cand, count, user, lam)
         if self._city_bounded:
@@ -406,20 +487,21 @@ class RecommendationEngine:
         """Run ``host`` through its bucket's CUDA graph, full or capped
         (captured on first use) → the packed output on the host."""
         with self._graph_lock:
-            b = self._buckets.get((host.shape[0], capped)) or self._capture(host, capped)
+            b = (self._buckets.get((host.shape[0], capped))
+                 or self._capture(torch.from_numpy(host).to(self.device), capped))
             b.host.numpy()[...] = host
             b.inputs.copy_(b.host, non_blocking=True)
             b.graph.replay()
             return b.out.cpu()  # the one device→host copy; it waits for the replay
 
-    def _capture(self, host: np.ndarray, capped: bool) -> _Bucket:
-        """Capture the bucket of ``host``'s row count (full or capped). One eager run on the
+    def _capture(self, inputs: torch.Tensor, capped: bool) -> _Bucket:
+        """Capture the bucket of ``inputs``' row count (full or capped) with
+        ``inputs`` (on the card) as its static input. One eager run on the
         capture stream first sets up what a capture cannot: the tower
         kernel's launch plan for Kp·W rows (timed with events and a
         synchronize at its first use), the kernels' libraries, cuBLAS's
         workspace."""
         stream, current = self._graph_stream, torch.cuda.current_stream(self.device)
-        inputs = torch.from_numpy(host).to(self.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             self._device_rank(inputs, capped)
@@ -430,17 +512,117 @@ class RecommendationEngine:
         with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
                                              capture_error_mode="thread_local"):
             out = self._device_rank(inputs, capped)
-        b = _Bucket(graph, torch.empty(host.shape, dtype=torch.int32, pin_memory=True), inputs, out)
-        self._buckets[(host.shape[0], capped)] = b
+        b = _Bucket(graph, torch.empty(inputs.shape, dtype=torch.int32, pin_memory=True), inputs, out)
+        self._buckets[(inputs.shape[0], capped)] = b
         log.info("captured the %s serving graph of a %d-request bucket", "capped" if capped else "full",
-                 host.shape[0])
+                 inputs.shape[0])
         return b
+
+    # ---- the mesh lockstep ------------------------------------------------ #
+
+    @contextlib.contextmanager
+    def _lockstep(self):
+        """One device call of a mesh engine, under the mesh lock; on rank 0
+        it raises once the engine is shut down. A call that fails part way
+        leaves the ranks out of step for good: rank 0 logs the fault and its
+        process exits (code 1), so that its launcher (``launch`` or
+        torchrun) stops every rank at once instead of a server that answers
+        every later request with an error while its followers wait for the
+        world's timeout. A follower's fault raises out of :meth:`follow`,
+        which ends its process the same way."""
+        with self._mesh_lock:
+            if self._leader and self._stopped.is_set():
+                raise RuntimeError("the mesh engine is shut down")
+            try:
+                yield
+            except Exception:
+                if self._leader:
+                    self._stopped.set()
+                    log.critical("a device call of the mesh engine failed part way; the ranks are out of "
+                                 "step: ending rank 0 so that the launcher stops the world", exc_info=True)
+                    os._exit(1)
+                raise
+
+    def _send(self, op: int, a: int = 0, b: int = 0) -> None:
+        """Rank 0: the header of the next device call (under the mesh lock)."""
+        dist.broadcast(torch.tensor([op, a, b], dtype=torch.int64, device=self._wire), 0)
+        self._last_send = time.monotonic()
+
+    def _keepalive(self) -> None:
+        while not self._stopped.wait(KEEPALIVE_S / 4):
+            with self._mesh_lock:
+                if not self._stopped.is_set() and time.monotonic() - self._last_send >= KEEPALIVE_S:
+                    with self._lockstep():
+                        self._send(_OP_NOOP)
+
+    def _mesh_batch(self, host: np.ndarray | None, graphed: bool, Kp: int = 0) -> torch.Tensor | None:
+        """Every rank's part of one batch: rank 0 sends the header and its
+        packed inputs ``host``, every rank runs the bucket (the capture at
+        its first use), and rank 0 gets the packed output on the host."""
+        with self._lockstep():
+            if self._leader:
+                Kp = host.shape[0]
+                self._send(_OP_BATCH, Kp, int(graphed))
+            shape = (Kp, self.gen.max_sources + 3)
+            b = self._buckets.get((Kp, False)) if graphed else None
+            if self._wire.type == "cpu":  # gloo: the inputs travel on the host
+                inputs = torch.from_numpy(host) if self._leader else torch.empty(shape, dtype=torch.int32)
+                dist.broadcast(inputs, 0)
+                inputs = inputs.to(self.device)
+            else:  # NCCL: on the card, into the bucket's static input once it exists
+                inputs = b.inputs if b is not None else torch.empty(shape, dtype=torch.int32, device=self.device)
+                if self._leader:
+                    inputs.copy_(torch.from_numpy(host))
+                dist.broadcast(inputs, 0)
+            if graphed:
+                b = b or self._capture(inputs, False)
+                if b.inputs is not inputs:
+                    b.inputs.copy_(inputs)
+                b.graph.replay()
+                out = b.out
+            else:
+                out = self._device_rank(inputs)
+            return out.cpu() if self._leader else None
+
+    def follow(self) -> None:
+        """The loop of every rank but 0 of a mesh engine: run each device
+        call rank 0 announces, until it shuts the engine down."""
+        if self.mesh is None or self._leader:
+            raise RuntimeError("follow() is for the ranks of a mesh engine other than 0")
+        try:
+            while True:
+                header = torch.empty(3, dtype=torch.int64, device=self._wire)
+                dist.broadcast(header, 0)
+                op, a, b = header.tolist()
+                if op == _OP_STOP:
+                    return
+                if op == _OP_BATCH:
+                    self._mesh_batch(None, bool(b), a)
+                elif op == _OP_SIMILAR:
+                    self._similar_sharded(a, b)
+        finally:
+            self._free_graphs()
+
+    def shutdown(self) -> None:
+        """Rank 0 of a mesh engine: end every other rank's :meth:`follow`
+        (idempotent); later device calls raise."""
+        if self.mesh is None or not self._leader:
+            return
+        with self._mesh_lock:
+            if not self._stopped.is_set():
+                self._send(_OP_STOP)
+                self._stopped.set()
 
     def close(self) -> None:
         """Free the card memory of the engine's CUDA graphs and their
         buffers (a hot reload closes the engine it swapped out once its
         last requests are done); a later request captures its bucket
-        again."""
+        again. A mesh engine's rank 0 shuts the mesh down first: its
+        followers keep their graphs until then."""
+        self.shutdown()
+        self._free_graphs()
+
+    def _free_graphs(self) -> None:
         with self._graph_lock:
             for b in self._buckets.values():
                 b.graph.reset()
@@ -455,9 +637,20 @@ class RecommendationEngine:
         internal = self.bundle.preproc.item_id_mapping.get(item_id)
         if internal is None:
             return None
-        _, idx = cosine_topk(self._table_norm_train, self._emb_train[internal][None, :], n + 1)
+        if self.mesh is None:
+            _, idx = cosine_topk(self._table_norm_train, self._emb_train[internal][None, :], n + 1)
+        else:
+            shard_k(n + 1, self._train_rows.padded, mesh_size(self.mesh))  # raises here, before any rank starts
+            with self._lockstep():
+                self._send(_OP_SIMILAR, internal, n)
+                idx = self._similar_sharded(internal, n)
         neighbours = idx[0, 1:].cpu().tolist()  # drop the first hit (self)
         return [int(self._reverse_item_map[t]) for t in neighbours if t in self._reverse_item_map]
+
+    def _similar_sharded(self, internal: int, n: int) -> torch.Tensor:
+        _, idx = sharded_cosine_topk(self.mesh, self._table_norm_train, self._emb_train[internal][None, :], n + 1,
+                                     n_valid=self._train_rows.n)
+        return idx
 
     def warmup(self, batch_pad: int | None = None) -> None:
         """Serve one request of each kind before traffic (builds the kernels
@@ -481,7 +674,7 @@ class RecommendationEngine:
                   bf16: bool = False, quantize_tables: bool = False, candidate_cap: int = 0,
                   use_pallas: bool = False, frames: tuple | None = None,
                   retrieval_embeddings_path: str | None = None,
-                  **options) -> "RecommendationEngine":
+                  mesh=None) -> "RecommendationEngine":
         """Load an artifact directory and the serve CSVs
         (``hackathon_augmented_data.csv``, ``friendships.csv``) from
         ``data_dir``, or take them parsed as ``frames=(main, friendships)``
@@ -490,14 +683,13 @@ class RecommendationEngine:
         ``.npy`` of learned retrieval vectors (the ``retrieval_embeddings``
         option). The engine's ``artifacts_dir`` names what it serves
         (``/healthz``, the hot-reload poller)."""
-        _reject_unported(options)
         device = resolve_device(device)
         bundle = load_artifact_bundle(artifacts_dir)
         main, friendships = frames if frames is not None else load_frames(data_dir)
         table = np.load(retrieval_embeddings_path) if retrieval_embeddings_path else None
         eng = cls(bundle, main, friendships, retrieval_cfg, device=device, city_bounded=city_bounded,
                   bf16=bf16, quantize_tables=quantize_tables, candidate_cap=candidate_cap,
-                  use_pallas=use_pallas, retrieval_embeddings=table, **options)
+                  use_pallas=use_pallas, retrieval_embeddings=table, mesh=mesh)
         eng.artifacts_dir = artifacts_dir
         return eng
 

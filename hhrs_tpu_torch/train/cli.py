@@ -18,7 +18,7 @@ The config is layered as in the JAX CLI: defaults, then ``--preset`` (or
 ``HHRS_PRESET``), then ``HHRS_<SECTION>_<FIELD>`` environment variables,
 then the positional overrides. The device defaults to ``cuda`` and the run
 fails without a card. ``--mesh``, ``--distributed`` and the ``mesh.*``
-fields are refused as usage errors naming ROADMAP A11.
+fields are refused as usage errors naming ROADMAP A11b.
 """
 
 from __future__ import annotations
@@ -123,9 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run into this dir")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="train over a device mesh (not ported yet: ROADMAP A11)")
+                   help="train over a device mesh (not ported yet: ROADMAP A11b)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host training (not ported yet: ROADMAP A11)")
+                   help="multi-host training (not ported yet: ROADMAP A11b)")
     p.add_argument("--preset", default=None,
                    help="named config preset applied before the environment and the overrides "
                         "(e.g. 'tuned' = B=32768 + rng_impl=rbg + bf16 compute and storage; "
@@ -146,7 +146,7 @@ def run(argv=None) -> tuple:
     p = build_parser()
     args = p.parse_args(argv)
     if args.mesh or args.distributed:
-        p.error("--mesh and --distributed are not ported yet: ROADMAP A11 (multi-device training)")
+        p.error("--mesh and --distributed are not ported yet: ROADMAP A11b (multi-device training)")
     try:
         cfg = build_config(args.overrides, preset=args.preset, log=log)
         unported_mesh_options(cfg.mesh)

@@ -338,7 +338,7 @@ def train_dcn(
     early-stopped or been pruned trains no further. ``device`` defaults to
     ``cuda`` and raises without a card; pass ``"cpu"`` to train on the CPU."""
     if mesh is not None or explicit_exchange:
-        raise NotImplementedError("mesh training is not ported yet: ROADMAP A11 (multi-device training)")
+        raise NotImplementedError("mesh training is not ported yet: ROADMAP A11b (multi-device training)")
     if train_cfg.fused_epoch and train_cfg.stream_slab_steps:
         raise ValueError("train.fused_epoch and train.stream_slab_steps are mutually exclusive: a fused epoch "
                          "scans a device-resident dataset, slab streaming exists so the dataset is NOT "

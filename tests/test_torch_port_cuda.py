@@ -1233,3 +1233,78 @@ def test_cuda_two_tower_tracks_the_jax_run_and_serves():
     for item, n, want_similar in golden["similar"]:
         assert engine.similar_items(item, n) == want_similar
     assert tower.tower_eval.launches > before
+
+
+# ---- serving over a device mesh ---------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_engine_on_one_nccl_rank_equals_single_device(tmp_path):
+    """A world of one rank on NCCL: the mesh engine's buckets are CUDA
+    graphs with the collectives inside, and every response, graphed and
+    eager, equals the single-device engine's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.parallel.distributed import init_world
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    golden = json.loads(GOLDEN_SERVE.read_text())
+    single = RecommendationEngine.from_dirs(str(ARTIFACT), str(REPO / "data"), device="cuda")
+    init_world(0, 1, f"file://{tmp_path / 'store'}", "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        engine = RecommendationEngine.from_dirs(str(ARTIFACT), str(REPO / "data"), mesh=make_mesh(1, 1, "cuda"))
+        assert engine.graphs
+        for req in golden["requests"][:48]:
+            got = engine.recommend(*req)
+            assert got == single.recommend(*req) == engine._recommend_eager([req])[0], req
+        many = [golden["requests"][i] for i in golden["many"]]
+        assert engine.recommend_many(many, pad_to=8) == single.recommend_many(many, pad_to=8)
+        assert engine._recommend_eager(many[:5], pad_to=8) == single.recommend_many(many[:5], pad_to=8)
+        assert set(engine._buckets) == {(1, False), (8, False)}
+        for item, n, want in golden["similar"]:
+            assert engine.similar_items(item, n) == want
+        engine.close()
+        with pytest.raises(RuntimeError, match="shut down"):
+            engine.recommend(*golden["requests"][0])
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_rank_golden(n: int):
+    """A rank of a gloo world on the card: the first ``n`` golden requests
+    through the mesh engine (rank 0 answers; the others follow)."""
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    golden = json.loads(GOLDEN_SERVE.read_text())
+    engine = RecommendationEngine.from_dirs(str(ARTIFACT), str(REPO / "data"), mesh=make_mesh(-1, 1, "cuda"))
+    if dist.get_rank():
+        engine.follow()
+        return None
+    try:
+        return engine.graphs, dist.get_backend(), [engine.recommend(*r) for r in golden["requests"][:n]]
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_engine_on_two_ranks_sharing_the_card(tmp_path):
+    """Two ranks on one card: gloo, eager, and the golden responses under
+    the golden tie rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from hhrs_tpu_torch.parallel.distributed import launch
+
+    golden = json.loads(GOLDEN_SERVE.read_text())
+    graphs, backend, got = launch(_mesh_rank_golden, 2, (48,), device="cuda", timeout_s=300,
+                                  store_dir=str(tmp_path))
+    assert (graphs, backend) == (False, "gloo")
+    for resp, want, logits in zip(got, golden["responses"], golden["logits"]):
+        _swaps(resp, want, logits, 1e-4)

@@ -258,7 +258,9 @@ def test_from_dirs_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("option,value", [("mesh", object())])
 def test_unported_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh serving is ported (tests/test_torch_port_mesh.py): a mesh that
+    # is not a DeviceMesh of parallel/mesh.py is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         RecommendationEngine.from_dirs(ARTIFACT, DATA, device="cpu", **{option: value})
 
 

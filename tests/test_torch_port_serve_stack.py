@@ -337,8 +337,8 @@ def test_cli_flags_equal_jax_plus_device():
 
 
 def test_cli_refuses_unported_flags_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli.main(["--mesh", "4x2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A11c"):  # --mesh serves; with a canary it is A11c
+        cli.main(["--mesh", "4x2", "--device", "cpu", "--canary", "x"])
     # --retrieval-embeddings (A10) is served: the stack's engine holds the table
     table = REPO / "hhrs_tpu_torch/testdata/retrieval_embeddings_hpo_r5.npy"
     args = cli.build_parser().parse_args(["--artifacts", ARTIFACT, "--data", DATA, "--device", "cpu",
