@@ -215,7 +215,34 @@ Phases (any failure exits non-zero and prints no result line):
    speed); (d) ``python -m hhrs_tpu_torch.serve.cli --mesh 2`` boots,
    answers ``/healthz`` and one ``POST /recommendations`` equal to the
    single-device answer, and leaves no rank after SIGTERM. Each world's
-   backend and whether it ran graphed are printed.
+   backend and whether it ran graphed are printed;
+14. training over a device mesh (``train_dcn``'s ``mesh``; ``parallel/``):
+   (a) a world of one rank on NCCL in this process: the golden parity run
+   (phase 6's) through ``train_dcn(mesh=1x1)``, its val losses within
+   rtol 1e-4 / atol 1e-6 of phase 6's single-device run and within C1's
+   bars of the golden file, the LR trace equal, its cross launches counted
+   from 0 (one forward and one backward a step, one forward an eval chunk);
+   then the hpo_r5 run's step p50 and ``examples_per_s`` beside the
+   single-device trainer's, in turns; (b) a gloo world of 2 ranks sharing
+   the card: on each rank the cross kernels on its 256 rows of a training
+   batch, f32 and bf16 (y and dx0 the whole-batch launch's rows bit for
+   bit, dw and db summed over the ranks within the term-scale bar of the
+   whole batch); then one step of the hpo_r5 configuration (dropout 0.6,
+   seeded weights) at 2x1, within rtol 1e-4 / atol 1e-6 of one
+   single-device step; 3 epochs of it at 2x1 (the default exchange) and at
+   1x2 with ``all_to_all``, each within rtol 1e-4 / atol 1e-6 of phase 7's
+   single-device run or within the trajectory's rounding noise where that
+   is larger (twice the widest gap among that run and its one-ulp, order
+   and scale twins), with the LR trace equal, every rank's history equal
+   and its replicated weights bit-identical, each rank's cross launches
+   counted; one bf16 epoch (bf16 cross launches on each rank) within
+   ``BF16_VAL_RTOL`` (or its noise) of the single-device bf16 epoch; the capped exchange
+   at factor 1.0, its drop rate on the card equal to the same world's CPU
+   run; the 2x1 step p50 and rank 0's host time inside collectives (ranks
+   that share one card: not a multi-GPU speed); (c) ``python -m
+   hhrs_tpu_torch.train.cli --mesh 2`` trains one epoch and writes one
+   artifact, the single-device engine answers a request from it, and no
+   rank is left after the CLI exits.
 
 The last lines are one JSON object of kernel measurements, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -732,9 +759,10 @@ def double_backward_check(cross, features, f32, gen) -> tuple:
     return 1, 1
 
 
-def training_parity(splits, bundle, dev, card: str) -> None:
+def training_parity(splits, bundle, dev, card: str) -> list:
     """train_dcn on the card, per step and with train.fused_epoch, against
-    the JAX trainer's golden trajectory; each run twice, bit for bit."""
+    the JAX trainer's golden trajectory; each run twice, bit for bit →
+    the per-step run's history."""
     import numpy as np
 
     from hhrs_tpu_torch.config import ModelConfig, TrainConfig
@@ -808,6 +836,7 @@ def training_parity(splits, bundle, dev, card: str) -> None:
               f"evaluations): val_loss {h['val_loss']:.7f}; "
               f"|kernels - plain| {abs(k['val_loss'] - h['val_loss']):.3e}, "
               f"|plain - JAX| {abs(h['val_loss'] - w['val_loss']):.3e}")
+    return per_step.history
 
 
 def fused_lr_check(splits, bundle, model_cfg, train_cfg, dev) -> None:
@@ -1023,7 +1052,8 @@ def resume_round_trip(splits, dims, model_cfg, train_cfg, full, full_fused, dev)
 def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card: str) -> dict:
     """The hpo_r5 configuration as trained, per step and with
     train.fused_epoch, timed; the epoch profiles; a resume round trip; then
-    export, reload, serve. Returns the cross kernels' launches in each run."""
+    export, reload, serve. Returns the cross kernels' launches in each run
+    and the first per-step run's history."""
     import numpy as np
     import torch
 
@@ -1078,7 +1108,7 @@ def train_timing(splits, preproc, model_cfg, train_cfg, serve_golden, dev, card:
             raise SmokeFailure(f"the trained artifact gave no answer to {req}")
         print(f"[train] served {req} from the trained artifact: "
               f"{len(hotels) if hotels is not None else resp['message']} hotels")
-    return {"per_step": launches, "fused": fused_launches}
+    return {"per_step": launches, "fused": fused_launches, "history": result.history}
 
 
 def cross_timings(cross, dev, card: str, dtype=None) -> dict:
@@ -3447,6 +3477,446 @@ def mesh_phase(golden: dict, single, dev, card: str) -> dict:
     return out
 
 
+PHASE14_DIR = REPO / "build" / "phase14"
+MESH_KERNEL_B = 512  # the hpo_r5 batch: 256 rows a rank on 2 ranks
+
+
+def _digest(model) -> str:
+    """A digest of every tensor a mesh rank holds whole (all but its table shards)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        if k not in model.layout.sharded:
+            h.update(k.encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_rows_kernel_check(cross, dev, rank: int, ranks: int, group=None) -> dict:
+    """The cross kernels on this rank's rows of a training batch (hpo_r5's
+    d = 113, L = 3; the same inputs on every rank, from ``SEED``), f32 and
+    bf16: y and dx0 must be the whole-batch launch's rows bit for bit (the
+    kernels are row-local), and dw, db summed over the ranks (one
+    ``all_reduce``; the sum of the halves on one process when ``group`` is
+    None and ``ranks`` halves run here) within the term-scale bar of the
+    whole-batch backward. Returns the largest |Δ| of the sums. (On the CPU,
+    to rehearse, the plain versions stand in for the kernels.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    fwd, bwd = cross.cross_stack_forward, cross.cross_stack_backward
+    if dev.type == "cpu":
+        fwd, bwd = cross.cross_stack_apply, cross.cross_stack_backward_ref
+    gen = np.random.default_rng(SEED + 14)
+    B, d, L = MESH_KERNEL_B, 113, 3
+    out = {}
+    for dtype, tol in ((torch.float32, CROSS_TOL), (torch.bfloat16, CROSS_BF16_TOL)):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).to(dtype).contiguous()  # noqa: E731
+        x0, dy = t(gen.standard_normal((B, d))), t(gen.standard_normal((B, d)))
+        w, b = t(gen.uniform(-1, 1, (L, d)) / np.sqrt(d)), t(0.1 * gen.standard_normal((L, d)))
+        n = B // ranks
+        with torch.no_grad():
+            y_all = fwd(w, b, x0, "code")
+            dx0_all, dw_all, db_all = bwd(w, b, x0, dy, "code")
+            mine = range(ranks) if group is None else [rank]
+            dw = torch.zeros(L, d, dtype=torch.float32, device=dev)
+            db = torch.zeros(L, d, dtype=torch.float32, device=dev)
+            for r in mine:
+                rows = slice(r * n, (r + 1) * n)
+                y = fwd(w, b, x0[rows].contiguous(), "code")
+                dx0, dw_r, db_r = bwd(w, b, x0[rows].contiguous(), dy[rows].contiguous(), "code")
+                if not (torch.equal(y, y_all[rows]) and torch.equal(dx0, dx0_all[rows])):
+                    raise SmokeFailure(f"{dtype}: rank {r}'s cross y / dx0 on its rows differ from the whole-batch "
+                                       "launch's rows")
+                dw += dw_r.float()
+                db += db_r.float()
+            if group is not None:
+                dist.all_reduce(dw, group=group)
+                dist.all_reduce(db, group=group)
+            scale = cross.cross_stack_term_scale(w, b, x0, dy, "code")
+        errs = []
+        for name, got, want, sc in (("dw", dw, dw_all, scale[2]), ("db", db, db_all, scale[3])):
+            try:
+                errs.append(cross.assert_close_to_scale(got, want.float(), sc, **tol, what=name)[0])
+            except AssertionError as e:
+                raise SmokeFailure(f"{dtype}: dw / db summed over {ranks} ranks' rows against the whole batch: {e}")
+        out[str(dtype).split(".")[-1]] = max(errs)
+    return out
+
+
+# Phase 14b's runs in the world of 2 ranks: (label, mesh shape, exchange,
+# capacity factor, model-config changes, epochs, device: None = the card,
+# train rows: None = all of them). The one-step run trains on the first
+# batch of rows alone, where rounding has had no steps to grow.
+MESH_TRAIN_RUNS = (
+    ("2x1 one step", (2, 1), None, 1.25, {}, 1, None, MESH_KERNEL_B),
+    ("2x1", (2, 1), None, 1.25, {}, 3, None, None),
+    ("1x2 all_to_all", (1, 2), "all_to_all", 1.25, {}, 3, None, None),
+    ("2x1 bf16", (2, 1), None, 1.25, {"compute_dtype": "bfloat16"}, 1, None, None),
+    ("1x2 capped", (1, 2), "capped", 1.0, {}, 1, None, None),
+    ("1x2 capped cpu", (1, 2), "capped", 1.0, {}, 1, "cpu", None),
+)
+TIMED_MESH_RUN = "2x1"  # its step p50 and rank 0's time inside collectives are reported
+
+
+def _first_rows(splits, n: int | None):
+    """``splits`` with its first ``n`` train rows alone (all of them for None)."""
+    if n is None:
+        return splits
+    return dataclasses.replace(splits, **{f"train_{k}": getattr(splits, f"train_{k}")[:n]
+                                          for k in ("user", "item", "cat", "num", "y")})
+
+
+def mesh_train_rank_main(spec: dict) -> list | None:
+    """One rank of phase 14b's gloo world (2 ranks sharing the card): the
+    cross kernels on its rows, then each run of ``MESH_TRAIN_RUNS``, its
+    cross launches counted from 0 just before and read just after; on the
+    first run rank 0's host time inside collectives. → every rank's
+    reports on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.config import ModelConfig, TrainConfig
+    from hhrs_tpu_torch.ops import cross
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(spec["device"]) if spec["device"] == "cpu" else torch.device("cuda", torch.cuda.current_device())
+    rank, W = dist.get_rank(), dist.get_world_size()
+    mine = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+            "kernel": rank_rows_kernel_check(cross, dev, rank, W, dist.group.WORLD)}
+    in_collectives = {"s": 0.0, "calls": 0}
+    names = ("all_reduce", "all_gather_into_tensor", "all_to_all_single", "broadcast", "barrier")
+    originals = {n: getattr(dist, n) for n in names}
+
+    def timed(fn):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                in_collectives["s"] += time.perf_counter() - t
+                in_collectives["calls"] += 1
+        return wrapped
+
+    for label, shape, exchange, factor, changes, epochs, where, rows in MESH_TRAIN_RUNS:
+        run_dev = torch.device(where) if where else dev
+        mcfg = dataclasses.replace(ModelConfig(**spec["model"]), **changes)
+        tcfg = dataclasses.replace(TrainConfig(**spec["train"]), n_epochs=epochs)
+        mesh = make_mesh(*shape, run_dev)
+        first = label == TIMED_MESH_RUN
+        if first and rank == 0:
+            for n, fn in originals.items():
+                setattr(dist, n, timed(fn))
+        _sync(dev)
+        reset_cross_counts(cross)
+        t0 = time.perf_counter()
+        try:
+            r = train_dcn(_first_rows(spec["splits"], rows), spec["dims"], mcfg, tcfg, mesh=mesh,
+                          explicit_exchange=exchange, exchange_capacity_factor=factor, device=run_dev)
+            _sync(dev)
+        finally:
+            for n, fn in originals.items():
+                setattr(dist, n, fn)
+        mine[label] = {"history": r.history, "final": r.final_metrics, "launches": cross_counts(cross),
+                       "wall_s": time.perf_counter() - t0, "step_ms": r.step_ms, "digest": _digest(r.model),
+                       "shards": {k: tuple(v.shape) for k, v in r.model.state_dict().items()
+                                  if k in r.model.layout.sharded}}
+        if first and rank == 0:
+            mine[label]["collectives"] = dict(in_collectives)
+    every = [None] * W
+    dist.all_gather_object(every, mine)
+    return every if rank == 0 else None
+
+
+def _held_history(label: str, got: list, want: list, bar: dict, noise: float = 0.0) -> float:
+    """Fail unless every val loss is within ``bar`` of ``want``'s, or within
+    ``noise`` (twice the trajectory's own rounding noise: see
+    ``_trajectory_noise``) where that is larger, and the LR traces are
+    equal → the largest val-loss |Δ|."""
+    import numpy as np
+
+    g, w = np.array([h["val_loss"] for h in got]), np.array([h["val_loss"] for h in want])
+    allowed = np.maximum(bar["atol"] + bar["rtol"] * np.abs(w), noise)
+    if len(g) != len(w) or not (np.abs(g - w) <= allowed).all():
+        raise SmokeFailure(f"14 {label}: val losses {g.tolist()} against {w.tolist()} outside {bar} "
+                           f"and the trajectory's rounding noise {noise:.3e}")
+    if [h["lr"] for h in got] != [h["lr"] for h in want]:
+        raise SmokeFailure(f"14 {label}: the LR trace differs")
+    return float(np.abs(g - w).max())
+
+
+ORDER_TWIN_BLOCKS = 32  # the order twin's backward plan: B = 512 rows in tiles of 16, not 8
+SCALE_TWIN = 1.0 + 2.0 ** -23  # the scale twin's train loss factor: one ulp above 1
+
+
+def _trajectory_noise(splits, dims, mcfg, tcfg, single: list, dev, bf16: bool = False) -> dict:
+    """How far rounding alone moves this trajectory: four single-device
+    runs that differ by rounding only, ``single`` and three twins of it:
+    the one-ulp twin (``_one_ulp_init``: one weight one ulp up at the
+    start), the order twin (every cross backward under a plan of
+    ``ORDER_TWIN_BLOCKS`` blocks, so dw and db are summed in another
+    order, as ``_sequential_runs`` does in phase 11b; on the CPU the plain
+    version has one order, and the order twin is ``single`` again) and the
+    scale twin (every train loss times ``SCALE_TWIN``, so every gradient of
+    every step is rounded anew, as a mesh's sums in another order round
+    them; Adam's update does not see the scale) → each twin's largest
+    val-loss gap to ``single`` and ``noise``, twice the largest gap between
+    any two of the four (``_default_run_bar``'s rule). At hpo_r5's LR
+    (6.4e-3, Adam) and dropout 0.6 the trajectory amplifies such rounding
+    far past rtol 1e-4 within the first epoch (phase 11b's lane 7: 4.39e-3 at
+    epoch 0 from the backward's sum order alone)."""
+    from hhrs_tpu_torch.ops import cross
+    from hhrs_tpu_torch.train import trainer
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    twin = train_dcn(splits, dims, mcfg, tcfg, init_state=_one_ulp_init(dims, mcfg, tcfg.seed, bf16=bf16), device=dev)
+    real_plan, real_loss = cross._plan, trainer.bce_with_logits
+
+    def other_order(B, device_index, d, backward, dtype):
+        if backward:
+            return cross.cross_plan(B, ORDER_TWIN_BLOCKS, cross.CLUSTER, cross.ROW_ALIGN[dtype])
+        return real_plan(B, device_index, d, backward, dtype)
+
+    def scaled_train_loss(logits, y):
+        loss = real_loss(logits, y)
+        return loss * SCALE_TWIN if logits.requires_grad else loss
+
+    cross._plan = other_order
+    try:
+        order = train_dcn(splits, dims, mcfg, tcfg, device=dev)
+    finally:
+        cross._plan = real_plan
+    trainer.bce_with_logits = scaled_train_loss
+    try:
+        scale = train_dcn(splits, dims, mcfg, tcfg, device=dev)
+    finally:
+        trainer.bce_with_logits = real_loss
+    runs = [[h["val_loss"] for h in r] for r in (single, twin.history, order.history, scale.history)]
+    gap = lambda a, b: max(abs(x - y) for x, y in zip(a, b))  # noqa: E731
+    return {"twin": gap(runs[1], runs[0]), "order": gap(runs[2], runs[0]), "scale": gap(runs[3], runs[0]),
+            "noise": 2 * max(gap(a, b) for a in runs for b in runs)}
+
+
+def mesh_train_nccl(splits, bundle, preproc, model_cfg, train_cfg, parity: list, dev, card: str) -> dict:
+    """Phase 14a: a world of one rank on NCCL (gloo on the CPU, to
+    rehearse) in this process: the golden parity run through
+    ``train_dcn(mesh=1x1)`` against phase 6's single-device run and the
+    golden trajectory, its cross launches counted from 0; then the hpo_r5
+    run's step p50 and ``examples_per_s`` beside the single-device
+    trainer's, in turns."""
+    import torch
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.models.dcn import ModelDims
+    from hhrs_tpu_torch.ops import cross
+    from hhrs_tpu_torch.parallel.distributed import init_world
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    golden = json.loads((REPO / TRAIN_GOLDEN).read_text())
+    gcfg = {k: golden[k] for k in ("model_config", "train_config")}
+    from hhrs_tpu_torch.config import ModelConfig, TrainConfig
+
+    store = PHASE14_DIR / "nccl_store"
+    store.unlink(missing_ok=True)
+    init_world(0, 1, f"file://{store}", dev)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh(1, 1, dev)
+        mcfg, tcfg = ModelConfig(**gcfg["model_config"]), TrainConfig(**gcfg["train_config"])
+        _sync(dev)
+        reset_cross_counts(cross)
+        r = train_dcn(splits, bundle.dims, mcfg, tcfg, mesh=mesh, init_state=(bundle.params, bundle.bn_state),
+                      device=dev)
+        _sync(dev)
+        launches = cross_counts(cross)
+        steps = splits.n_train // tcfg.batch_size
+        chunks = -(-splits.n_val // tcfg.eval_batch_size)
+        want = {"fwd": tcfg.n_epochs * steps + (tcfg.n_epochs + 1) * chunks, "bwd": tcfg.n_epochs * steps,
+                "fwd_bf16": 0, "bwd_bf16": 0}
+        if dev.type == "cpu":  # a rehearsal: the plain versions, no launch
+            want = dict.fromkeys(want, 0)
+        if launches != want:
+            raise SmokeFailure(f"14a: cross launches {launches}, expected {want}")
+        gap = _held_history("a (against phase 6)", r.history, parity, dict(rtol=1e-4, atol=1e-6))
+        bars = [VAL_TOL] + [LATER_EPOCH_TOL] * (len(golden["history"]) - 1)
+        for h, w, bar in zip(r.history, golden["history"], bars):
+            _held_history("a (against the golden trajectory)", [h], [w], bar)
+        fm, gm = r.final_metrics, golden["final_metrics"]
+        if abs(fm["val_logloss"] - gm["val_logloss"]) > 2e-3 or abs(fm["val_auc"] - gm["val_auc"]) > 2e-3:
+            raise SmokeFailure("14a: the final val logloss / AUC differ from the JAX trainer's")
+        print(f"[mesh-train] 14a: a world of 1 rank on {backend}: the golden parity run through train_dcn(mesh=1x1) "
+              f"gives val losses {[round(h['val_loss'], 7) for h in r.history]} (largest |Δ| against phase 6's "
+              f"single-device run {gap:.3e}, within rtol 1e-4 / atol 1e-6; C1 against the golden file), LR trace "
+              f"equal; cross launches {launches} (one forward and one backward a step, one forward an eval chunk)")
+        dims = ModelDims.from_artifacts(preproc)
+        timing = {"single": [], "mesh": []}
+        for label in ("single", "mesh", "mesh", "single"):  # in turns, on one host
+            _sync(dev)
+            t = train_dcn(splits, dims, model_cfg, train_cfg, mesh=mesh if label == "mesh" else None, device=dev)
+            timing[label].append((statistics.median(t.step_ms), t.examples_per_s))
+        print("[time] 14a: the hpo_r5 run (dropout 0.6, seeded weights, 3 epochs), in turns: step p50 single-device "
+              + ", ".join(f"{p:.4f}" for p, _ in timing["single"]) + " ms, 1-rank mesh "
+              + ", ".join(f"{p:.4f}" for p, _ in timing["mesh"]) + " ms; examples_per_s single-device "
+              + ", ".join(f"{e:.1f}" for _, e in timing["single"]) + ", 1-rank mesh "
+              + ", ".join(f"{e:.1f}" for _, e in timing["mesh"]) + f" on {card}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {"backend": backend, "launches": launches, "max_dval_vs_single": gap, "timing": timing}
+
+
+def mesh_train_gloo(splits, preproc, model_cfg, train_cfg, single: list, dev, card: str) -> dict:
+    """Phase 14b: a gloo world of 2 ranks sharing the card. Each rank holds
+    the cross kernels on its rows to the whole-batch launch, then trains
+    ``MESH_TRAIN_RUNS``: one step of the hpo_r5 configuration (dropout 0.6,
+    seeded weights) at 2x1, held to one single-device step at rtol 1e-4 /
+    atol 1e-6; 2x1 (the default exchange) and 1x2 all_to_all, 3 epochs,
+    each held to phase 7's single-device run (``single``) at rtol 1e-4 /
+    atol 1e-6, or at the trajectory's rounding noise where that is larger
+    (``_trajectory_noise``); one bf16 epoch held to the single-device bf16
+    epoch at ``BF16_VAL_RTOL`` (or its noise); capped at factor 1.0 on the
+    card and on the CPU with equal drop rates. Every run: equal LR traces,
+    every rank's history equal, the replicated weights bit-identical, each
+    rank's cross launches counted."""
+    from hhrs_tpu_torch.models.dcn import ModelDims
+    from hhrs_tpu_torch.parallel.distributed import launch
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    dims = ModelDims.from_artifacts(preproc)
+    B = train_cfg.batch_size
+    cfg16, cfg1 = dataclasses.replace(model_cfg, compute_dtype="bfloat16"), dataclasses.replace(train_cfg, n_epochs=1)
+    one_step = train_dcn(_first_rows(splits, B), dims, model_cfg, cfg1, device=dev)
+    single16 = train_dcn(splits, dims, cfg16, cfg1, device=dev)
+    noise = _trajectory_noise(splits, dims, model_cfg, train_cfg, single, dev)
+    noise16 = _trajectory_noise(splits, dims, cfg16, cfg1, single16.history, dev, bf16=True)
+    print(f"[mesh-train] 14b: the references' rounding noise (largest val-loss gap of the one-ulp, order and "
+          f"scale twins; twice the widest gap of the four runs): f32 3 epochs "
+          + ", ".join(f"{noise[k]:.3e}" for k in ("twin", "order", "scale")) + f"; {noise['noise']:.3e}; bf16 1 epoch "
+          + ", ".join(f"{noise16[k]:.3e}" for k in ("twin", "order", "scale")) + f"; {noise16['noise']:.3e} on {card}")
+    spec = {"splits": splits, "dims": dims, "model": dataclasses.asdict(model_cfg),
+            "train": dataclasses.asdict(train_cfg), "device": dev.type}
+    t0 = time.perf_counter()
+    ranks = launch(mesh_train_rank_main, 2, (spec,), device=dev, timeout_s=900, store_dir=str(PHASE14_DIR))
+    world_s = time.perf_counter() - t0
+    chunks = -(-splits.n_val // train_cfg.eval_batch_size)  # 4487 val rows: odd, replicated on both ranks
+    report = {"world_s": world_s, "ranks": {}, "noise": {"f32": noise, "bf16": noise16}}
+    for r in ranks:
+        print(f"[mesh-train] 14b rank {r['rank']}: {r['device']}, backend {r['backend']}; cross kernels on its "
+              f"{MESH_KERNEL_B // 2} rows: y and dx0 the whole-batch launch's rows bit for bit, dw / db summed over "
+              f"the 2 ranks within the term-scale bar of the whole batch (largest |Δ| f32 "
+              f"{r['kernel']['float32']:.3e}, bf16 {r['kernel']['bfloat16']:.3e})")
+    for label, shape, exchange, factor, changes, epochs, where, rows in MESH_TRAIN_RUNS:
+        runs = [r[label] for r in ranks]
+        if any(x["history"] != runs[0]["history"] for x in runs):
+            raise SmokeFailure(f"14b {label}: the ranks' histories differ")
+        if any(x["digest"] != runs[0]["digest"] for x in runs):
+            raise SmokeFailure(f"14b {label}: the ranks' replicated weights differ")
+        bf16 = changes.get("compute_dtype") == "bfloat16"
+        want = {"fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 0}
+        if where != "cpu" and dev.type != "cpu":  # the CPU runs the plain versions: no launch
+            k, steps = "_bf16" if bf16 else "", (rows or splits.n_train) // B
+            want.update({f"fwd{k}": epochs * steps + (epochs + 1) * chunks, f"bwd{k}": epochs * steps})
+        got = [x["launches"] for x in runs]
+        if any(g != want for g in got):
+            raise SmokeFailure(f"14b {label}: cross launches per rank {got}, expected {want} each")
+        hist = runs[0]["history"]
+        if rows is not None:
+            gap = _held_history(f"b {label} (against one single-device step)", hist, one_step.history,
+                                dict(rtol=1e-4, atol=1e-6))
+        elif epochs == train_cfg.n_epochs:
+            gap = _held_history(f"b {label} (against phase 7)", hist, single, dict(rtol=1e-4, atol=1e-6),
+                                noise["noise"])
+        elif bf16:
+            gap = _held_history(f"b {label} (against the single-device bf16 epoch)", hist, single16.history,
+                                dict(rtol=BF16_VAL_RTOL, atol=0.0), noise16["noise"])
+        else:
+            gap = None
+        p50 = statistics.median(runs[0]["step_ms"]) if runs[0]["step_ms"] else None
+        print(f"[mesh-train] 14b {label}: val losses {[round(h['val_loss'], 7) for h in hist]}"
+              + (f" (largest |Δ| against the single-device run {gap:.3e})" if gap is not None else "")
+              + (f", exchange_overflow {[h['exchange_overflow'] for h in hist]}" if exchange == "capped" else "")
+              + f"; every rank's history equal, replicated weights bit-identical; table shards {runs[0]['shards']}; "
+              f"cross launches per rank {got[0]}; step p50 {ms_text(p50)} ms, wall {runs[0]['wall_s']:.2f} s on {card}")
+        report["ranks"][label] = {"launches": got, "max_dval": gap, "step_p50_ms": p50,
+                                  "overflow": [h.get("exchange_overflow") for h in hist]}
+    card_ovf, cpu_ovf = (report["ranks"][k]["overflow"] for k in ("1x2 capped", "1x2 capped cpu"))
+    if card_ovf != cpu_ovf or not all(o is not None and o > 0 for o in card_ovf):
+        raise SmokeFailure(f"14b: the capped exchange's drop rate on the card {card_ovf} is not the CPU's {cpu_ovf} "
+                           "(or nothing was dropped at factor 1.0)")
+    coll = ranks[0][TIMED_MESH_RUN]["collectives"]
+    steps = splits.n_train // B
+    print(f"[time] 14b {TIMED_MESH_RUN}: step p50 {ms_text(report['ranks'][TIMED_MESH_RUN]['step_p50_ms'])} ms "
+          f"(CUDA events, rank 0); rank 0's host time inside collectives {coll['s']:.3f} s over {coll['calls']} calls "
+          f"in the whole 3-epoch run ({coll['calls'] / (3 * steps):.1f} calls a step, evals and the final gathers "
+          f"included); 2 ranks share one card over gloo: a correctness and launch check, not a multi-GPU speed; "
+          f"world {world_s:.1f} s on {card}")
+    report.update(collectives=coll, kernel=[r["kernel"] for r in ranks])
+    return report
+
+
+def mesh_train_cli(dev, card: str) -> dict:
+    """Phase 14c: ``python -m hhrs_tpu_torch.train.cli --mesh 2`` trains one
+    epoch on ``data/`` and writes one artifact; the single-device engine
+    loads it and answers a request; no rank is left after the CLI exits."""
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    t0 = time.perf_counter()
+    out = PHASE14_DIR / "cli_artifact"
+    log_path = OUT_DIR / "phase14c_cli.log"
+    cmd = [sys.executable, "-m", "hhrs_tpu_torch.train.cli", "--data", str(REPO / "data"), "--out", str(out),
+           "--mesh", "2", "--epochs", "1"]
+    if dev.type == "cpu":
+        cmd += ["--device", "cpu"]
+    ranks = set()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < 300:
+                ranks.update(_ranks_of(proc.pid))
+                time.sleep(0.2)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            rc = proc.wait(timeout=60)
+    left = [p for p in ranks if _alive(p)]
+    if rc != 0 or len(ranks) != 2 or left:
+        raise SmokeFailure(f"14c: train.cli --mesh 2 exit code {rc}, ranks {sorted(ranks)}, left {left} "
+                           f"(see {log_path})")
+    manifest = json.loads((out / "manifest.json").read_text())
+    engine = RecommendationEngine.from_dirs(str(out), str(REPO / "data"), device=dev)
+    golden = json.loads((REPO / GOLDEN).read_text())
+    resp = engine.recommend(*golden["requests"][0])
+    if not resp.get("ranked_hotels"):
+        raise SmokeFailure(f"14c: the mesh-trained artifact gave no hotels: {resp}")
+    backend = sorted(set(re.findall(r"backend (\w+) \(([^)]*)\)", log_path.read_text())))
+    print(f"[mesh-train] 14c: train.cli --mesh 2 trained 1 epoch (2 ranks {sorted(ranks)}, {backend}), exit {rc}, "
+          f"no rank left; artifact val_logloss {manifest['metrics']['val_logloss']:.5f}; the single-device engine "
+          f"answered {len(resp['ranked_hotels'])} hotels from it; {time.perf_counter() - t0:.1f} s on {card}")
+    return {"exit": rc, "ranks": len(ranks), "val_logloss": manifest["metrics"]["val_logloss"]}
+
+
+def mesh_train_phase(splits, preproc, bundle, model_cfg, train_cfg, parity: list, single: list, dev,
+                     card: str) -> dict:
+    """Phase 14: training over a device mesh (14a–14c, the times of 14d
+    printed with them). ``parity``: phase 6's single-device history,
+    ``single``: phase 7's."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    PHASE14_DIR.mkdir(parents=True)
+    out = {"nccl": mesh_train_nccl(splits, bundle, preproc, model_cfg, train_cfg, parity, dev, card),
+           "gloo": mesh_train_gloo(splits, preproc, model_cfg, train_cfg, single, dev, card),
+           "cli": mesh_train_cli(dev, card)}
+    print(f"[mesh-train] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3656,7 +4126,7 @@ def main() -> int:
     splits, preproc = build_dataset(str(REPO / "data"), Config())
     print(f"[train] data/: {splits.n_train} train / {splits.n_val} val rows in "
           f"{time.perf_counter() - t0:.2f} s")
-    training_parity(splits, bundle, dev, card)
+    parity_history = training_parity(splits, bundle, dev, card)
 
     # ---- phase 7: training, timing run (the main path of this slice) ------
     golden_t = json.loads((REPO / TRAIN_GOLDEN).read_text())
@@ -3686,6 +4156,10 @@ def main() -> int:
 
     # ---- phase 13: serving over a device mesh ------------------------------
     mesh = mesh_phase(golden, engine, dev, card)
+
+    # ---- phase 14: training over a device mesh -----------------------------
+    mesh_train = mesh_train_phase(splits, preproc, bundle, model_cfg, train_cfg, parity_history,
+                                  cross_launches["history"], dev, card)
 
     r = rows[128]
     kernels.append({
@@ -3718,6 +4192,10 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "by_batch": [cross_rows[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
             "retrain_launches": {k: v[kind] for k, v in retrain_f32.items()},
+            "mesh_train_launches": {"14a_1_rank": mesh_train["nccl"]["launches"][kind],
+                                    **{f"14b_{k}_per_rank": [x[kind] for x in v["launches"]]
+                                       for k, v in mesh_train["gloo"]["ranks"].items() if "bf16" not in k}},
+            "mesh_rank_rows_max_abs_err": max(k["float32"] for k in mesh_train["gloo"]["kernel"]),
             **({"export_all_launches": phase12["export"]["launches"]["cross_fwd"]} if kind == "fwd" else {}),
         })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
@@ -3735,6 +4213,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
             "by_batch": [cross_rows_bf16[(kind, B)] for B, _ in CROSS_TIMED_B if B != 512],
             "retrain_launches": {k: v[kind] for k, v in retrain_bf16.items()},
+            "mesh_train_launches_per_rank": [x[f"{kind}_bf16"]
+                                             for x in mesh_train["gloo"]["ranks"]["2x1 bf16"]["launches"]],
+            "mesh_rank_rows_max_abs_err": max(k["bfloat16"] for k in mesh_train["gloo"]["kernel"]),
             **({"export_all_launches": phase12["export"]["launches"]["cross_fwd_bf16"],
                 "mesh_launches_per_rank": [r["fwd_bf16"] for r in mesh["gloo"]["bf16_launches"]]}
                if kind == "fwd" else {}),

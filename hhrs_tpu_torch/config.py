@@ -10,9 +10,9 @@ Copies of ``hhrs_tpu/config.py``'s ``ModelConfig``, ``TrainConfig``,
 environment → CLI tokens), and of ``hhrs_tpu/utils/shapes.py::round_up``.
 An artifact manifest's ``model_config`` loads into :class:`ModelConfig`
 field for field; :func:`check_dtypes` holds its dtypes to the JAX model's
-rules. Options whose paths are not ported yet (the ``mesh`` section and
-``train.mesh_resident_data``, ROADMAP A11b) are rejected by
-:func:`unported_train_options` and :func:`unported_mesh_options`.
+rules. Trainer options whose mesh paths are not ported yet (lazy table
+updates and slab streaming over a mesh, ROADMAP A11b2) are rejected on a
+mesh by :func:`unported_mesh_train_options`.
 """
 
 from __future__ import annotations
@@ -94,43 +94,32 @@ class TrainConfig:
     eval_catalog_recall: bool = False
 
 
-# Trainer options whose paths are not ported yet: (field, value that is
-# ported, the ROADMAP item that brings the rest).
-_UNPORTED_TRAIN = (
-    ("mesh_resident_data", False, "ROADMAP A11b (multi-device training)"),
-)
+# Trainer options whose paths over a mesh are not ported yet: (field, the
+# value that is ported there).
+_UNPORTED_ON_A_MESH = (("lazy_table_updates", False), ("stream_slab_steps", 0))
 
 
-def unported_train_options(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for the first
-    option of ``cfg`` set to a value whose path is not ported."""
-    for name, ported, item in _UNPORTED_TRAIN:
+def unported_mesh_train_options(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A11b2 for the first
+    option of ``cfg`` whose path over a mesh is not ported."""
+    for name, ported in _UNPORTED_ON_A_MESH:
         value = getattr(cfg, name)
         if value != ported:
-            raise NotImplementedError(f"train.{name}={value!r} is not ported yet: {item}")
+            raise NotImplementedError(f"train.{name}={value!r} on a mesh is not ported yet: ROADMAP A11b2 "
+                                      "(lazy table updates and slab streaming over a mesh)")
 
 
 @dataclass
 class MeshConfig:
-    """The JAX package's device-mesh layout (same fields and defaults). The
-    port trains on no mesh yet: every field set away from its default is refused by
-    :func:`unported_mesh_options`."""
+    """The device-mesh layout (same fields and defaults as the JAX
+    package). The train CLI reads ``explicit_exchange`` and
+    ``exchange_capacity_factor``; the mesh itself comes from ``--mesh``."""
 
     data_axis: int = -1
     model_axis: int = 1
     axis_names: tuple = ("data", "model")
     explicit_exchange: str = ""
     exchange_capacity_factor: float = 1.25
-
-
-def unported_mesh_options(cfg: MeshConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A11b for the first
-    ``mesh`` field set away from its default."""
-    for f in dataclasses.fields(cfg):
-        value = getattr(cfg, f.name)
-        if value != f.default:
-            raise NotImplementedError(
-                f"mesh.{f.name}={value!r} is not ported yet: ROADMAP A11b (multi-device training)")
 
 
 @dataclass

@@ -53,7 +53,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from hhrs_tpu_torch.config import ModelConfig, TrainConfig, unported_train_options
+from hhrs_tpu_torch.config import ModelConfig, TrainConfig
 from hhrs_tpu_torch.data.preprocess import DatasetSplits
 from hhrs_tpu_torch.device import resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax, jax_from_dcnr
@@ -398,7 +398,6 @@ def run_group(
         raise ValueError("vectorized HPO does not support lazy_table_updates")
     if tcfg.rng_impl not in RNG_IMPLS:
         raise ValueError(f"unknown train.rng_impl {tcfg.rng_impl!r}")
-    unported_train_options(tcfg)
     report_fns = list(report_fns or [None] * K)
     dev = resolve_device(device)
     require_full_f32_matmul(dev)

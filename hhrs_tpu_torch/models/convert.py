@@ -9,7 +9,11 @@ be an int8 table (an object with ``values`` and ``scales``, as
 ``quantize_embedding_params`` of either package makes): the model then
 holds it as an ``ops/quant.py::QuantizedTable``. :func:`jax_from_dcnr`
 goes the other way: BatchNorm ``mean``/``var`` go to ``bn_state``, every
-other leaf to ``params``, and lists take the JAX in-memory form.
+other leaf to ``params``, and lists take the JAX in-memory form. On a
+training mesh, ``dcnr_from_jax(..., mesh=)`` gives this rank's sharded
+model (``parallel/sharding.py::shard_model``) of the whole tree, and
+``jax_from_dcnr`` of a sharded model gathers its tables back over the
+``model`` axis: every rank joins and gets the whole tree.
 :func:`two_tower_from_jax` carries the two-tower retriever's params tree
 (``hhrs_tpu/retrieval/two_tower.py``'s ``init_two_tower`` layout) into a
 :class:`~hhrs_tpu_torch.retrieval.two_tower.TwoTower` the same way.
@@ -40,9 +44,10 @@ def flatten_tree(tree, prefix: str = "") -> dict:
 
 
 def dcnr_from_jax(params, bn_state, dims: ModelDims, cfg: ModelConfig,
-                  device: str | torch.device = "cpu", train: bool = False) -> DCNR:
+                  device: str | torch.device = "cpu", train: bool = False, mesh=None) -> DCNR:
     """Build a :class:`DCNR` on ``device`` holding exactly the given JAX
-    weights (numpy leaves), in eval mode, or in train mode with ``train``."""
+    weights (numpy leaves), in eval mode, or in train mode with ``train``;
+    with ``mesh`` (a training mesh), this rank's shards of them."""
     state = {**flatten_tree(params), **flatten_tree(bn_state)}
     tables = {k: state.pop(k) for k in list(state) if hasattr(state[k], "scales")}
     with torch.device("meta"):
@@ -51,6 +56,12 @@ def dcnr_from_jax(params, bn_state, dims: ModelDims, cfg: ModelConfig,
     if tables:
         tensors.update(_install_quantized(model, tables))
     model.load_state_dict(tensors, strict=True, assign=True)
+    if mesh is not None:
+        from hhrs_tpu_torch.parallel.sharding import shard_model
+
+        if tables:
+            raise ValueError("a training mesh shards float tables, not int8 ones")
+        shard_model(model, mesh)
     return model.to(device).train(train)
 
 
@@ -80,13 +91,20 @@ def _install_quantized(model: DCNR, tables: dict) -> dict:
 
 def jax_from_dcnr(model: DCNR) -> tuple[dict, dict]:
     """A :class:`DCNR`'s weights → ``(params, bn_state)`` numpy trees in the
-    JAX layout: the inverse of :func:`dcnr_from_jax`."""
+    JAX layout: the inverse of :func:`dcnr_from_jax`. A sharded model's
+    tables are gathered (a collective: every rank of its mesh calls this)."""
     leaf = lambda t: t.detach().cpu().numpy().copy()  # noqa: E731
     lin = lambda m: {"kernel": leaf(m.kernel), "bias": leaf(m.bias)}  # noqa: E731
+    tables = {"user_embedding": model.user_embedding, "item_embedding": model.item_embedding,
+              **{f"cat_embeddings.{i}": t for i, t in enumerate(model.cat_embeddings)}}
+    if model.layout is not None and model.layout.sharded:
+        from hhrs_tpu_torch.parallel.sharding import gathered_state_dict
+
+        tables = {k: v for k, v in gathered_state_dict(model).items() if k in tables}
     params = {
-        "user_embedding": leaf(model.user_embedding),
-        "item_embedding": leaf(model.item_embedding),
-        "cat_embeddings": [leaf(t) for t in model.cat_embeddings],
+        "user_embedding": leaf(tables["user_embedding"]),
+        "item_embedding": leaf(tables["item_embedding"]),
+        "cat_embeddings": [leaf(tables[f"cat_embeddings.{i}"]) for i in range(len(model.cat_embeddings))],
     }
     res_state = []
     if model.has_deep:

@@ -20,6 +20,13 @@ stay f32; bf16 compute feeds the linears and the cross stack bf16
 operands; bf16 storage also keeps x0 and the deep tower's activations
 bf16. The embedding tables are f32 parameters or int8
 ``ops/quant.py::QuantizedTable``s; both are read through ``table_lookup``.
+
+On a training mesh (``parallel/sharding.py::shard_model``) a model holds
+this rank's table shards and its ``layout``: ``embed`` then assembles x0
+of this rank's batch rows through ``parallel/embedding.py::explicit_x0``
+(the psum exchange), and the tower's dropout keeps this rank's rows of the
+global batch's masks; the cross stack and the deep tower run unchanged on
+the rank's rows.
 """
 
 from __future__ import annotations
@@ -105,10 +112,16 @@ class DCNR(nn.Module):
             self.cross = CrossStack(cfg.n_cross_layers, d_in, cfg.cross_variant, generator)
         final_in = (cfg.hidden_dim if self.has_deep else 0) + (d_in if self.has_cross else 0)
         self.final = Linear(final_in, 1, generator)
+        self.layout = None  # parallel/sharding.py::MeshLayout on a training mesh
 
     def embed(self, user_ids, item_ids, cat_features, num_features) -> torch.Tensor:
         """The gather + concat front half → x0 ``[B, d_in]`` (f32; int8
-        tables are dequantized by the lookup)."""
+        tables are dequantized by the lookup). On a mesh: this rank's rows,
+        through the psum exchange."""
+        if self.layout is not None:
+            from hhrs_tpu_torch.parallel.embedding import explicit_x0
+
+            return explicit_x0(self, user_ids, item_ids, cat_features, num_features)
         cats = [table_lookup(tab, cat_features[:, i]) for i, tab in enumerate(self.cat_embeddings)]
         return torch.cat(
             [table_lookup(self.user_embedding, user_ids), table_lookup(self.item_embedding, item_ids),
@@ -137,7 +150,8 @@ def apply_dcn_from_x0(model: DCNR, x0: torch.Tensor, generator: torch.Generator 
     stack runs on x0, w and b cast to ``compute_dtype`` (the bf16
     instantiation of the cross kernels on a card); the final linear takes
     ``compute_dtype`` operands and gives f32 logits. In train mode the
-    BatchNorm buffers update in place, in f32."""
+    BatchNorm buffers update in place, in f32. On a mesh x0 is this rank's
+    rows of the global batch (``model.layout.batch_rows``)."""
     cfg = model.cfg
     compute, storage = _DTYPES[cfg.compute_dtype], _DTYPES[cfg.storage_dtype]
     if storage is not None:
@@ -147,9 +161,10 @@ def apply_dcn_from_x0(model: DCNR, x0: torch.Tensor, generator: torch.Generator 
     if model.has_deep:
         if model.training and rate > 0.0 and generator is None:
             raise ValueError("train mode with dropout > 0 requires a generator")
+        rows = model.layout.batch_rows(x0.shape[0]) if model.layout is not None else None
         deep = model.initial_deep(x0, compute, storage)
         for block in model.res_blocks:
-            deep = block(deep, rate, generator, compute, storage)
+            deep = block(deep, rate, generator, compute, storage, rows)
         towers.append(deep)
     if model.has_cross:
         towers.append(model.cross(x0, compute))

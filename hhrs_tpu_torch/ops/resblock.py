@@ -1,7 +1,8 @@
 """Residual block Linear→BN→ReLU→Dropout→Linear→BN (+identity)→ReLU, and
 the plain-MLP ablation block Linear→ReLU→Dropout (counterpart of
 ``hhrs_tpu/ops/resblock.py`` and the ``dcn_mlp`` branch of ``models/dcn.py``).
-Both pass ``compute_dtype`` and ``out_dtype`` on to their linears."""
+Both pass ``compute_dtype`` and ``out_dtype`` on to their linears, and
+``rows`` (a rank's rows of a global batch) on to ``dropout``."""
 
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ class ResBlock(nn.Module):
         self.bn2 = BatchNorm(hidden, momentum, eps)
 
     def forward(self, x: torch.Tensor, rate: float, generator: torch.Generator | None,
-                compute_dtype: torch.dtype | None = None, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                compute_dtype: torch.dtype | None = None, out_dtype: torch.dtype | None = None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
         h = torch.relu(self.bn1(self.layer1(x, compute_dtype, out_dtype)))
         if self.training:
-            h = dropout(h, rate, generator)
+            h = dropout(h, rate, generator, rows)
         h = self.bn2(self.layer2(h, compute_dtype, out_dtype))
         return torch.relu(h + x)
 
@@ -35,6 +37,7 @@ class MLPBlock(nn.Module):
         self.layer = Linear(hidden, hidden, generator)
 
     def forward(self, x: torch.Tensor, rate: float, generator: torch.Generator | None,
-                compute_dtype: torch.dtype | None = None, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                compute_dtype: torch.dtype | None = None, out_dtype: torch.dtype | None = None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
         h = torch.relu(self.layer(x, compute_dtype, out_dtype))
-        return dropout(h, rate, generator) if self.training else h
+        return dropout(h, rate, generator, rows) if self.training else h

@@ -17,7 +17,9 @@ mesh position is a process of a ``torch.distributed`` world.
   start method, a ``FileStore`` rendezvous), runs one function on every
   rank and hands rank 0's return value back. A rank that fails stops the
   others and raises with its traceback; so does a world that outlives its
-  time limit.
+  time limit. Each rank takes its share of the node's cores for torch's
+  intra-op threads (the cores over the ranks): ranks that each take them
+  all spin against each other in every collective.
 """
 
 from __future__ import annotations
@@ -152,6 +154,7 @@ def _rank_main(rank: int, world_size: int, init_method: str, device: str, parent
     from hhrs_tpu_torch.utils.logging import setup_logging
 
     setup_logging(log_level)
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // world_size))
     # The launcher turns Ctrl-C into one SIGTERM to rank 0; the followers
     # stop when rank 0 tells them to.
     signal.signal(signal.SIGINT, signal.SIG_IGN)

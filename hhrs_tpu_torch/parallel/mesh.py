@@ -10,7 +10,19 @@ DTensor, so every collective that runs is named in the code.
 Two logical axes, as in JAX: ``data`` and ``model``. Serving uses both
 flat: rank ``r`` of the mesh (row-major over ``(data, model)``, which is
 JAX's ``P(("data", "model"))`` order) holds shard ``r`` of every row-sharded
-axis, padded to equal shards (:func:`pad_to_shards`).
+axis, padded to equal shards (:func:`pad_to_shards`). Training uses them
+apart: :func:`axis_group` is the process group of this rank's ``data`` axis
+(the ranks that share its model coordinate: batch rows split over them,
+gradients and BatchNorm statistics summed over them) or of its ``model``
+axis (the ranks that share its data coordinate: table rows split over
+them, the embedding exchange runs among them).
+
+The collectives below each take their group explicitly. The differentiable
+ones (:class:`AllReduceSum`, :class:`ReplicatedSum`, :class:`GatherRows`,
+:class:`AllToAll`) say in their names what their backward does, since that
+depends on whether the ranks downstream hold different rows (a sum of
+their gradients) or the same rows (no sum: each already holds the whole
+gradient).
 
 Transport: the backend's own. NCCL takes CUDA tensors (and its
 collectives can be captured in a CUDA graph); gloo takes CPU tensors, and
@@ -141,13 +153,112 @@ def row_shardings(mesh, n: int) -> RowLayout:
     return row_layout(n, mesh_size(mesh), shard_index(mesh))
 
 
-# ---- collectives over every rank of the mesh (the default group) ---------- #
+# ---- the axes of a training mesh --------------------------------------------- #
 
 
-def all_gather(t: torch.Tensor) -> torch.Tensor:
-    """``[W, *t.shape]``: every rank's ``t`` (at least 1-D), in rank order."""
+def axis_size(mesh, axis: str) -> int:
+    """Ranks along ``axis`` (1 without a mesh)."""
+    return 1 if mesh is None else int(mesh.size(AXIS_NAMES.index(axis)))
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 without a mesh)."""
+    return 0 if mesh is None else int(mesh.get_coordinate()[AXIS_NAMES.index(axis)])
+
+
+def axis_group(mesh, axis: str):
+    """The process group of this rank's ``axis``: its ranks in the order of
+    their coordinate along it (the group rank is that coordinate)."""
+    group = mesh.get_group(axis)
+    if dist.get_group_rank(group, dist.get_rank()) != axis_rank(mesh, axis):
+        raise RuntimeError(f"the {axis} group's rank order is not the mesh's {axis} coordinate")
+    return group
+
+
+# ---- collectives, each on an explicit group (None: every rank) ------------ #
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``[W, *t.shape]``: every group rank's ``t`` (at least 1-D), in group
+    rank order."""
     t = t.contiguous()
-    W = dist.get_world_size()
+    W = dist.get_world_size(group)
     out = torch.empty((W * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
-    dist.all_gather_into_tensor(out, t)
+    dist.all_gather_into_tensor(out, t, group=group)
     return out.view(W, *t.shape)
+
+
+def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced in place over ``group`` (``op``, a sum by default) → ``t``."""
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_to_all_single(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``[W, ...]`` → ``[W, ...]``: slice ``j`` of dim 0 goes to group rank
+    ``j``; slice ``i`` of the result came from group rank ``i``."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+class AllReduceSum(torch.autograd.Function):
+    """``Σ_group t``, where each rank's loss downstream is its own term of
+    one sum (rows split over the group): the backward sums the gradients
+    over the group too (sync BatchNorm's statistics)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.group), None
+
+
+class ReplicatedSum(torch.autograd.Function):
+    """``Σ_group t``, where every rank of the group then computes the same
+    loss on the result (rows replicated over the group): each rank already
+    holds the whole gradient, so the backward passes it on unsummed (the
+    psum exchange over the ``model`` axis)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherRows(torch.autograd.Function):
+    """``[W·n, ...]``: every group rank's ``[n, ...]`` rows, in group rank
+    order, where every rank then computes the same loss on them: the
+    backward keeps this rank's rows of the gradient, unsummed (the
+    all_to_all exchange's pieces reassembled over the ``model`` axis)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group, ctx.n = group, t.shape[0]
+        return all_gather(t, group).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_group_rank(ctx.group, dist.get_rank()) if ctx.group is not None else dist.get_rank()
+        return g[r * ctx.n:(r + 1) * ctx.n], None
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`all_to_all_single` under autograd: its transpose is itself, so
+    the backward sends each gradient slice back to the rank it came from."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_to_all_single(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_single(g, ctx.group), None

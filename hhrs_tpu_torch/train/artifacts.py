@@ -8,6 +8,11 @@ train config as provenance), ``params.msgpack`` (flax msgpack of
 ``item_embeddings.npy``. The port writes the same files as the JAX
 package, so either package loads what the other exported. The weight tree
 stays numpy here; ``models/convert.py`` moves it into and out of a module.
+
+In a ``torch.distributed`` world of more than one rank (a training mesh)
+every rank calls :func:`export_artifacts` with the whole tree it holds
+(``train_dcn`` gathers it on every rank), rank 0 alone writes, and every
+rank returns once the files are whole.
 """
 
 from __future__ import annotations
@@ -55,7 +60,21 @@ def export_artifacts(
 ) -> None:
     """Write the four files of an artifact directory. ``params`` and
     ``bn_state`` are JAX-layout numpy trees (``models/convert.py::
-    jax_from_dcnr``); ``train_cfg`` is recorded as provenance only."""
+    jax_from_dcnr``); ``train_cfg`` is recorded as provenance only. In a
+    world of several ranks only rank 0 writes; the others wait for it."""
+    from hhrs_tpu_torch.parallel.multiprocess import is_multiprocess
+
+    if not is_multiprocess():
+        _write(out_dir, params, bn_state, model_cfg, dims, preproc, metrics, train_cfg)
+        return
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        _write(out_dir, params, bn_state, model_cfg, dims, preproc, metrics, train_cfg)
+    dist.barrier()
+
+
+def _write(out_dir, params, bn_state, model_cfg, dims, preproc, metrics, train_cfg) -> None:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, PARAMS), "wb") as f:
         f.write(msgpack_serialize({"params": params, "bn_state": bn_state}))

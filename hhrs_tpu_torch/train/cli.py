@@ -17,8 +17,19 @@ register it in a model registry when asked::
 The config is layered as in the JAX CLI: defaults, then ``--preset`` (or
 ``HHRS_PRESET``), then ``HHRS_<SECTION>_<FIELD>`` environment variables,
 then the positional overrides. The device defaults to ``cuda`` and the run
-fails without a card. ``--mesh``, ``--distributed`` and the ``mesh.*``
-fields are refused as usage errors naming ROADMAP A11b.
+fails without a card.
+
+``--mesh DATAxMODEL`` trains over a mesh of ``DATA·MODEL`` ranks
+(``train_dcn``'s mesh mode, with ``mesh.explicit_exchange`` and
+``mesh.exchange_capacity_factor``): when the environment configures a
+world (``parallel/distributed.py::initialize_distributed``: the JAX
+wrapper's variables or torchrun's) this process joins it as one rank;
+otherwise it launches a world of that many ranks on this node (NCCL with a
+card each, gloo where ranks share a card or on the CPU) and waits for it.
+``--distributed`` joins the world the environment configures (and fails
+without one); without ``--mesh`` its mesh is every rank on ``data``.
+Every rank runs the whole command; rank 0 alone writes the artifact, the
+metrics log and the registry entry.
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ import logging
 import os
 import sys
 
-from hhrs_tpu_torch.config import Config, build_config, unported_mesh_options
+from hhrs_tpu_torch.config import Config, build_config
 from hhrs_tpu_torch.data.features import add_engineered_features
 from hhrs_tpu_torch.data.ingest import load_reviews_csv, noise_filter
 from hhrs_tpu_torch.data.preprocess import Preprocessor
@@ -123,9 +134,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run into this dir")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="train over a device mesh (not ported yet: ROADMAP A11b)")
+                   help="train over a device mesh, e.g. 2 or 2x2 (data-parallel batch, row-sharded tables): "
+                        "joins the world the environment configures, else launches that many ranks here")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host training (not ported yet: ROADMAP A11b)")
+                   help="join the multi-process world the environment configures (COORDINATOR_ADDRESS/"
+                        "NUM_PROCESSES/PROCESS_ID or torchrun's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK)")
     p.add_argument("--preset", default=None,
                    help="named config preset applied before the environment and the overrides "
                         "(e.g. 'tuned' = B=32768 + rng_impl=rbg + bf16 compute and storage; "
@@ -139,23 +152,76 @@ def main(argv=None) -> int:
     return run(argv)[0]
 
 
+def _world(p: argparse.ArgumentParser, args: argparse.Namespace, argv: list):
+    """``--mesh`` / ``--distributed`` outside a world: join the one the
+    environment configures (→ None, go on as a rank), or launch a world of
+    ``DATA·MODEL`` ranks on this node (→ rank 0's exit code)."""
+    from hhrs_tpu_torch.device import resolve_device
+    from hhrs_tpu_torch.parallel.distributed import initialize_distributed, launch
+    from hhrs_tpu_torch.parallel.mesh import parse_mesh_spec
+
+    try:
+        shape = parse_mesh_spec(args.mesh) if args.mesh else None
+    except ValueError as e:
+        p.error(str(e))
+    device = resolve_device(args.device)  # no card and no --device: raises, never falls back to the CPU
+    if initialize_distributed(device=device):
+        return None
+    if args.distributed:
+        p.error("--distributed needs a world configured by the environment (COORDINATOR_ADDRESS, NUM_PROCESSES "
+                "and PROCESS_ID, or MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK)")
+    if device.type == "cuda":
+        from hhrs_tpu_torch.ops import cross, cuda_build
+
+        cuda_build.build(cross._LIB_NAME, cross._LIB_SOURCES)  # once, before the ranks start
+    log.info("launching a mesh of %dx%d ranks on %s", *shape, device)
+    # each rank runs this whole command, inside the world
+    return launch(main, shape[0] * shape[1], (list(argv),), device=device, timeout_s=float("inf"))
+
+
 def run(argv=None) -> tuple:
     """:func:`main`'s work → (exit code, the run's ``TrainResult``, or None
-    when no run took place)."""
+    when no run took place or this process launched a world)."""
+    import torch.distributed as dist
+
     setup_logging()
     p = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
-    if args.mesh or args.distributed:
-        p.error("--mesh and --distributed are not ported yet: ROADMAP A11b (multi-device training)")
     try:
         cfg = build_config(args.overrides, preset=args.preset, log=log)
-        unported_mesh_options(cfg.mesh)
     except (ValueError, NotImplementedError) as e:
         p.error(str(e))
     if args.epochs is not None:
         cfg.train.n_epochs = args.epochs
     if args.promote and not args.register_db:
         p.error("--promote requires --register-db (nothing to gate into)")
+    joined = False
+    if (args.mesh or args.distributed) and not dist.is_initialized():
+        rc = _world(p, args, argv)
+        if rc is not None:
+            return rc, None
+        joined = True
+    try:
+        return _run(args, cfg)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, cfg: Config) -> tuple:
+    mesh = None
+    if args.mesh or args.distributed:
+        import torch.distributed as dist
+
+        from hhrs_tpu_torch.device import resolve_device
+        from hhrs_tpu_torch.parallel.mesh import make_mesh, parse_mesh_spec
+
+        data, model = parse_mesh_spec(args.mesh) if args.mesh else (-1, 1)
+        mesh = make_mesh(data, model, resolve_device(args.device))
+        leader = dist.get_rank() == 0
+    else:
+        leader = True
 
     init_state = None
     try:
@@ -182,7 +248,7 @@ def run(argv=None) -> tuple:
     log.info("training DCN-R: %d users, %d items, cat_dims=%s, %d train / %d val",
              dims.n_users, dims.n_items, dict(dims.cat_dims), splits.n_train, splits.n_val)
 
-    metrics_logger = MetricsLogger(args.metrics_log) if args.metrics_log else None
+    metrics_logger = MetricsLogger(args.metrics_log) if args.metrics_log and leader else None
     if args.profile_dir:
         from hhrs_tpu_torch.utils.profiling import trace
 
@@ -191,8 +257,11 @@ def run(argv=None) -> tuple:
         profile_cm = contextlib.nullcontext()
     try:
         with profile_cm:
-            result = train_dcn(splits, dims, cfg.model, cfg.train, checkpoint_dir=args.checkpoint_dir,
-                               init_state=init_state, device=args.device, metrics_logger=metrics_logger)
+            result = train_dcn(splits, dims, cfg.model, cfg.train, mesh=mesh,
+                               explicit_exchange=cfg.mesh.explicit_exchange or None,
+                               exchange_capacity_factor=cfg.mesh.exchange_capacity_factor,
+                               checkpoint_dir=args.checkpoint_dir, init_state=init_state, device=args.device,
+                               metrics_logger=metrics_logger)
     finally:
         if metrics_logger is not None:
             metrics_logger.close()
@@ -204,6 +273,8 @@ def run(argv=None) -> tuple:
 
     export_artifacts(args.out, result.params, result.bn_state, cfg.model, dims, preproc, m,
                      train_cfg=cfg.train)
+    if not leader:  # a mesh: rank 0 wrote the artifact; the registry is its job too
+        return 0, result
     log.info("artifacts exported to %s", args.out)
 
     if args.register_db:

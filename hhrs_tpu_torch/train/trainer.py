@@ -48,7 +48,13 @@ best state by val loss, and a per-epoch prune hook for HPO. Mechanics:
   (``train/checkpoint.py``) and a rerun resumes from the last one;
 * the best state is a copy on the device; the final metrics are computed
   on it. ``examples_per_s`` is the median per-epoch rate after the first
-  epoch this process ran.
+  epoch this process ran;
+* with ``mesh`` (the JAX trainer's mesh mode) every rank trains on its
+  rows of each batch through ``parallel/trainer.py``'s step: the tables
+  row-sharded over ``model``, BatchNorm synced and gradients summed over
+  ``data``, the same batches and dropout masks as one device; the val
+  logits are gathered, so every rank takes the same decisions, and
+  checkpoints and ``params`` are gathered, in the single-device format.
 """
 
 from __future__ import annotations
@@ -61,12 +67,18 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from hhrs_tpu_torch.config import ModelConfig, TrainConfig, unported_train_options
+from hhrs_tpu_torch.config import ModelConfig, TrainConfig, unported_mesh_train_options
 from hhrs_tpu_torch.data.preprocess import DatasetSplits
 from hhrs_tpu_torch.device import capture_stream, resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax, jax_from_dcnr
 from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
+from hhrs_tpu_torch.parallel.mesh import all_gather, all_reduce, axis_size
+from hhrs_tpu_torch.parallel.multiprocess import epoch_rows, host_rows, val_rows
+from hhrs_tpu_torch.parallel.sharding import (gathered_optimizer_state, gathered_state_dict,
+                                              sharded_optimizer_state, sharded_state_dict)
+from hhrs_tpu_torch.parallel.trainer import make_parallel_train_step, shard_train_state
 from hhrs_tpu_torch.retrieval.similarity import require_full_f32_matmul
 from hhrs_tpu_torch.train.checkpoint import TrainCheckpointer
 from hhrs_tpu_torch.train.lazy import LazyTableOptimizer, dense_parameters, lazy_train_step
@@ -82,9 +94,9 @@ log = logging.getLogger(__name__)
 
 @dataclass
 class TrainResult:
-    params: dict  # the best state as JAX-layout numpy trees
+    params: dict  # the best state as JAX-layout numpy trees (gathered on a mesh)
     bn_state: dict
-    model: DCNR  # the best state, in eval mode, on the run's device
+    model: DCNR  # the best state, in eval mode, on the run's device (this rank's shards on a mesh)
     history: list = field(default_factory=list)  # per-epoch dicts
     best_val_loss: float = float("inf")
     best_epoch: int = -1
@@ -320,6 +332,7 @@ def train_dcn(
     train_cfg: TrainConfig,
     mesh=None,
     explicit_exchange: str | None = None,
+    exchange_capacity_factor: float = 1.25,
     report_fn: Callable[[int, float], bool] | None = None,
     checkpoint_dir: str | None = None,
     init_state: tuple | None = None,
@@ -336,35 +349,75 @@ def train_dcn(
     ``checkpoint_dir`` the whole loop state is saved after every epoch and
     a rerun resumes from the last saved epoch; a run that had finished,
     early-stopped or been pruned trains no further. ``device`` defaults to
-    ``cuda`` and raises without a card; pass ``"cpu"`` to train on the CPU."""
-    if mesh is not None or explicit_exchange:
-        raise NotImplementedError("mesh training is not ported yet: ROADMAP A11b (multi-device training)")
+    ``cuda`` and raises without a card; pass ``"cpu"`` to train on the CPU.
+
+    ``mesh`` (``parallel/mesh.py::make_mesh``; every rank of its world calls
+    this with the same arguments): the tables row-sharded over ``model``,
+    each batch's rows split over ``data`` (``parallel/trainer.py``). Each
+    rank uploads only its rows of every epoch (streaming), or the whole
+    train split once with ``train.mesh_resident_data`` (the same batches,
+    bit for bit); the val split is split over ``data`` when it divides and
+    replicated when not, and its logits are gathered, so every rank takes
+    the same plateau and early-stop decisions and returns the same
+    ``history``. ``explicit_exchange`` picks the table exchange
+    (``parallel/embedding.py``; default psum); ``capped`` at
+    ``exchange_capacity_factor`` records each epoch's drop rate as
+    ``exchange_overflow``. The best state stays on the shards; checkpoints
+    and the result's ``params`` are gathered, in the single-device format,
+    and only rank 0 writes. There is no fused epoch on a mesh, as in the
+    JAX trainer."""
+    if explicit_exchange and mesh is None:
+        raise ValueError("train.explicit_exchange requires --mesh")
+    if explicit_exchange not in (None, "", "all_to_all", "psum", "capped"):
+        raise ValueError(f"unknown mesh.explicit_exchange {explicit_exchange!r}; "
+                         "expected 'all_to_all', 'psum' or 'capped'")
     if train_cfg.fused_epoch and train_cfg.stream_slab_steps:
         raise ValueError("train.fused_epoch and train.stream_slab_steps are mutually exclusive: a fused epoch "
                          "scans a device-resident dataset, slab streaming exists so the dataset is NOT "
                          "device-resident")
-    unported_train_options(train_cfg)
+    if mesh is not None:
+        unported_mesh_train_options(train_cfg)
     if train_cfg.rng_impl not in RNG_IMPLS:
         raise ValueError(f"unknown train.rng_impl {train_cfg.rng_impl!r}; expected 'threefry2x32' or 'rbg'")
     if train_cfg.eval_every < 1:
         raise ValueError(f"train.eval_every must be >= 1, got {train_cfg.eval_every}")
+    B = train_cfg.batch_size
+    if mesh is not None and B % axis_size(mesh, "data"):
+        raise ValueError(f"batch_size {B} must divide over the data axis ({axis_size(mesh, 'data')} devices)")
     dev = resolve_device(device)
     require_full_f32_matmul(dev)
 
     model = _new_model(dims, model_cfg, train_cfg.seed, init_state, dev)
-    graphed = train_cfg.fused_epoch and dev.type == "cuda"
-    opt = make_train_optimizer(model, train_cfg, capturable_on=dev if graphed else None)
-    dropout_gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
-    slabs = None
-    if train_cfg.stream_slab_steps > 0:  # the train split stays on the host
-        slabs = SlabStream(splits, train_cfg.batch_size, train_cfg.stream_slab_steps, dev)
-        train_data = None
+    layout = None
+    if mesh is None:
+        graphed = train_cfg.fused_epoch and dev.type == "cuda"
+        opt = make_train_optimizer(model, train_cfg, capturable_on=dev if graphed else None)
     else:
+        if train_cfg.fused_epoch:
+            log.info("train.fused_epoch is off on a mesh: the mesh trainer steps eagerly, as the JAX trainer does")
+        state = shard_train_state(mesh, model, lambda m: make_train_optimizer(m, train_cfg))
+        opt, layout = state.opt, state.layout
+        mesh_step = make_parallel_train_step(state, explicit_exchange or None, exchange_capacity_factor)
+    capped = explicit_exchange == "capped"
+    writer = layout is None or dist.get_rank() == 0  # the rank that writes checkpoints
+    dropout_gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    slabs = train_data = None
+    if train_cfg.stream_slab_steps > 0:  # the train split stays on the host
+        slabs = SlabStream(splits, B, train_cfg.stream_slab_steps, dev)
+    elif layout is None or train_cfg.mesh_resident_data:
         train_data = split_tensors(splits, "train", dev)
-    val_data = split_tensors(splits, "val", dev)
+    # else a mesh streams: each epoch uploads this rank's rows of its batches
+    D = 1 if layout is None else layout.data_size
+    n_local = B // D  # this rank's rows of each batch: [start, start + n_local)
+    start = 0 if layout is None else layout.data_rank * n_local
+    val_sharded = D > 1 and splits.n_val % D == 0
+    if layout is None:
+        val_data = split_tensors(splits, "val", dev)
+    else:
+        val_data = host_rows(splits, "val", val_rows(splits.n_val, layout), SPLIT_DTYPES, dev)
+    val_y = (torch.as_tensor(splits.val_y, dtype=torch.float32, device=dev) if val_sharded else val_data["y"])
     debug_nans = train_cfg.debug_nans
 
-    B = train_cfg.batch_size
     n_train = splits.n_train
     steps_per_epoch = n_train // B if train_cfg.drop_remainder else -(-n_train // B)
     if steps_per_epoch == 0:
@@ -382,10 +435,14 @@ def train_dcn(
     ckpt = TrainCheckpointer(checkpoint_dir) if checkpoint_dir is not None else None
     if ckpt is not None and ckpt.latest_epoch() is not None:
         state, meta = ckpt.restore(ckpt.latest_epoch(), dev)
-        model.load_state_dict(state["model"])
-        opt.load_state_dict(state["optimizer"])
+        model_state, opt_state, best_state = state["model"], state["optimizer"], state["best"]
+        if layout is not None:  # the file holds the whole state: take this rank's slice
+            model_state = sharded_state_dict(model, model_state)
+            opt_state = sharded_optimizer_state(model, opt, opt_state)
+            best_state = None if best_state is None else sharded_state_dict(model, best_state)
+        model.load_state_dict(model_state)
+        opt.load_state_dict(opt_state)
         dropout_gen.set_state(state["dropout_generator"].cpu())
-        best_state = state["best"]
         start_epoch = meta["epoch"] + 1
         result.history = meta["history"]
         result.best_val_loss = meta["best_val_loss"]
@@ -403,23 +460,34 @@ def train_dcn(
             start_epoch = train_cfg.n_epochs
 
     fused = (FusedEpoch(model, opt, train_data, B, steps_per_epoch, dropout_gen, debug_nans=debug_nans)
-             if train_cfg.fused_epoch else None)
+             if train_cfg.fused_epoch and layout is None else None)
     cur_lr = plateau.lr
     epoch_times: list = []
     timed = dev.type == "cuda"
     epochs_run = 0
 
-    def step(batch: dict, where: str) -> torch.Tensor:
-        loss = train_step(model, opt, batch, dropout_gen)
+    def step(batch: dict, where: str) -> tuple:
+        """One step → (the loss, the capped exchange's overflow or None)."""
+        overflow = None
+        if layout is None:
+            loss = train_step(model, opt, batch, dropout_gen)
+        else:
+            loss = mesh_step(batch, dropout_gen)
+            if capped:
+                loss, overflow = loss
         if debug_nans:
-            _raise_on_nan(nan_flag(model, opt, loss), where)
-        return loss
+            _raise_on_nan(any_rank(nan_flag(model, opt, loss), layout), where)
+        return loss, overflow
+
+    def val_logits() -> torch.Tensor:
+        logits = eval_logits(model, val_data, train_cfg.eval_batch_size)
+        return all_gather(logits, layout.data_group).flatten() if val_sharded else logits
 
     def eval_loss() -> torch.Tensor:
-        logits = eval_logits(model, val_data, train_cfg.eval_batch_size)
+        logits = val_logits()
         if debug_nans:
             _raise_on_nan(torch.isnan(logits).any(), "in the val logits")
-        return bce_with_logits(logits, val_data["y"])
+        return bce_with_logits(logits, val_y)
 
     for epoch in range(start_epoch, train_cfg.n_epochs):
         t_epoch = time.perf_counter()
@@ -429,6 +497,7 @@ def train_dcn(
             perm_host = np.resize(perm_host, perm_len)  # wrap-pad the ragged tail
         perm_host = perm_host[:perm_len]
         marks = []  # timestamps: CUDA events on a card, host seconds on the CPU
+        overflows = []  # the capped exchange's (dropped, total) of each step
         if fused is not None:
             marks.append(_mark(timed))
             mean_loss = fused.run(perm_host)
@@ -438,20 +507,28 @@ def train_dcn(
         else:
             model.train()
             losses = []
+
+            def run(batch: dict) -> None:
+                marks.append(_mark(timed))
+                loss, overflow = step(batch, f"after step {len(losses)} of epoch {epoch}")
+                losses.append(loss)
+                if overflow is not None:
+                    overflows.append(overflow)
+
             if slabs is not None:
                 for slab in slabs.epoch(perm_host, steps_per_epoch):
                     for k in range(slab["y"].shape[0]):
-                        marks.append(_mark(timed))
-                        s = len(losses)
-                        losses.append(step({name: t[k] for name, t in slab.items()},
-                                           f"after step {s} of epoch {epoch}"))
+                        run({name: t[k] for name, t in slab.items()})
+            elif train_data is None:  # a mesh's streamed epoch: this rank's rows only
+                rows = epoch_rows(perm_host, steps_per_epoch, B, layout).reshape(-1)
+                epoch_data = host_rows(splits, "train", rows, SPLIT_DTYPES, dev)
+                for s in range(steps_per_epoch):
+                    run({k: v[s * n_local:(s + 1) * n_local] for k, v in epoch_data.items()})
             else:
                 perm = torch.as_tensor(perm_host, dtype=torch.int64, device=dev)
                 for s in range(steps_per_epoch):
-                    marks.append(_mark(timed))
-                    idx = perm[s * B:(s + 1) * B]
-                    losses.append(step({k: v[idx] for k, v in train_data.items()},
-                                       f"after step {s} of epoch {epoch}"))
+                    idx = perm[s * B + start:s * B + start + n_local]
+                    run({k: v[idx] for k, v in train_data.items()})
             marks.append(_mark(timed))
             mean_loss = torch.stack(losses).mean()
 
@@ -464,6 +541,11 @@ def train_dcn(
                 set_learning_rate(opt, lr)
                 cur_lr = lr
             rec = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss, "lr": lr}
+            if overflows:
+                dropped, total = (int(v) for v in torch.stack(overflows).sum(dim=0).tolist())
+                rec["exchange_overflow"] = dropped / total if total else 0.0
+                log.info("capped exchange: %.4f%% of lookups dropped this epoch (%d of %d)",
+                         100 * rec["exchange_overflow"], dropped, total)
             result.history.append(rec)
             if metrics_logger is not None:
                 metrics_logger.log(**rec)
@@ -480,21 +562,28 @@ def train_dcn(
             result.pruned = result.pruned or pruned_now
 
         if ckpt is not None:
-            ckpt.save(epoch, {
-                "model": model.state_dict(),
-                "optimizer": opt.state_dict(),
-                "best": best_state,
-                "dropout_generator": dropout_gen.get_state(),
-            }, {
-                "epoch": epoch,
-                "history": result.history,
-                "best_val_loss": result.best_val_loss,
-                "best_epoch": result.best_epoch,
-                "pruned": result.pruned,
-                "epochs_no_improve": epochs_no_improve,
-                "plateau": {"lr": plateau.lr, "best": plateau.best, "num_bad": plateau.num_bad},
-                "shuffle_rng_state": shuffle_rng.bit_generator.state,
-            })
+            model_state, opt_state, best = model.state_dict(), opt.state_dict(), best_state
+            if layout is not None:  # every rank joins the gathers; rank 0 writes the whole state
+                model_state, opt_state = gathered_state_dict(model), gathered_optimizer_state(model, opt)
+                best = None if best is None else gathered_state_dict(model, best)
+            if writer:
+                ckpt.save(epoch, {
+                    "model": model_state,
+                    "optimizer": opt_state,
+                    "best": best,
+                    "dropout_generator": dropout_gen.get_state(),
+                }, {
+                    "epoch": epoch,
+                    "history": result.history,
+                    "best_val_loss": result.best_val_loss,
+                    "best_epoch": result.best_epoch,
+                    "pruned": result.pruned,
+                    "epochs_no_improve": epochs_no_improve,
+                    "plateau": {"lr": plateau.lr, "best": plateau.best, "num_bad": plateau.num_bad},
+                    "shuffle_rng_state": shuffle_rng.bit_generator.state,
+                })
+            if layout is not None:
+                dist.barrier()  # the file is whole before any rank goes on
 
         if epochs_run > 1:  # the first epoch a process runs warms up (and captures)
             if timed:
@@ -516,25 +605,35 @@ def train_dcn(
     if best_state is not None:
         model.load_state_dict(best_state)
 
-    # Final eval with the best state.
-    val_logits = eval_logits(model, val_data, train_cfg.eval_batch_size)
+    # Final eval with the best state (on a mesh: the gathered val logits).
+    logits = val_logits()
     if debug_nans:
-        _raise_on_nan(torch.isnan(val_logits).any(), "in the final val logits")
-    logloss = float(bce_with_logits(val_logits, val_data["y"]))
-    val_logits = val_logits.cpu().numpy()
+        _raise_on_nan(torch.isnan(logits).any(), "in the final val logits")
+    logloss = float(bce_with_logits(logits, val_y))
+    logits = logits.cpu().numpy()
     y_val = splits.val_y
     result.final_metrics = {
         "val_logloss": logloss,
-        "val_auc": auc_score(y_val, val_logits),
-        "val_rmse": rmse_of_probs(y_val, val_logits),
-        "val_recall_at_100": recall_at_k(splits.val_user, y_val, val_logits, 100),
+        "val_auc": auc_score(y_val, logits),
+        "val_rmse": rmse_of_probs(y_val, logits),
+        "val_recall_at_100": recall_at_k(splits.val_user, y_val, logits, 100),
     }
+    result.params, result.bn_state = jax_from_dcnr(model)  # on a mesh every rank joins the gather
     if train_cfg.eval_catalog_recall:
         from hhrs_tpu_torch.train.eval_retrieval import catalog_recall_at_k
 
-        result.final_metrics["catalog_recall_at_100"] = catalog_recall_at_k(model, splits, k=100)
-    result.params, result.bn_state = jax_from_dcnr(model)
+        whole = model if layout is None else dcnr_from_jax(result.params, result.bn_state, dims, model_cfg, dev)
+        result.final_metrics["catalog_recall_at_100"] = catalog_recall_at_k(whole, splits, k=100)
     return result
+
+
+def any_rank(flag: torch.Tensor, layout) -> torch.Tensor:
+    """A device bool that is true on every rank of a mesh when ``flag`` is
+    true on any (one ``all_reduce`` over every rank); ``flag`` itself
+    without a mesh."""
+    if layout is None:
+        return flag
+    return all_reduce(flag.to(torch.int32), op=dist.ReduceOp.MAX).bool()
 
 
 def _mark(on_card: bool):

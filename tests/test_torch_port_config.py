@@ -38,6 +38,7 @@ from hhrs_tpu_torch.db import cli as db_cli
 from hhrs_tpu_torch.models.dcn import ModelDims
 from hhrs_tpu_torch.train import cli, eval_cli
 from hhrs_tpu_torch.train.trainer import train_dcn
+from tests.torch_port_mesh_train_world import one_rank_world
 from hhrs_tpu_torch.utils.profiling import StepTimer, trace
 from tests.test_torch_port_model import one_torch_thread  # noqa: F401 — module fixture
 
@@ -82,15 +83,36 @@ def test_unknown_preset_and_bad_token_fail_as_jax_does():
             mod.build_config(["train.batch_size", "1024"], environ={})
 
 
-def test_mesh_fields_are_refused_naming_a11(capsys):
-    cfg = config.build_config(["mesh.data_axis=2"], environ={})
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        config.unported_mesh_options(cfg.mesh)
-    config.unported_mesh_options(config.MeshConfig())  # the defaults pass
-    for argv in (["--mesh", "4x2"], ["--distributed"], ["mesh.explicit_exchange=psum"]):
-        with pytest.raises(SystemExit):
-            cli.main(["--data", "nowhere", "--device", "cpu", *argv])
-        assert "ROADMAP A11" in capsys.readouterr().err
+def test_mesh_fields_are_refused_naming_a11(tmp_path, monkeypatch):
+    """The ``mesh.*`` fields and ``--mesh`` / ``--distributed`` are accepted
+    and reach ``train_dcn``; only the trainer options a mesh does not run
+    yet are refused, naming ROADMAP A11b2."""
+    cfg = config.build_config(["mesh.data_axis=2", "mesh.explicit_exchange=capped",
+                               "mesh.exchange_capacity_factor=1.5"], environ={})
+    assert (cfg.mesh.data_axis, cfg.mesh.explicit_exchange, cfg.mesh.exchange_capacity_factor) == (2, "capped", 1.5)
+    config.unported_mesh_train_options(config.TrainConfig())  # the defaults pass
+    for option in ({"lazy_table_updates": True}, {"stream_slab_steps": 4}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11b2"):
+            config.unported_mesh_train_options(config.TrainConfig(**option))
+    seen = []
+
+    class Reached(Exception):
+        pass
+
+    def fake_train_dcn(*args, **kwargs):
+        seen.append(kwargs)
+        raise Reached
+
+    monkeypatch.setattr(cli, "train_dcn", fake_train_dcn)
+    data = str(tmp_path / "data")
+    base = ["--data", data, "--synthetic", "--synth-users", "40", "--synth-items", "12", "--synth-reviews", "600",
+            "--device", "cpu", "--out", str(tmp_path / "out"), "mesh.explicit_exchange=all_to_all"]
+    with one_rank_world(str(tmp_path)):
+        for flags in (["--mesh", "1x1"], ["--distributed"]):
+            with pytest.raises(Reached):
+                cli.main([*base, *flags])
+    assert [tuple(k["mesh"].shape) for k in seen] == [(1, 1), (1, 1)]
+    assert all(k["explicit_exchange"] == "all_to_all" and k["exchange_capacity_factor"] == 1.25 for k in seen)
 
 
 def _flags(main, argv_prefix=()) -> set:

@@ -1308,3 +1308,69 @@ def test_cuda_mesh_engine_on_two_ranks_sharing_the_card(tmp_path):
     assert (graphs, backend) == (False, "gloo")
     for resp, want, logits in zip(got, golden["responses"], golden["logits"]):
         _swaps(resp, want, logits, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_cuda_cross_kernels_on_ranks_rows(dtype, ranks):
+    """A training batch split over ``ranks`` data ranks (hpo_r5's B = 512,
+    d = 113, L = 3): each rank's y and dx0 are the whole-batch launch's
+    rows bit for bit (the kernels are row-local), and dw, db summed over
+    the ranks are the whole-batch backward's within the term-scale bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    g = torch.Generator().manual_seed(14)
+    B, d, L = 512, 113, 3
+    x0, dy = (torch.randn(B, d, generator=g).cuda().to(dtype) for _ in range(2))
+    w = ((torch.rand(L, d, generator=g) * 2 - 1) / d ** 0.5).cuda().to(dtype)
+    b = (0.1 * torch.randn(L, d, generator=g)).cuda().to(dtype)
+    with torch.no_grad():
+        y_all = cross.cross_stack_forward(w, b, x0, "code")
+        dx0_all, dw_all, db_all = cross.cross_stack_backward(w, b, x0, dy, "code")
+        dw, db = torch.zeros(L, d, device="cuda"), torch.zeros(L, d, device="cuda")
+        n = B // ranks
+        for r in range(ranks):
+            rows = slice(r * n, (r + 1) * n)
+            y = cross.cross_stack_forward(w, b, x0[rows].contiguous(), "code")
+            dx0, dw_r, db_r = cross.cross_stack_backward(w, b, x0[rows].contiguous(), dy[rows].contiguous(), "code")
+            assert torch.equal(y, y_all[rows]) and torch.equal(dx0, dx0_all[rows])
+            dw += dw_r.float()
+            db += db_r.float()
+        scale = cross.cross_stack_term_scale(w, b, x0, dy, "code")
+    tol = CROSS_TOL if dtype == torch.float32 else CROSS_BF16_TOL
+    cross.assert_close_to_scale(dw, dw_all.float(), scale[2], **tol, what="dw")
+    cross.assert_close_to_scale(db, db_all.float(), scale[3], **tol, what="db")
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_training_on_one_nccl_rank(retrain_data, tmp_path):
+    """A world of one rank on NCCL: ``train_dcn(mesh=1x1)`` launches the
+    cross kernels (one forward and one backward a step) and trains the
+    single-device run's trajectory at the mesh bar (rtol 1e-4 / atol 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.parallel.distributed import init_world
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    splits, dims = retrain_data
+    mcfg, tcfg = ModelConfig(**RETRAIN_MODEL), TrainConfig(**RETRAIN_TRAIN)
+    single = train_dcn(splits, dims, mcfg, tcfg, device="cuda")
+    init_world(0, 1, f"file://{tmp_path / 'store'}", "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        before = (cross.cross_stack_forward.launches, cross.cross_stack_backward.launches)
+        meshed = train_dcn(splits, dims, mcfg, tcfg, mesh=make_mesh(1, 1, "cuda"), device="cuda")
+        torch.cuda.synchronize()
+        steps = splits.n_train // tcfg.batch_size
+        assert cross.cross_stack_backward.launches - before[1] == tcfg.n_epochs * steps
+        assert cross.cross_stack_forward.launches - before[0] > tcfg.n_epochs * steps
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose([h["val_loss"] for h in meshed.history], [h["val_loss"] for h in single.history],
+                               rtol=1e-4, atol=1e-6)
+    assert [h["lr"] for h in meshed.history] == [h["lr"] for h in single.history]

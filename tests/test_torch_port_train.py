@@ -53,7 +53,9 @@ from hhrs_tpu_torch.train.serialization import msgpack_serialize  # noqa: E402
 from hhrs_tpu_torch.train.checkpoint import TrainCheckpointer  # noqa: E402
 from hhrs_tpu_torch.train.optimizers import make_optimizer  # noqa: E402
 from hhrs_tpu_torch.train.trainer import split_tensors, train_dcn, train_step  # noqa: E402
+from hhrs_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from tests.test_torch_port_model import one_torch_thread  # noqa: E402,F401 — module fixture
+from tests.torch_port_mesh_train_world import one_rank_world  # noqa: E402
 
 ARTIFACT = REPO / "benchmarks/results/hpo_r5/best"
 DATA = REPO / "data"
@@ -528,23 +530,34 @@ def test_cli_trains_and_exports_on_the_cpu(synthetic, tmp_path):
 
 def test_cli_rejects_an_unknown_section(synthetic, tmp_path):
     with pytest.raises(SystemExit):
-        cli.main(["--data", synthetic, "--out", str(tmp_path), "mesh.data_axis=2"])
+        cli.main(["--data", synthetic, "--out", str(tmp_path), "meshes.data_axis=2"])
 
 
 @pytest.mark.parametrize("option,value,item", [
     ("mesh_resident_data", True, "ROADMAP A11"),
-    ("mesh", object(), "ROADMAP A11"),
+    ("mesh", "1x1", "ROADMAP A11"),
     ("explicit_exchange", "all_to_all", "ROADMAP A11"),
-])
-def test_unported_options_name_their_roadmap_item(option, value, item):
-    dims = ModelDims(n_users=4, n_items=4, cat_dims=(), n_num_features=1)
-    kwargs, tcfg = {}, TrainConfig()
-    if hasattr(tcfg, option):
-        setattr(tcfg, option, value)
-    else:
+], ids=["mesh_resident_data-True-ROADMAP A11", "mesh-value1-ROADMAP A11",
+        "explicit_exchange-all_to_all-ROADMAP A11"])
+def test_unported_options_name_their_roadmap_item(synthetic, tmp_path, option, value, item):
+    """Each mesh option runs (on a 1x1 mesh over a world of this process);
+    beside lazy table updates, which a mesh does not run yet, it is refused
+    naming its ROADMAP item (A11b2)."""
+    splits, art = port_splits(os.path.join(synthetic, REVIEWS))
+    dims = ModelDims.from_artifacts(art)
+    tcfg = TrainConfig(batch_size=256, n_epochs=1, eval_batch_size=1024)
+    kwargs = {}
+    if option == "mesh_resident_data":
+        tcfg.mesh_resident_data = value
+    elif option == "explicit_exchange":
         kwargs[option] = value
-    with pytest.raises(NotImplementedError, match=item):
-        train_dcn(None, dims, ModelConfig(), tcfg, device="cpu", **kwargs)
+    with one_rank_world(str(tmp_path)):
+        mesh = make_mesh(1, 1, "cpu")
+        result = train_dcn(splits, dims, ModelConfig(**SMALL_MODEL), tcfg, mesh=mesh, device="cpu", **kwargs)
+        assert len(result.history) == 1 and np.isfinite(result.final_metrics["val_logloss"])
+        with pytest.raises(NotImplementedError, match=item + "b2"):
+            train_dcn(splits, dims, ModelConfig(**SMALL_MODEL), dataclasses.replace(tcfg, lazy_table_updates=True),
+                      mesh=mesh, device="cpu", **kwargs)
 
 
 def test_trainer_without_a_card_raises(monkeypatch):
