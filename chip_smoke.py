@@ -5,6 +5,9 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --mesh-tuning`` runs phases 14d, 14e and 15 alone,
+after the references they read.)
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. needs ``torch.cuda.is_available()``; prints the card's name and power
@@ -242,7 +245,34 @@ Phases (any failure exits non-zero and prints no result line):
    that share one card: not a multi-GPU speed); (c) ``python -m
    hhrs_tpu_torch.train.cli --mesh 2`` trains one epoch and writes one
    artifact, the single-device engine answers a request from it, and no
-   rank is left after the CLI exits.
+   rank is left after the CLI exits;
+14d. lazy table updates over a mesh (phase 7's hpo_r5 run, 3 epochs): a
+   world of one rank on NCCL in this process, val losses bit for bit phase
+   10b's single-device lazy run; a gloo world of 2 ranks sharing the card:
+   1x2 (the psum exchange) bit for bit that run, 2x1 with its final val
+   logloss within rel 1e-3 of it (``tests/test_lazy.py:217``'s bar), each
+   lazy run twice and equal to itself bit for bit, every rank's history
+   equal and replicated weights bit-identical, cross launches per rank;
+14e. slab streaming over a mesh (``stream_slab_steps=3``): on the 1-rank
+   NCCL world bit for bit phase 10b's slab run, on the 2 gloo ranks at 2x1
+   bit for bit phase 14b's 2x1 streamed run; 14d and 14e print their wall
+   time;
+15. tuning over a mesh: (a) ``python -m hhrs_tpu_torch.hpo.cli --mesh 1x1``
+   as a subprocess (a world of one rank on NCCL), 3 trials of 2 epochs on
+   ``data/``: proposals and journal values bit for bit the single-device
+   study's (the same flags, in this process); (b) ``--mesh 2x1`` (2 gloo
+   ranks sharing the card): proposals bit for bit, values within C1's
+   later-epoch bar or phase 14b's rounding noise, one journal; (c)
+   ``run_group(shard_lanes=True)``, phase 11b's K = 8 group and its bf16
+   twin on 2 gloo ranks sharing the card: each rank's 4 lanes' y, dx0, dw
+   and db bit for bit the 8-lane launch's under the 8-lane plans, each
+   lane's val losses, LR trace and best epoch phase 11b's bit for bit,
+   109 / 105 trial-axis launches a
+   rank, each rank's ``group_examples_per_s``; (d) ``--vectorize 8
+   --vectorize-shard`` with no world (one rank on this card, in this
+   process) gives ``--vectorize 8``'s journal bit for bit. Phase 15 prints
+   its wall time; ranks that share one card show correctness and launches,
+   not a multi-GPU speed.
 
 The last lines are one JSON object of kernel measurements, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -1805,13 +1835,14 @@ LAZY_TOL = 5e-3
 
 def _launch_delta(cross, fn):
     """Run ``fn`` with every cross launch count set to 0 first → (its
-    result, the counts after it)."""
+    result, the counts after it). (On the CPU, to rehearse, nothing to wait for.)"""
     import torch
 
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     reset_cross_counts(cross)
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, cross_counts(cross)
 
 
@@ -1991,7 +2022,8 @@ def options_phase(cross, splits, preproc, model_cfg, train_cfg, dev, card: str) 
 
     print("[time] retraining options, train step p50 ms (hpo_r5 configuration, per step unless fused): "
           + ", ".join(f"{k} {v:.4f}" for k, v in p50.items()) + f" on {card}")
-    return {"launches": launches, "step_p50_ms": p50}
+    return {"launches": launches, "step_p50_ms": p50,
+            "runs": {"lazy": (lazy.history, lazy.final_metrics), "slabs": (slab.history, slab.final_metrics)}}
 
 
 def pipeline_phase(dev, card: str) -> dict:
@@ -2479,8 +2511,13 @@ def run_group_phase(cross, splits, preproc, dev, card: str) -> dict:
           f"same architecture on {card}")
     return {"launches": counts, "group_examples_per_s": group[0].group_examples_per_s,
             "examples_per_s": group[0].examples_per_s, "sequential_examples_per_s": default.examples_per_s,
-            "group_s": group_s, "c1_bars_held": held,
+            "group_s": group_s, "c1_bars_held": held, "lanes": _lanes(group),
             "bf16": bf16_group_check(cross, splits, dims, trials, cfg, want, dev, card)}
+
+
+def _lanes(group: list) -> list:
+    """Each lane's history and best epoch (what phase 15c holds a sharded group to)."""
+    return [{"history": r.history, "best_epoch": r.best_epoch} for r in group]
 
 
 def bf16_group_check(cross, splits, dims, trials: list, cfg, want: dict, dev, card: str) -> dict:
@@ -2554,7 +2591,7 @@ def bf16_group_check(cross, splits, dims, trials: list, cfg, want: dict, dev, ca
               f"{twin.best_epoch}, under plan_of {default.best_epoch}")
     print(f"[hpo] bf16 group_examples_per_s {group[0].group_examples_per_s:.1f} on {card}")
     return {"launches": counts, "group_examples_per_s": group[0].group_examples_per_s, "group_s": group_s,
-            "max_rel_gap": max(gaps.values()), "bf16_bar_alone_held": held}
+            "max_rel_gap": max(gaps.values()), "bf16_bar_alone_held": held, "lanes": _lanes(group)}
 
 
 def hpo_cli_phase(dev, card: str) -> dict:
@@ -3842,8 +3879,8 @@ def mesh_train_gloo(splits, preproc, model_cfg, train_cfg, single: list, dev, ca
               + (f", exchange_overflow {[h['exchange_overflow'] for h in hist]}" if exchange == "capped" else "")
               + f"; every rank's history equal, replicated weights bit-identical; table shards {runs[0]['shards']}; "
               f"cross launches per rank {got[0]}; step p50 {ms_text(p50)} ms, wall {runs[0]['wall_s']:.2f} s on {card}")
-        report["ranks"][label] = {"launches": got, "max_dval": gap, "step_p50_ms": p50,
-                                  "overflow": [h.get("exchange_overflow") for h in hist]}
+        report["ranks"][label] = {"launches": got, "max_dval": gap, "step_p50_ms": p50, "history": hist,
+                                  "final": runs[0]["final"], "overflow": [h.get("exchange_overflow") for h in hist]}
     card_ovf, cpu_ovf = (report["ranks"][k]["overflow"] for k in ("1x2 capped", "1x2 capped cpu"))
     if card_ovf != cpu_ovf or not all(o is not None and o > 0 for o in card_ovf):
         raise SmokeFailure(f"14b: the capped exchange's drop rate on the card {card_ovf} is not the CPU's {cpu_ovf} "
@@ -3915,6 +3952,497 @@ def mesh_train_phase(splits, preproc, bundle, model_cfg, train_cfg, parity: list
            "cli": mesh_train_cli(dev, card)}
     print(f"[mesh-train] phase 14 took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# Phase 14d / 14e: lazy table updates and slab streaming over a mesh.
+MESH_SLAB_STEPS = 3
+MESH_LAZY_REL = 1e-3  # tests/test_lazy.py:217: a mesh lazy run's final val logloss against one device
+LAZY_ON = {"lazy_table_updates": True}
+SLABS_ON = {"stream_slab_steps": MESH_SLAB_STEPS}
+# The runs of phase 14d / 14e's gloo world of 2 ranks: (label, mesh shape,
+# train-config changes). Each lazy run is repeated: a run of the same seed
+# repeats bit for bit on the card.
+MESH_LAZY_RUNS = (
+    ("1x2 lazy", (1, 2), LAZY_ON),
+    ("1x2 lazy again", (1, 2), LAZY_ON),
+    ("2x1 lazy", (2, 1), LAZY_ON),
+    ("2x1 lazy again", (2, 1), LAZY_ON),
+    ("2x1 slabs", (2, 1), SLABS_ON),
+)
+
+
+def mesh_lazy_rank_main(spec: dict) -> list | None:
+    """One rank of phase 14d / 14e's gloo world (2 ranks sharing the card):
+    each run of ``MESH_LAZY_RUNS``, its cross launches counted from 0 just
+    before and read just after → every rank's reports on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.config import ModelConfig, TrainConfig
+    from hhrs_tpu_torch.ops import cross
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(spec["device"]) if spec["device"] == "cpu" else torch.device("cuda", torch.cuda.current_device())
+    mine = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    for label, shape, changes in MESH_LAZY_RUNS:
+        tcfg = dataclasses.replace(TrainConfig(**spec["train"]), **changes)
+        mesh = make_mesh(*shape, dev)
+        t0 = time.perf_counter()
+        r, launches = _launch_delta(cross, lambda: train_dcn(spec["splits"], spec["dims"], ModelConfig(**spec["model"]),
+                                                             tcfg, mesh=mesh, device=dev))
+        mine[label] = {"history": r.history, "final": r.final_metrics, "launches": launches,
+                       "wall_s": time.perf_counter() - t0, "step_ms": r.step_ms, "digest": _digest(r.model),
+                       "shards": {k: tuple(v.shape) for k, v in r.model.state_dict().items()
+                                  if k in r.model.layout.sharded}}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every if dist.get_rank() == 0 else None
+
+
+def _want_launches(splits, train_cfg, dev) -> dict:
+    """A 3-epoch f32 run's cross launches on each rank: one forward and one
+    backward a step, one forward an eval chunk (none on the CPU, to rehearse)."""
+    steps = splits.n_train // train_cfg.batch_size
+    chunks = -(-splits.n_val // train_cfg.eval_batch_size)
+    e = train_cfg.n_epochs
+    want = {"fwd": e * steps + (e + 1) * chunks, "bwd": e * steps, "fwd_bf16": 0, "bwd_bf16": 0}
+    return dict.fromkeys(want, 0) if dev.type == "cpu" else want
+
+
+def mesh_lazy_slab_phase(splits, preproc, model_cfg, train_cfg, options: dict, gloo: dict, dev, card: str) -> dict:
+    """Phases 14d and 14e: lazy table updates and slab streaming
+    (``stream_slab_steps=3``) over a mesh, on the hpo_r5 configuration
+    (phase 7's: dropout 0.6, seeded weights, 3 epochs). (1) a world of one
+    rank on NCCL in this process: the lazy run bit for bit phase 10b's
+    single-device lazy run, the slab run bit for bit phase 10b's slab run;
+    (2) a gloo world of 2 ranks sharing the card: lazy at 1x2 (psum) bit for
+    bit the single-device lazy run, lazy at 2x1 with its final val logloss
+    within rel 1e-3 of it, each lazy run twice and equal
+    to itself bit for bit, slabs at 2x1 bit for bit phase 14b's 2x1 run.
+    Every run: each rank's history equal, replicated weights bit-identical,
+    cross launches per rank counted."""
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.models.dcn import ModelDims
+    from hhrs_tpu_torch.ops import cross
+    from hhrs_tpu_torch.parallel.distributed import init_world, launch
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    t0 = time.perf_counter()
+    dims = ModelDims.from_artifacts(preproc)
+    want = _want_launches(splits, train_cfg, dev)
+    single = {"lazy": options["runs"]["lazy"], "slabs": options["runs"]["slabs"]}
+    report = {"nccl": {}, "gloo": {}}
+    store = PHASE14_DIR / "lazy_nccl_store"
+    store.unlink(missing_ok=True)
+    init_world(0, 1, f"file://{store}", dev)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh(1, 1, dev)
+        for label, changes in (("lazy", LAZY_ON), ("slabs", SLABS_ON)):
+            tcfg = dataclasses.replace(train_cfg, **changes)
+            r, launches = _launch_delta(cross, lambda: train_dcn(splits, dims, model_cfg, tcfg, mesh=mesh, device=dev))
+            if r.history != single[label][0]:
+                raise SmokeFailure(f"14{'d' if label == 'lazy' else 'e'}: the 1-rank {label} run's val losses "
+                                   f"{[h['val_loss'] for h in r.history]} are not phase 10b's "
+                                   f"{[h['val_loss'] for h in single[label][0]]} bit for bit")
+            if launches != want:
+                raise SmokeFailure(f"14d/e: the 1-rank {label} run's cross launches {launches}, expected {want}")
+            report["nccl"][label] = launches
+            print(f"[mesh-train] 14{'d' if label == 'lazy' else 'e'}: a world of 1 rank on {backend}: "
+                  f"train_dcn(mesh=1x1, {next(iter(changes))}={next(iter(changes.values()))}) gives phase 10b's "
+                  f"single-device {label} run's val losses bit for bit; cross launches {launches}; step p50 "
+                  f"{ms_text(statistics.median(r.step_ms))} ms on {card}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    spec = {"splits": splits, "dims": dims, "model": dataclasses.asdict(model_cfg),
+            "train": dataclasses.asdict(train_cfg), "device": dev.type}
+    t1 = time.perf_counter()
+    ranks = launch(mesh_lazy_rank_main, 2, (spec,), device=dev, timeout_s=600, store_dir=str(PHASE14_DIR))
+    world_s = time.perf_counter() - t1
+    lazy_hist, (_, lazy_final) = single["lazy"][0], single["lazy"]
+    for label, shape, changes in MESH_LAZY_RUNS:
+        runs = [r[label] for r in ranks]
+        if any(x["history"] != runs[0]["history"] for x in runs) or any(x["digest"] != runs[0]["digest"]
+                                                                        for x in runs):
+            raise SmokeFailure(f"14d/e {label}: the ranks' histories or replicated weights differ")
+        got = [x["launches"] for x in runs]
+        if any(g != want for g in got):
+            raise SmokeFailure(f"14d/e {label}: cross launches per rank {got}, expected {want} each")
+        hist, final = runs[0]["history"], runs[0]["final"]
+        if label.endswith("again"):
+            if hist != ranks[0][label[:-len(" again")]]["history"]:
+                raise SmokeFailure(f"14d {label}: the repeated lazy run differs from the first")
+            note = "equal to the first run bit for bit"
+        elif "slabs" in label:
+            if hist != gloo["ranks"]["2x1"]["history"] or final != gloo["ranks"]["2x1"]["final"]:
+                raise SmokeFailure(f"14e {label}: not phase 14b's 2x1 streamed run bit for bit")
+            note = "phase 14b's 2x1 streamed run bit for bit"
+        elif shape[0] == 1:
+            if hist != lazy_hist:
+                raise SmokeFailure(f"14d {label}: val losses {[h['val_loss'] for h in hist]} are not the "
+                                   f"single-device lazy run's {[h['val_loss'] for h in lazy_hist]} bit for bit")
+            note = "the single-device lazy run's bit for bit"
+        else:
+            rel = [abs(h["val_loss"] / w["val_loss"] - 1) for h, w in zip(hist, lazy_hist)]
+            final_rel = abs(final["val_logloss"] / lazy_final["val_logloss"] - 1)
+            if len(hist) != len(lazy_hist) or final_rel > MESH_LAZY_REL:
+                raise SmokeFailure(f"14d {label}: final val logloss rel {final_rel:.3e} from the single-device lazy "
+                                   f"run, past {MESH_LAZY_REL} (val losses rel {rel})")
+            note = (f"against the single-device lazy run: final val logloss rel {final_rel:.3e} (bar "
+                    f"{MESH_LAZY_REL}); val loss rel gaps by epoch {', '.join(f'{x:.3e}' for x in rel)} (not held: "
+                    "rounding of the data axis's sums, which this trajectory amplifies)")
+        p50 = statistics.median(runs[0]["step_ms"]) if runs[0]["step_ms"] else None
+        report["gloo"][label] = {"launches": got, "step_p50_ms": p50, "wall_s": runs[0]["wall_s"]}
+        print(f"[mesh-train] 14{'e' if 'slabs' in label else 'd'} {label}: val losses "
+              f"{[round(h['val_loss'], 7) for h in hist]}, {note}; every rank's history equal, replicated weights "
+              f"bit-identical; table shards {runs[0]['shards']}; cross launches per rank {got[0]}; step p50 "
+              f"{ms_text(p50)} ms, wall {runs[0]['wall_s']:.2f} s (2 ranks share one card over "
+              f"{ranks[0]['backend']}: not a multi-GPU speed) on {card}")
+    report.update(world_s=world_s, seconds=time.perf_counter() - t0)
+    print(f"[mesh-train] phases 14d and 14e took {report['seconds']:.1f} s (the gloo world {world_s:.1f} s) on {card}")
+    return report
+
+
+# Phase 15: tuning over a mesh.
+MESH_HPO_TRIALS, MESH_HPO_EPOCHS = 3, 2
+MESH_HPO_DATA = REPO / "data"
+SHARD_RANKS = 2
+
+
+def _hpo_clis(runs: dict, dev) -> dict:
+    """``python -m hhrs_tpu_torch.hpo.cli`` as subprocesses, all at once:
+    ``runs`` is ``{label: (args, out dir)}`` → ``{label: (its journal's
+    records, its log)}``. A run that fails stops the others."""
+    procs = {}
+    for label, (args, d) in runs.items():
+        cmd = [sys.executable, "-m", "hhrs_tpu_torch.hpo.cli", "--data", str(MESH_HPO_DATA), "--out", str(d),
+               "--journal", str(d / "j.jsonl"), *args] + (["--device", "cpu"] if dev.type == "cpu" else [])
+        log_path = OUT_DIR / f"phase15_{label}.log"
+        with open(log_path, "w") as log_file:
+            procs[label] = (subprocess.Popen(cmd, cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT), log_path, d)
+    out = {}
+    try:
+        for label, (proc, log_path, d) in procs.items():
+            rc = proc.wait(timeout=600)
+            log = log_path.read_text()
+            if rc != 0:
+                raise SmokeFailure(f"15 {label}: the HPO CLI exited {rc}: {log[-2000:]}")
+            out[label] = ([json.loads(line) for line in (d / "j.jsonl").read_text().splitlines()], log)
+    finally:
+        for proc, *_ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _hpo_in_process(args: list, d: Path, dev) -> list:
+    """``hpo/cli.py::main`` in this process into ``d`` → its journal's records."""
+    from hhrs_tpu_torch.hpo import cli as hpo_cli
+
+    rc = hpo_cli.main(["--data", str(MESH_HPO_DATA), "--out", str(d), "--journal", str(d / "j.jsonl"), *args,
+                       "--device", dev.type])
+    if rc != 0:
+        raise SmokeFailure(f"15: the HPO CLI in this process exited {rc}")
+    return [json.loads(line) for line in (d / "j.jsonl").read_text().splitlines()]
+
+
+def mesh_hpo_cli_phase(noise: float, dev, card: str) -> dict:
+    """Phases 15a and 15b: ``hpo.cli --mesh`` as a subprocess, 3 trials of 2
+    epochs on ``data/``, against the single-device study (this process, the
+    same flags without ``--mesh``): (a) ``--mesh 1x1``, a world of one rank
+    on NCCL: proposals and values bit for bit; (b) ``--mesh 2x1``, 2 gloo
+    ranks sharing the card: proposals bit for bit, values within C1's
+    later-epoch bar or ``noise`` (phase 14b's: twice the widest gap among
+    the hpo_r5 trajectory's rounding twins, the bar of a 2x1 run there),
+    one journal of 3 records. (a) and (b) run at the same time."""
+    import shutil
+
+    root = PHASE14_DIR / "hpo"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--trials", str(MESH_HPO_TRIALS), "--epochs", str(MESH_HPO_EPOCHS)]
+    t0 = time.perf_counter()
+    ref = _hpo_in_process(args, root / "single", dev)
+    ref_s = time.perf_counter() - t0
+    out = {"single_s": ref_s}
+    shapes = (("a", "1x1"), ("b", "2x1"))
+    t0 = time.perf_counter()
+    runs = _hpo_clis({f"mesh_{shape}": ([*args, "--mesh", shape], root / shape) for _, shape in shapes}, dev)
+    out["both_s"] = time.perf_counter() - t0
+    for label, shape in shapes:
+        records, log = runs[f"mesh_{shape}"]
+        backends = sorted(set(re.findall(r"backend (\w+) \(", log)))
+        if len(records) != MESH_HPO_TRIALS or [r["params"] for r in records] != [r["params"] for r in ref]:
+            raise SmokeFailure(f"15{label}: --mesh {shape} journaled {len(records)} trials, proposals "
+                               f"{'equal' if [r['params'] for r in records[:3]] == [r['params'] for r in ref] else 'differ'}")
+        gaps = []
+        for g, w in zip(records, ref):
+            if g["state"] != w["state"]:
+                raise SmokeFailure(f"15{label}: trial {g['number']} {g['state']} against {w['state']}")
+            if w["value"] is None:
+                continue
+            gap = abs(g["value"] - w["value"])
+            bar = 0.0 if shape == "1x1" else max(LATER_EPOCH_TOL["atol"] + LATER_EPOCH_TOL["rtol"] * w["value"], noise)
+            if gap > bar:
+                raise SmokeFailure(f"15{label}: trial {g['number']} value {g['value']} against {w['value']}: |Δ| "
+                                   f"{gap:.3e} past {bar:.3e}")
+            gaps.append(gap)
+        print(f"[mesh-hpo] 15{label}: hpo.cli --mesh {shape} ({backends}), {MESH_HPO_TRIALS} trials of "
+              f"{MESH_HPO_EPOCHS} epochs (15a and 15b together {out['both_s']:.1f} s, each a new process; the "
+              f"single-device study {ref_s:.1f} s in this process): "
+              f"one journal of {len(records)} records, proposals bit for bit; values "
+              f"{[r['value'] for r in records]} against {[r['value'] for r in ref]}, largest |Δ| "
+              f"{max(gaps, default=0.0):.3e} ("
+              + ("bit for bit" if shape == "1x1" else f"bar max(C1 {LATER_EPOCH_TOL}, noise {noise:.3e})")
+              + f"); 15a and 15b run at once on the card, ranks share it: not a multi-GPU speed; on {card}")
+        out[label] = {"max_dvalue": max(gaps, default=0.0), "backends": backends}
+    return out
+
+
+def _pinned_plan_check(cross, dev, rank: int, ranks: int) -> dict:
+    """The trial-axis kernels on this rank's K/n lanes under the K-lane
+    group's plans against the K-lane launch, f32 and bf16 (phase 11a's
+    shape: B = 512, d = 113, L = 3; the same seeded inputs on every rank):
+    y, dx0, dw and db of each lane bit for bit → the plans used."""
+    import numpy as np
+    import torch
+
+    K, (B, d, L) = TRIALS_K, TRIAL_SHAPES[0][:3]
+    gen = np.random.default_rng(SEED + 15)
+    kr, lanes = K // ranks, slice(rank * (K // ranks), (rank + 1) * (K // ranks))
+    plans = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).to(dtype).contiguous()  # noqa: E731
+        x0, dy = t(gen.standard_normal((K, B, d))), t(gen.standard_normal((K, B, d)))
+        w, b = t(gen.uniform(-1, 1, (K, L, d)) / np.sqrt(d)), t(0.1 * gen.standard_normal((K, L, d)))
+        fwd_plan, bwd_plan = cross.fwd_trial_plan_of(x0), cross.trial_plan_of(x0)
+        with torch.no_grad():
+            y = cross.cross_stack_forward_trials(w, b, x0, "code")
+            dx0, dw, db = cross.cross_stack_backward_trials(w, b, x0, dy, "code")
+            part = lambda a: a[lanes].contiguous()  # noqa: E731
+            y_r = cross.cross_stack_forward_trials(part(w), part(b), part(x0), "code", plan=fwd_plan)
+            dx0_r, dw_r, db_r = cross.cross_stack_backward_trials(part(w), part(b), part(x0), part(dy), "code",
+                                                                  plan=bwd_plan)
+        for name, got, whole in (("y", y_r, y), ("dx0", dx0_r, dx0), ("dw", dw_r, dw), ("db", db_r, db)):
+            if not torch.equal(got, whole[lanes]):
+                raise SmokeFailure(f"15c: rank {rank}'s {kr} lanes' {name} ({dtype}) under the {K}-lane plans "
+                                   "differ from the K-lane launch's")
+        plans[str(dtype).split(".")[-1]] = {"fwd": list(fwd_plan), "bwd": list(bwd_plan)}
+    return plans
+
+
+def sharded_group_rank_main(spec: dict) -> list | None:
+    """One rank of phase 15c's gloo world: the pinned-plan kernel check (on
+    the card), then the K = 8 group of phase 11b sharded over the world,
+    f32 and bf16, its trial-axis launches counted from 0 → every rank's
+    reports on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.config import ModelConfig, TrainConfig
+    from hhrs_tpu_torch.hpo.vectorized import run_group
+    from hhrs_tpu_torch.ops import cross
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(spec["device"]) if spec["device"] == "cpu" else torch.device("cuda", torch.cuda.current_device())
+    rank, W = dist.get_rank(), dist.get_world_size()
+    mine = {"rank": rank, "backend": dist.get_backend(),
+            "plans": _pinned_plan_check(cross, dev, rank, W) if dev.type == "cuda" else None}
+    for label, mcfg in (("f32", spec["model"]), ("bf16", spec["model_bf16"])):
+        reset_cross_counts(cross)
+        for fn in (cross.cross_stack_forward_trials, cross.cross_stack_backward_trials):
+            fn.launches = fn.launches_bf16 = 0
+        t0 = time.perf_counter()
+        group = run_group(spec["splits"], spec["dims"], ModelConfig(**mcfg), TrainConfig(**spec["train"]),
+                          spec["trials"], shard_lanes=True, device=dev)
+        _sync(dev)
+        mine[label] = {"lanes": _lanes(group), "launches": _trial_counts(cross), "singles": cross_counts(cross),
+                       "seconds": time.perf_counter() - t0, "group_examples_per_s": group[0].group_examples_per_s}
+    every = [None] * W
+    dist.all_gather_object(every, mine)
+    return every if rank == 0 else None
+
+
+def sharded_group_phase(splits, preproc, group: dict, dev, card: str) -> dict:
+    """Phase 15c: ``run_group(shard_lanes=True)``, phase 11b's K = 8 group
+    (trial 139's architecture, 3 epochs) and its bf16 twin, on 2 gloo ranks
+    sharing the card, 4 lanes a rank: every lane's y, dx0, dw and db bit for
+    bit the K-lane launch's under the pinned plans; each lane's val losses,
+    LR trace and best epoch those of phase 11b's unsharded group bit for bit
+    (``hpo/vectorized.py`` keeps every per-lane sum independent of how many
+    lanes run: the head's gradients and each lane's loss); the trial-axis
+    launches per rank (109 forward / 105 backward, as the unsharded
+    group's) and each rank's ``group_examples_per_s``."""
+    from hhrs_tpu_torch.config import Config
+    from hhrs_tpu_torch.hpo.cli import model_cfg_from_params, train_cfg_from_params
+    from hhrs_tpu_torch.hpo.space import reference_search_space
+    from hhrs_tpu_torch.hpo.study import Study
+    from hhrs_tpu_torch.hpo.vectorized import ARCH_KEYS
+    from hhrs_tpu_torch.models.dcn import ModelDims
+    from hhrs_tpu_torch.parallel.distributed import launch
+
+    fixed = {k: _journal_record(139)["params"][k] for k in ARCH_KEYS}
+    trials = [t.params for t in Study(seed=0).ask(reference_search_space(), TRIALS_K, fixed=fixed)]
+    cfg = Config()
+    cfg.train.n_epochs = 3
+    mcfg, tcfg = model_cfg_from_params(trials[0], cfg.model), train_cfg_from_params(trials[0], cfg.train)
+    spec = {"splits": splits, "dims": ModelDims.from_artifacts(preproc), "trials": trials,
+            "model": dataclasses.asdict(mcfg), "train": dataclasses.asdict(tcfg), "device": dev.type,
+            "model_bf16": dataclasses.asdict(dataclasses.replace(mcfg, compute_dtype="bfloat16",
+                                                                 storage_dtype="bfloat16"))}
+    t0 = time.perf_counter()
+    ranks = launch(sharded_group_rank_main, SHARD_RANKS, (spec,), device=dev, timeout_s=600,
+                   store_dir=str(PHASE14_DIR))
+    world_s = time.perf_counter() - t0
+    steps, chunks = splits.n_train // tcfg.batch_size, -(-splits.n_val // tcfg.eval_batch_size)
+    report = {"world_s": world_s, "plans": ranks[0]["plans"]}
+    for label, whole in (("f32", group["lanes"]), ("bf16", group["bf16"]["lanes"])):
+        k = "_bf16" if label == "bf16" else ""
+        want = {"fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 0}
+        if dev.type == "cuda":
+            want.update({f"fwd{k}": 3 * (steps + chunks) + chunks, f"bwd{k}": 3 * steps})
+        got = [r[label]["launches"] for r in ranks]
+        if any(g != want for g in got) or any(any(r[label]["singles"].values()) for r in ranks):
+            raise SmokeFailure(f"15c {label}: trial-axis launches per rank {got}, expected {want} each, and no "
+                               "single-trial launch")
+        lanes = ranks[0][label]["lanes"]
+        if any(r[label]["lanes"] != lanes for r in ranks):
+            raise SmokeFailure(f"15c {label}: the ranks' results differ")
+        for i, (sh, u) in enumerate(zip(lanes, whole)):
+            if sh != u:
+                raise SmokeFailure(f"15c {label}: lane {i} {sh} is not the unsharded group's {u} bit for bit")
+        rates = [r[label]["group_examples_per_s"] for r in ranks]
+        report[label] = {"launches_per_rank": got, "group_examples_per_s_per_rank": rates,
+                         "seconds": [r[label]["seconds"] for r in ranks]}
+        print(f"[mesh-hpo] 15c {label}: run_group(shard_lanes=True), K={TRIALS_K} on {SHARD_RANKS} "
+              f"{ranks[0]['backend']} ranks ({TRIALS_K // SHARD_RANKS} lanes a rank): every lane's val losses, LR "
+              f"trace and best epoch bit for bit phase 11b's unsharded group's"
+              + f"; trial-axis launches per rank {got[0]}; group_examples_per_s per rank "
+              + ", ".join(f"{x:.1f}" for x in rates) + f", {report[label]['seconds'][0]:.2f} s (ranks share one "
+              f"card: not a multi-GPU speed) on {card}")
+    if report["plans"] is not None:
+        print(f"[mesh-hpo] 15c: each rank's {TRIALS_K // SHARD_RANKS} lanes under the {TRIALS_K}-lane plans "
+              f"{report['plans']}: y, dx0, dw and db bit for bit the {TRIALS_K}-lane launch's, f32 and bf16")
+    return report
+
+
+def vectorize_shard_cli_phase(dev, card: str) -> dict:
+    """Phase 15d: ``hpo.cli --vectorize 8 --vectorize-shard`` with no world
+    (one rank a card: one rank on this one-card machine, in this process)
+    gives ``--vectorize 8``'s journal: the same trials, values bit for bit."""
+    import shutil
+
+    root = PHASE14_DIR / "vshard"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--trials", "8", "--vectorize", "8", "--epochs", str(MESH_HPO_EPOCHS)]
+    t0 = time.perf_counter()
+    plain = _hpo_in_process(args, root / "plain", dev)
+    t1 = time.perf_counter()
+    sharded = _hpo_in_process([*args, "--vectorize-shard"], root / "shard", dev)
+    t2 = time.perf_counter()
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "user_attrs"} for r in recs]  # noqa: E731
+    if len(sharded) != 8 or strip(sharded) != strip(plain):
+        raise SmokeFailure("15d: --vectorize-shard on one rank is not --vectorize 8's study")
+    print(f"[mesh-hpo] 15d: hpo.cli --vectorize 8 --vectorize-shard with no world ran its one rank here: 8 trials "
+          f"journaled, values bit for bit --vectorize 8's ({t2 - t1:.1f} s against {t1 - t0:.1f} s) on {card}")
+    return {"seconds": t2 - t1, "plain_s": t1 - t0}
+
+
+def mesh_tuning_phase(splits, preproc, tuning: dict, noise: float, dev, card: str) -> dict:
+    """Phase 15: tuning over a mesh (15a–15d); prints its time."""
+    t0 = time.perf_counter()
+    out = {"cli": mesh_hpo_cli_phase(noise, dev, card),
+           "group": sharded_group_phase(splits, preproc, tuning["group"], dev, card),
+           "vshard": vectorize_shard_cli_phase(dev, card)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[mesh-hpo] phase 15 took {out['seconds']:.1f} s on {card}")
+    return out
+
+
+def mesh_2x1_rank_main(spec: dict) -> dict:
+    """One rank of ``mesh_tuning_main``'s world: phase 14b's 2x1 run alone."""
+    import torch
+
+    from hhrs_tpu_torch.config import ModelConfig, TrainConfig
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(spec["device"]) if spec["device"] == "cpu" else torch.device("cuda", torch.cuda.current_device())
+    r = train_dcn(spec["splits"], spec["dims"], ModelConfig(**spec["model"]), TrainConfig(**spec["train"]),
+                  mesh=make_mesh(2, 1, dev), device=dev)
+    return {"history": r.history, "final": r.final_metrics}
+
+
+def mesh_tuning_main(device: str = "cuda", data: str | None = None) -> int:
+    """``chip_smoke.py --mesh-tuning``: phases 14d, 14e and 15 alone, after
+    the cross library's build and the references they read, recomputed:
+    phase 10b's lazy and slab runs, phase 14b's 2x1 run and rounding noise,
+    phase 11b's groups. ``device="cpu"`` and a small ``data`` directory
+    rehearse it on the CPU (the plain versions; the CPU's timings)."""
+    import shutil
+
+    import torch
+
+    from hhrs_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from hhrs_tpu_torch.hpo.cli import model_cfg_from_params, train_cfg_from_params
+    from hhrs_tpu_torch.hpo.space import reference_search_space
+    from hhrs_tpu_torch.hpo.study import Study
+    from hhrs_tpu_torch.hpo.vectorized import ARCH_KEYS, run_group
+    from hhrs_tpu_torch.models.dcn import ModelDims
+    from hhrs_tpu_torch.ops import cross, cuda_build
+    from hhrs_tpu_torch.parallel.distributed import launch
+    from hhrs_tpu_torch.train.cli import build_dataset
+    from hhrs_tpu_torch.train.trainer import train_dcn
+
+    global MESH_HPO_DATA
+    if device == "cuda" and not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: --mesh-tuning needs a CUDA card")
+    dev = torch.device(device)
+    card = card_line() if dev.type == "cuda" else "cpu"
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    OUT_DIR.mkdir(exist_ok=True)
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        cuda_build.build(cross._LIB_NAME, cross._LIB_SOURCES)
+        print(f"[build] the cross library in {time.perf_counter() - t0:.1f} s", flush=True)
+    MESH_HPO_DATA = Path(data) if data else REPO / "data"
+    splits, preproc = build_dataset(str(MESH_HPO_DATA), Config())
+    dims = ModelDims.from_artifacts(preproc)
+    golden_t = json.loads((REPO / TRAIN_GOLDEN).read_text())
+    dropout = json.loads((REPO / ARTIFACT / "manifest.json").read_text())["model_config"]["dropout"]  # phase 7's
+    model_cfg = ModelConfig(**dict(golden_t["model_config"], dropout=dropout))
+    train_cfg = TrainConfig(**dict(golden_t["train_config"], n_epochs=3))
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    PHASE14_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    run = lambda **kw: train_dcn(splits, dims, model_cfg, dataclasses.replace(train_cfg, **kw), device=dev)  # noqa
+    lazy, slab, single = run(lazy_table_updates=True), run(stream_slab_steps=SLAB_STEPS), run()
+    options = {"runs": {"lazy": (lazy.history, lazy.final_metrics), "slabs": (slab.history, slab.final_metrics)}}
+    spec = {"splits": splits, "dims": dims, "model": dataclasses.asdict(model_cfg),
+            "train": dataclasses.asdict(train_cfg), "device": dev.type}
+    gloo = {"ranks": {"2x1": launch(mesh_2x1_rank_main, 2, (spec,), device=dev, timeout_s=600,
+                                    store_dir=str(PHASE14_DIR))}}
+    noise = _trajectory_noise(splits, dims, model_cfg, train_cfg, single.history, dev)["noise"]
+    fixed = {k: _journal_record(139)["params"][k] for k in ARCH_KEYS}
+    trials = [t.params for t in Study(seed=0).ask(reference_search_space(), TRIALS_K, fixed=fixed)]
+    cfg = Config()
+    cfg.train.n_epochs = 3
+    mcfg, tcfg = model_cfg_from_params(trials[0], cfg.model), train_cfg_from_params(trials[0], cfg.train)
+    f32 = run_group(splits, dims, mcfg, tcfg, trials, device=dev)
+    bf16 = run_group(splits, dims, dataclasses.replace(mcfg, compute_dtype="bfloat16", storage_dtype="bfloat16"),
+                     tcfg, trials, device=dev)
+    tuning = {"group": {"lanes": _lanes(f32), "bf16": {"lanes": _lanes(bf16)}}}
+    print(f"[mesh-tuning] the references in {time.perf_counter() - t0:.1f} s (noise {noise:.3e})", flush=True)
+    mesh_lazy_slab_phase(splits, preproc, model_cfg, train_cfg, options, gloo, dev, card)
+    mesh_tuning_phase(splits, preproc, tuning, noise, dev, card)
+    return 0
 
 
 def main() -> int:
@@ -4161,6 +4689,13 @@ def main() -> int:
     mesh_train = mesh_train_phase(splits, preproc, bundle, model_cfg, train_cfg, parity_history,
                                   cross_launches["history"], dev, card)
 
+    # ---- phases 14d, 14e: lazy table updates and slab streaming over a mesh
+    mesh_lazy = mesh_lazy_slab_phase(splits, preproc, model_cfg, train_cfg, retrain["options"], mesh_train["gloo"],
+                                     dev, card)
+
+    # ---- phase 15: tuning over a mesh ---------------------------------------
+    mesh_tuning = mesh_tuning_phase(splits, preproc, tuning, mesh_train["gloo"]["noise"]["f32"]["noise"], dev, card)
+
     r = rows[128]
     kernels.append({
         "name": "tower_eval", "route": "cuda", "source": "hhrs_tpu_torch/csrc/tower_eval.cu",
@@ -4196,6 +4731,11 @@ def main() -> int:
                                     **{f"14b_{k}_per_rank": [x[kind] for x in v["launches"]]
                                        for k, v in mesh_train["gloo"]["ranks"].items() if "bf16" not in k}},
             "mesh_rank_rows_max_abs_err": max(k["float32"] for k in mesh_train["gloo"]["kernel"]),
+            "mesh_lazy_launches_per_rank": {"14d_1_rank": mesh_lazy["nccl"]["lazy"][kind],
+                                            **{f"14d_{k}": [x[kind] for x in v["launches"]]
+                                               for k, v in mesh_lazy["gloo"].items() if "lazy" in k}},
+            "mesh_slab_launches_per_rank": {"14e_1_rank": mesh_lazy["nccl"]["slabs"][kind],
+                                            "14e_2x1": [x[kind] for x in mesh_lazy["gloo"]["2x1 slabs"]["launches"]]},
             **({"export_all_launches": phase12["export"]["launches"]["cross_fwd"]} if kind == "fwd" else {}),
         })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
@@ -4235,6 +4775,11 @@ def main() -> int:
             "plan": r["plan"] if kind == "fwd" else r["trial_plan"], "waves": r["waves"], "bf16": r["bf16"],
             "by_shape": [trial_rows[(kind, B)] for B, *_ in TRIAL_SHAPES[1:]],
             "bf16_group_launches": tuning["group"]["bf16"]["launches"][f"{kind}_bf16"],
+            "sharded_group_launches_per_rank": {
+                label: [x[f"{kind}_bf16" if label == "bf16" else kind] for x in mesh_tuning["group"][label]["launches_per_rank"]]
+                for label in ("f32", "bf16")},
+            "sharded_group_examples_per_s_per_rank": {
+                label: mesh_tuning["group"][label]["group_examples_per_s_per_rank"] for label in ("f32", "bf16")},
             **({"full_bound_check": tuning["trials"]["c5"]} if kind == "bwd" else {}),
         })
     print(json.dumps({"kernels": kernels}))
@@ -4248,6 +4793,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--http-client"]:
             sys.exit(http_client_main(sys.argv[2:]))
+        if sys.argv[1:2] == ["--mesh-tuning"]:
+            sys.exit(mesh_tuning_main())
         sys.exit(export_check_main(sys.argv[2:]) if sys.argv[1:2] == ["--export-check"] else main())
     except SmokeFailure as e:
         sys.exit(fail(str(e)))

@@ -10,9 +10,7 @@ Copies of ``hhrs_tpu/config.py``'s ``ModelConfig``, ``TrainConfig``,
 environment → CLI tokens), and of ``hhrs_tpu/utils/shapes.py::round_up``.
 An artifact manifest's ``model_config`` loads into :class:`ModelConfig`
 field for field; :func:`check_dtypes` holds its dtypes to the JAX model's
-rules. Trainer options whose mesh paths are not ported yet (lazy table
-updates and slab streaming over a mesh, ROADMAP A11b2) are rejected on a
-mesh by :func:`unported_mesh_train_options`.
+rules.
 """
 
 from __future__ import annotations
@@ -92,21 +90,6 @@ class TrainConfig:
     fused_epoch: bool = False
     stream_slab_steps: int = 0
     eval_catalog_recall: bool = False
-
-
-# Trainer options whose paths over a mesh are not ported yet: (field, the
-# value that is ported there).
-_UNPORTED_ON_A_MESH = (("lazy_table_updates", False), ("stream_slab_steps", 0))
-
-
-def unported_mesh_train_options(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A11b2 for the first
-    option of ``cfg`` whose path over a mesh is not ported."""
-    for name, ported in _UNPORTED_ON_A_MESH:
-        value = getattr(cfg, name)
-        if value != ported:
-            raise NotImplementedError(f"train.{name}={value!r} on a mesh is not ported yet: ROADMAP A11b2 "
-                                      "(lazy table updates and slab streaming over a mesh)")
 
 
 @dataclass

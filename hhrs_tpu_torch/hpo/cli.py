@@ -12,8 +12,21 @@ sweep always leaves the best-so-far model on disk)::
 Trials train one at a time through ``train/trainer.py::train_dcn``, or with
 ``--vectorize K`` K at a time through ``hpo/vectorized.py::run_group``. The
 device defaults to ``cuda`` and the sweep fails without a card.
-``--mesh`` and ``--vectorize-shard`` are refused as usage errors naming
-ROADMAP A11c.
+
+``--mesh DATAxMODEL`` trains each trial over a mesh (``train_dcn``'s
+``mesh``, with ``mesh.explicit_exchange`` and
+``mesh.exchange_capacity_factor``); ``--vectorize-shard`` splits each
+group's trial axis over the world's ranks (``run_group(shard_lanes=True)``;
+a group whose size is not a multiple of the ranks runs unsharded, logged,
+as in JAX). Either joins the world the environment configures, or else
+launches one here, as ``train/cli.py`` does: ``DATA·MODEL`` ranks for
+``--mesh``, one a card for ``--vectorize-shard`` (in this process when that
+is one, or on the CPU). Every rank runs the whole study: every rank gets
+the same val losses, so the sampler, the pruner, the plateaus and early
+stops decide the same on each. Rank 0 alone writes the journal, the best
+artifact (every rank joins ``export_artifacts``, which writes on rank 0) and
+the plots; the other ranks load the journal when they start and keep the
+study's state in memory from then on.
 """
 
 from __future__ import annotations
@@ -22,6 +35,8 @@ import argparse
 import dataclasses
 import logging
 import sys
+
+import torch.distributed as dist
 
 from hhrs_tpu_torch.config import ModelConfig, TrainConfig, build_config
 from hhrs_tpu_torch.device import resolve_device
@@ -76,7 +91,7 @@ def _optimize_vectorized(args, cfg, splits, dims, preproc, space, study, best_bo
     Same per-trial semantics as the sequential objective (plateau, early
     stop, pruning, best-artifact export); the only difference is that
     same-shape trials share one program (hpo/vectorized.py)."""
-    from hhrs_tpu_torch.hpo.vectorized import ARCH_KEYS, group_trials, run_group
+    from hhrs_tpu_torch.hpo.vectorized import ARCH_KEYS, group_trials, lane_world, run_group
 
     def make_report(trial):
         def report_fn(epoch: int, val_loss: float) -> bool:
@@ -101,6 +116,12 @@ def _optimize_vectorized(args, cfg, splits, dims, preproc, space, study, best_bo
             tcfg = train_cfg_from_params(members[0].params, cfg.train)
             if tcfg.batch_size > splits.n_train:
                 tcfg = dataclasses.replace(tcfg, drop_remainder=False)
+            shard = False
+            if args.vectorize_shard:
+                ranks = lane_world()[0]
+                shard = len(members) % ranks == 0
+                if not shard:
+                    log.info("group of %d not a multiple of %d devices — unsharded", len(members), ranks)
 
             refill_fn = None
             if args.reclaim_lanes:
@@ -125,7 +146,7 @@ def _optimize_vectorized(args, cfg, splits, dims, preproc, space, study, best_bo
                 results = run_group(
                     splits, dims, mcfg, tcfg, [t.params for t in members],
                     report_fns=[make_report(t) for t in members],
-                    refill_fn=refill_fn, device=args.device,
+                    shard_lanes=shard, refill_fn=refill_fn, device=args.device,
                 )
             except Exception as e:  # noqa: BLE001 — a failed group must not kill the sweep
                 log.exception("vectorized group of %d failed", len(all_members))
@@ -176,7 +197,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dir", default=None,
                    help="preprocessed-dataset cache (skips ingest on repeat runs)")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="run each trial over a device mesh (not ported yet: ROADMAP A11c)")
+                   help="run each trial over a device mesh (same layout as the train CLI: data-parallel "
+                        "batch, row-sharded tables)")
     p.add_argument("--vectorize", type=int, default=1, metavar="K",
                    help="propose K trials per round and train each same-architecture group as ONE "
                         "K-lane program (hpo/vectorized.py); by default the K trials share one "
@@ -192,8 +214,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --vectorize: sample all K trials' params independently instead of "
                         "sharing the architecture dims (groups then degenerate to singletons)")
     p.add_argument("--vectorize-shard", action="store_true",
-                   help="with --vectorize: shard the trial axis over all visible devices (not "
-                        "ported yet: ROADMAP A11c)")
+                   help="with --vectorize: shard the trial axis of each group over the world's ranks (one "
+                        "a card; groups whose size is not a multiple of the ranks run unsharded)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("overrides", nargs="*")
     return p
@@ -202,13 +224,20 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     setup_logging()
     p = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
     if args.vectorize > 1 and args.mesh:
         p.error("--vectorize and --mesh are mutually exclusive")
     if args.vectorize_shard and args.vectorize <= 1:
         p.error("--vectorize-shard requires --vectorize K (K > 1)")
-    if args.mesh or args.vectorize_shard:
-        p.error("--mesh and --vectorize-shard are not ported yet: ROADMAP A11c (multi-device HPO)")
+    shape = None
+    if args.mesh:
+        from hhrs_tpu_torch.parallel.mesh import parse_mesh_spec
+
+        try:
+            shape = parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            p.error(str(e))
     if args.reclaim_lanes and args.vectorize <= 1:
         p.error("--reclaim-lanes requires --vectorize K>1 (lanes to reclaim)")
     try:
@@ -218,11 +247,53 @@ def main(argv=None) -> int:
     if args.epochs is not None:
         cfg.train.n_epochs = args.epochs
     args.device = resolve_device(args.device)  # cuda unless asked: without a card, fail before any trial
+    joined = False
+    if (args.mesh or args.vectorize_shard) and not dist.is_initialized():
+        rc = _world(args, argv, shape)
+        if rc is not None:
+            return rc
+        joined = dist.is_initialized()
+    try:
+        return _run(args, cfg, shape)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
+
+def _world(args: argparse.Namespace, argv: list, shape: tuple | None):
+    """Outside a world: join the one the environment configures (→ None, go
+    on as a rank), or launch one on this node (→ rank 0's exit code): the
+    mesh's ranks, or one rank a card for ``--vectorize-shard`` (None, and
+    no world, where that is one rank or the device is the CPU)."""
+    import torch
+
+    from hhrs_tpu_torch.parallel.distributed import initialize_distributed, launch
+
+    if initialize_distributed(device=args.device):
+        return None
+    ranks = shape[0] * shape[1] if shape else torch.cuda.device_count() if args.device.type == "cuda" else 1
+    if ranks == 1 and not shape:
+        return None
+    if args.device.type == "cuda":
+        from hhrs_tpu_torch.ops import cross, cuda_build
+
+        cuda_build.build(cross._LIB_NAME, cross._LIB_SOURCES)  # once, before the ranks start
+    log.info("launching %d ranks on %s for the study", ranks, args.device)
+    # each rank runs this whole command, inside the world
+    return launch(main, ranks, (list(argv),), device=args.device, timeout_s=float("inf"))
+
+
+def _run(args: argparse.Namespace, cfg, shape: tuple | None) -> int:
     from hhrs_tpu_torch.models.dcn import ModelDims
     from hhrs_tpu_torch.train.cli import build_dataset, ensure_synthetic
     from hhrs_tpu_torch.train.trainer import train_dcn
 
+    mesh = None
+    if shape:
+        from hhrs_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(*shape, args.device)
+    leader = not dist.is_initialized() or dist.get_rank() == 0
     ensure_synthetic(args, cfg)
     splits, preproc = build_dataset(args.data, cfg, cache_dir=args.cache_dir)
     dims = ModelDims.from_artifacts(preproc)
@@ -241,6 +312,10 @@ def main(argv=None) -> int:
         pruner = NopPruner()
     kw = {} if pruner is None else {"pruner": pruner}
     study = create_study(args.journal, seed=args.seed, **kw)
+    if dist.is_initialized():
+        if not leader:
+            study.journal_path = None  # the journal is read; from here on rank 0 alone appends
+        dist.barrier()  # every rank has read the journal before rank 0 appends to it
     best_box = {"value": float("inf")}
     for t in study.trials:
         if t["state"] == "complete" and t["value"] is not None:
@@ -257,7 +332,10 @@ def main(argv=None) -> int:
             trial.report(val_loss, epoch)
             return trial.should_prune()
 
-        result = train_dcn(splits, dims, mcfg, tcfg, report_fn=report_fn, device=args.device)
+        result = train_dcn(splits, dims, mcfg, tcfg, mesh=mesh,
+                           explicit_exchange=(cfg.mesh.explicit_exchange or None) if mesh else None,
+                           exchange_capacity_factor=cfg.mesh.exchange_capacity_factor, report_fn=report_fn,
+                           device=args.device)
         if result.pruned:
             raise TrialPruned()
         trial.set_user_attr("val_auc", result.final_metrics["val_auc"])
@@ -280,12 +358,13 @@ def main(argv=None) -> int:
     except ValueError:
         log.warning("no completed trials (all pruned/failed)")
 
-    try:  # the study's plots; matplotlib is optional
-        from hhrs_tpu_torch.hpo.plots import save_study_plots
+    if leader:
+        try:  # the study's plots; matplotlib is optional
+            from hhrs_tpu_torch.hpo.plots import save_study_plots
 
-        save_study_plots(study.trials, args.out)
-    except Exception as e:  # noqa: BLE001 — plotting must never fail the sweep
-        log.warning("study plots skipped: %s", e)
+            save_study_plots(study.trials, args.out)
+        except Exception as e:  # noqa: BLE001 — plotting must never fail the sweep
+            log.warning("study plots skipped: %s", e)
     return 0
 
 

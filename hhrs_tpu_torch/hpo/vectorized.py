@@ -41,6 +41,21 @@ sequential runs at the trajectory bars, not bit for bit.
 Lanes that early-stop or prune keep riding the program, ignored on the
 host, unless ``refill_fn`` reclaims them for new trials of the same
 architecture (fresh init, fresh moments, the lane's own epoch clock).
+
+``shard_lanes`` splits the trial axis over the ranks of the initialized
+``torch.distributed`` world (JAX's 1-D ``("trial",)`` mesh over every
+device): rank r holds lanes ``[r·K/n, (r+1)·K/n)`` and the whole dataset,
+draws the same uniform tensors and shuffle as every other rank (so a
+lane's masks are the unsharded group's), and launches the cross kernels
+under the K-lane group's plans (so a lane's dw and db are summed in the
+unsharded group's order); every per-lane sum is one whose order does not
+depend on K (:class:`LaneHead`, :func:`lane_bce`, the train loss), so a
+rank's lanes are the unsharded group's bit for bit. The host bookkeeping
+of all K lanes runs on every
+rank: one ``all_gather`` an epoch of the lanes' val and train losses, and
+one ``all_gather_object`` of the finished trials' weights and metrics
+wherever lanes finish, so every rank takes the same decisions, asks the
+same refills and returns the same results.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hhrs_tpu_torch.config import ModelConfig, TrainConfig
 from hhrs_tpu_torch.data.preprocess import DatasetSplits
@@ -59,6 +75,7 @@ from hhrs_tpu_torch.device import resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax, jax_from_dcnr
 from hhrs_tpu_torch.models.dcn import DCNR, ModelDims
 from hhrs_tpu_torch.ops.cross import cross_stack_trials
+from hhrs_tpu_torch.parallel.mesh import all_gather
 from hhrs_tpu_torch.retrieval.similarity import require_full_f32_matmul
 from hhrs_tpu_torch.train.metrics import auc_score, bce_with_logits, recall_at_k, rmse_of_probs
 from hhrs_tpu_torch.train.optimizers import PlateauScheduler
@@ -130,11 +147,13 @@ class LaneDCNR:
     ``named_buffers``, stacked ``[K, …]``), run together. ``flat`` holds the
     parameters, ``flat_state`` the BatchNorm running statistics; ``params``
     and ``state`` are their views by the model's names. ``init`` and
-    ``init_state`` keep the one lane they started from, for a refill."""
+    ``init_state`` keep the one lane they started from, for a refill.
+    ``plan_lanes``: the cross kernels launch under the plans of a group of
+    that many lanes (None: K)."""
 
-    def __init__(self, model: DCNR, dims: ModelDims, K: int):
+    def __init__(self, model: DCNR, dims: ModelDims, K: int, plan_lanes: int | None = None):
         cfg = model.cfg
-        self.cfg, self.dims, self.K = cfg, dims, K
+        self.cfg, self.dims, self.K, self.plan_lanes = cfg, dims, K, plan_lanes
         self.has_deep, self.has_cross = model.has_deep, model.has_cross
         self.n_cat = len(model.cat_embeddings)
         self.n_blocks = len(model.res_blocks) if model.has_deep else 0
@@ -206,7 +225,7 @@ class LaneDCNR:
             if compute is not None:
                 x, w, b = x0.to(compute), w.to(compute), b.to(compute)
             towers.append(cross_stack_trials(w.contiguous(), b.contiguous(), x.contiguous(),
-                                             self.cfg.cross_variant))
+                                             self.cfg.cross_variant, self.plan_lanes))
         return self._linear("final", torch.cat(towers, dim=2), compute, None)[:, :, 0]
 
     def _linear(self, name, x, compute, out_dtype):
@@ -215,6 +234,8 @@ class LaneDCNR:
         k = self.params[f"{name}.kernel"]
         if compute is not None:
             x, k = x.to(compute), k.to(compute)
+        if k.shape[2] == 1:  # the head
+            return LaneHead.apply(x.float(), k.float(), self.params[f"{name}.bias"])
         y = torch.bmm(x.float(), k.float()) + self.params[f"{name}.bias"][:, None, :]
         return y if out_dtype is None else y.to(out_dtype)
 
@@ -245,11 +266,36 @@ class LaneDCNR:
         return torch.where(u < keep[0], x / keep[1], torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class LaneHead(torch.autograd.Function):
+    """Every lane's one-output layer, ``x [K, B, F] @ k [K, F, 1] + b [K, 1]``
+    in f32 → ``[K, B, 1]``. The forward is the batched product; the backward
+    sums each lane's kernel and bias gradients over its rows as one
+    reduction of ``[K, B, F + 1]``, as every other layer's bias gradient is
+    summed. The batched product's own backward (a ``[K, F, B] @ [K, B, 1]``
+    product, and a reduction over B of ``K`` outputs for the bias) takes a
+    kernel chosen by K on a card, so a lane's gradient would depend on how
+    many lanes run beside it; this one does not (a rank's lanes of a
+    sharded group are the whole group's)."""
+
+    @staticmethod
+    def forward(ctx, x, k, b):
+        ctx.save_for_backward(x, k)
+        return torch.bmm(x, k) + b[:, None, :]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, k = ctx.saved_tensors
+        g = (torch.cat([x, torch.ones_like(x[:, :, :1])], dim=2) * dy).sum(dim=1)  # [K, F + 1]
+        return dy * k.transpose(1, 2), g[:, :-1, None], g[:, -1:]
+
+
 def lane_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """``train/metrics.py::bce_with_logits`` of each lane: ``[K, B]`` logits,
-    ``[B]`` labels → ``[K]``."""
+    ``[B]`` labels → ``[K]``. Each lane's mean is a reduction of its own row:
+    a card's reduction over ``[K, B]`` splits the rows by K, so a lane's loss
+    would depend on how many lanes run beside it."""
     per_ex = torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
-    return per_ex.mean(dim=1)
+    return torch.stack([row.mean() for row in per_ex])
 
 
 @torch.no_grad()
@@ -339,11 +385,14 @@ def _make_trial_update(optimizer: str):
     return update
 
 
-def _keep(rates: np.ndarray, dtype: torch.dtype, device: torch.device):
+def _keep(rates: np.ndarray, dtype: torch.dtype, device: torch.device, draw: bool | None = None):
     """Per-lane dropout keep probabilities as ``ops/nn.py::dropout`` uses
     them: float32 to compare with the uniform draw, rounded to the
-    activations' dtype to scale by; None when no lane drops anything."""
-    if not (rates > 0).any():
+    activations' dtype to scale by; None when nothing is drawn (``draw``,
+    by default whether any of these lanes drops anything; a rank of a
+    sharded group draws whenever a lane of the whole group does, and a lane
+    at rate 0 keeps every unit of it unscaled)."""
+    if not ((rates > 0).any() if draw is None else draw):
         return None
     keep = [1.0 - float(r) for r in rates]
     shape = (len(keep), 1, 1)
@@ -374,8 +423,10 @@ def run_group(
     initialization of seed ``tcfg.seed`` in every lane, as in ``train_dcn``.
     ``device`` defaults to ``cuda`` and raises without a card.
 
-    ``shard_lanes`` (the trial axis over several devices) is not ported:
-    it raises naming ROADMAP A11c.
+    ``shard_lanes`` splits the trial axis over the ranks of the initialized
+    world (one rank outside one; every rank calls this with the same
+    arguments): K must be a multiple of the world size (``ValueError``, as
+    in JAX). Every rank returns every trial's result.
 
     ``refill_fn`` enables lane reclamation: at each epoch boundary every
     newly-dead lane is finalized and refilled with a freshly asked
@@ -392,12 +443,18 @@ def run_group(
     keys = {arch_key(p) for p in trial_params}
     if len(keys) != 1:
         raise ValueError(f"trials span {len(keys)} architectures; group first")
-    if shard_lanes:
-        raise NotImplementedError("shard_lanes is not ported yet: ROADMAP A11c (multi-device HPO)")
     if tcfg.lazy_table_updates:
         raise ValueError("vectorized HPO does not support lazy_table_updates")
     if tcfg.rng_impl not in RNG_IMPLS:
         raise ValueError(f"unknown train.rng_impl {tcfg.rng_impl!r}")
+    n, rank = 1, 0
+    if shard_lanes:
+        n, rank = lane_world()
+        if K % n:
+            raise ValueError(f"shard_lanes: group size {K} must be a multiple of the device count {n}")
+    Kr = K // n  # this rank's lanes: [lo, lo + Kr)
+    lo = rank * Kr
+    mine = slice(lo, lo + Kr)
     report_fns = list(report_fns or [None] * K)
     dev = resolve_device(device)
     require_full_f32_matmul(dev)
@@ -412,13 +469,13 @@ def run_group(
         model = dcnr_from_jax(*init_state, dims, mcfg, dev, train=True)
     else:
         model = DCNR(dims, mcfg, generator=torch.Generator().manual_seed(tcfg.seed)).to(dev)
-    lane = LaneDCNR(model, dims, K)
+    lane = LaneDCNR(model, dims, Kr, plan_lanes=K if n > 1 else None)
     del model
     optimizer = str(trial_params[0]["optimizer"])
     update = _make_trial_update(optimizer)
-    opt = LaneAdam(lane.flat, lrs, wds, decoupled=optimizer == "adamw")
+    opt = LaneAdam(lane.flat, lrs[mine], wds[mine], decoupled=optimizer == "adamw")
     act_dtype = _DTYPES[mcfg.storage_dtype] or torch.float32
-    keep = _keep(drs, act_dtype, dev)
+    keep = _keep(drs[mine], act_dtype, dev, draw=bool((drs > 0).any()))
     dropout_gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
 
     train_data = split_tensors(splits, "train", dev)
@@ -451,17 +508,27 @@ def run_group(
             "val_recall_at_100": recall_at_k(splits.val_user, y_val, lk, 100),
         }
 
-    def finalize_lane(k: int, lk: np.ndarray | None = None) -> None:
-        """Final metrics and weights of lane k's trial from its best state.
-        Pruned lanes are skipped: the driver discards them."""
-        r = results[lane_result[k]]
-        if r.pruned:
-            return
-        model_k = lane.lane_model(k, *best)
-        r.params, r.bn_state = jax_from_dcnr(model_k)
-        if lk is None:  # one lane, alone: the single-trial eval
-            lk = eval_logits(model_k, val_data, tcfg.eval_batch_size).cpu().numpy()
-        r.final_metrics = metrics_of(lk)
+    def finalize_lanes(ks: list, logits: np.ndarray | None = None) -> None:
+        """Final metrics and weights of lanes ``ks``' trials from their best
+        states: this rank finalizes its own lanes (``logits``: its lanes' val
+        logits, else each lane alone through the single-trial eval), then
+        every rank gets every one. Pruned lanes are skipped: the HPO CLI
+        discards them."""
+        done = {}
+        for k in ks:
+            if results[lane_result[k]].pruned or not lo <= k < lo + Kr:
+                continue
+            model_k = lane.lane_model(k - lo, *best)
+            params, bn_state = jax_from_dcnr(model_k)
+            lk = (logits[k - lo] if logits is not None
+                  else eval_logits(model_k, val_data, tcfg.eval_batch_size).cpu().numpy())
+            done[lane_result[k]] = (params, bn_state, metrics_of(lk))
+        if n > 1:
+            every = [None] * n
+            dist.all_gather_object(every, done)
+            done = {i: v for part in every for i, v in part.items()}
+        for i, (params, bn_state, metrics) in done.items():
+            results[i].params, results[i].bn_state, results[i].final_metrics = params, bn_state, metrics
 
     while active.any():
         t_epoch = time.perf_counter()
@@ -473,9 +540,12 @@ def run_group(
         for s in range(steps_per_epoch):
             idx = perm[s * B:(s + 1) * B]
             losses.append(update(lane, opt, {k: v[idx] for k, v in train_data.items()}, keep, dropout_gen))
-        mean_train = torch.stack(losses).mean(dim=0)
+        mean_train = sum(losses[1:], losses[0]) / len(losses)  # lane by lane, in step order, whatever K is
         val_losses = lane_bce(lane_eval_logits(lane, val_data, tcfg.eval_batch_size), val_data["y"])
-        val_losses, train_losses = (np.asarray(x, np.float64) for x in torch.stack([val_losses, mean_train]).tolist())
+        both = torch.stack([val_losses, mean_train], dim=1)  # [Kr, 2]
+        if n > 1:
+            both = all_gather(both).flatten(0, 1)  # every lane's, in lane order
+        val_losses, train_losses = (np.asarray(x, np.float64) for x in both.T.tolist())
 
         improved = np.zeros(K, bool)
         for k in range(K):
@@ -503,11 +573,11 @@ def run_group(
                 log.info("vectorized trial lane %d early-stopped at epoch %d", k, age + 1)
             elif ages[k] >= tcfg.n_epochs:
                 active[k] = False  # trial completed its epoch budget
-        opt.set_lanes(lrs)
+        opt.set_lanes(lrs[mine])
 
-        if improved.any():
+        if improved[mine].any():
             with torch.no_grad():
-                mask = torch.as_tensor(improved, device=dev)[:, None]
+                mask = torch.as_tensor(improved[mine], device=dev)[:, None]
                 best = (torch.where(mask, lane.flat, best[0]), torch.where(mask, lane.flat_state, best[1]))
 
         if first_epoch_time is None:  # the first epoch warms up (builds the kernels, plans)
@@ -520,10 +590,10 @@ def run_group(
         # an unrefilled lane goes dormant. Without refill_fn the dead lanes
         # finalize once, after the loop.
         if refill_fn is not None:
-            for k in range(K):
-                if active[k] or lane_result[k] is None:
-                    continue
-                finalize_lane(k)
+            dead = [k for k in range(K) if not active[k] and lane_result[k] is not None]
+            if dead:
+                finalize_lanes(dead)
+            for k in dead:
                 ask = refill_fn()
                 if ask is None:
                     lane_result[k] = None  # dormant: budget exhausted
@@ -543,25 +613,25 @@ def run_group(
                 results.append(VTrialResult(params=None, bn_state=None))
                 lane_result[k] = len(results) - 1
                 active[k] = True
-                lane.reset_lane(k)
-                opt.reset_lane(k)
-                opt.set_lanes(lrs, wds)
-                keep = _keep(drs, act_dtype, dev)
-                with torch.no_grad():
-                    best[0][k].copy_(lane.init)
-                    best[1][k].copy_(lane.init_state)
+                opt.set_lanes(lrs[mine], wds[mine])
+                keep = _keep(drs[mine], act_dtype, dev, draw=bool((drs > 0).any()))
+                if lo <= k < lo + Kr:
+                    lane.reset_lane(k - lo)
+                    opt.reset_lane(k - lo)
+                    with torch.no_grad():
+                        best[0][k - lo].copy_(lane.init)
+                        best[1][k - lo].copy_(lane.init_state)
                 log.info("vectorized lane %d reclaimed for a new trial", k)
 
     # Lanes not finalized above: every lane of a group without refill_fn.
-    # They share ONE K-lane eval of their best states and one copy back.
+    # Each rank's lanes share ONE eval of their best states and one copy back.
     pending = [k for k in range(K) if lane_result[k] is not None]
     if pending:
         with torch.no_grad():
             lane.flat.copy_(best[0])
             lane.flat_state.copy_(best[1])
-        vlogits = lane_eval_logits(lane, val_data, tcfg.eval_batch_size).cpu().numpy()
+        finalize_lanes(pending, logits=lane_eval_logits(lane, val_data, tcfg.eval_batch_size).cpu().numpy())
         for k in pending:
-            finalize_lane(k, lk=vlogits[k])
             lane_result[k] = None
 
     rate = 0.0
@@ -574,3 +644,11 @@ def run_group(
         r.examples_per_s = rate
         r.group_examples_per_s = rate * K
     return results
+
+
+def lane_world() -> tuple[int, int]:
+    """``(ranks, this rank)`` of the world a sharded group splits its lanes
+    over: the initialized ``torch.distributed`` world, or this process alone."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0

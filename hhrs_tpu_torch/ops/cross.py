@@ -864,12 +864,15 @@ class CrossStackTrialsFn(torch.autograd.Function):
     not differentiable again (an HPO step takes first derivatives only)."""
 
     @staticmethod
-    def forward(ctx, w, b, x0, variant):
-        ctx.variant = variant
+    def forward(ctx, w, b, x0, variant, plan_lanes=None):
+        ctx.variant, ctx.plan_lanes = variant, plan_lanes
         ctx.save_for_backward(w, b, x0)
         if x0.is_cuda:
             _check_trial_inputs({"x0": x0, "w": w, "b": b}, variant)
-            return _forward_trials(w, b, x0, variant == "canonical", None)
+            plan = None
+            if plan_lanes is not None:
+                plan = _fwd_trial_plan(max(x0.shape[1], 1), plan_lanes, x0.get_device(), x0.shape[2], x0.dtype)
+            return _forward_trials(w, b, x0, variant == "canonical", plan)
         return cross_stack_apply_trials(w, b, x0, variant)
 
     @staticmethod
@@ -881,19 +884,26 @@ class CrossStackTrialsFn(torch.autograd.Function):
             if dy.dtype != x0.dtype or dy.shape != x0.shape or dy.device != x0.device:
                 raise ValueError(f"dy must be {x0.dtype} {tuple(x0.shape)} on {x0.device}, got "
                                  f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
-            dx0, dw, db = _backward_trials(w, b, x0, dy, ctx.variant == "canonical", None)
+            plan = None
+            if ctx.plan_lanes is not None:
+                plan = _trial_plan(max(x0.shape[1], 1), ctx.plan_lanes, x0.get_device(), x0.shape[2], x0.dtype)
+            dx0, dw, db = _backward_trials(w, b, x0, dy, ctx.variant == "canonical", plan)
         else:
             dx0, dw, db = cross_stack_backward_ref_trials(w, b, x0, dy, ctx.variant)
-        return dw, db, dx0, None
+        return dw, db, dx0, None, None
 
 
-def cross_stack_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str) -> torch.Tensor:
+def cross_stack_trials(w: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, variant: str,
+                       plan_lanes: int | None = None) -> torch.Tensor:
     """The trial-axis stack as the K-lane model runs it: autograd through
     :func:`cross_stack_apply_trials` on CPU tensors (each lane the
     single-trial model's plain stack); :class:`CrossStackTrialsFn` (the
-    kernels) on CUDA tensors."""
+    kernels) on CUDA tensors. ``plan_lanes``: launch under the plans of a
+    group of that many lanes (:func:`fwd_trial_plan_of`, :func:`trial_plan_of`
+    at K = ``plan_lanes``) instead of this call's K, so a lane's dw and db
+    are summed in that group's order (a rank's share of a sharded group)."""
     if x0.is_cuda:
-        return CrossStackTrialsFn.apply(w, b, x0, variant)
+        return CrossStackTrialsFn.apply(w, b, x0, variant, plan_lanes)
     if x0.device.type != "cpu":
         raise ValueError(f"cross_stack_trials runs on cpu or cuda tensors, got {x0.device}")
     return cross_stack_apply_trials(w, b, x0, variant)

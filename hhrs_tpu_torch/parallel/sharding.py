@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from hhrs_tpu_torch.parallel.mesh import all_gather, axis_group, axis_rank, axis_size
-from hhrs_tpu_torch.train.lazy import table_names
+from hhrs_tpu_torch.train.lazy import LazyTableOptimizer, table_names
 
 TABLE_KEYS = ("user_embedding", "item_embedding", "cat_embeddings")
 
@@ -139,8 +139,14 @@ def _table_params(model: nn.Module, opt) -> dict:
 
 def gathered_optimizer_state(model: nn.Module, opt) -> dict:
     """``opt.state_dict()`` with each row-sharded table's moments gathered
-    over the ``model`` axis: the single-device optimizer's state dict.
-    Every rank joins and gets it."""
+    over the ``model`` axis: the single-device optimizer's state dict (for
+    a ``LazyTableOptimizer``: its dense optimizer's, and the row moments
+    ``m``, ``v`` of each row-sharded table gathered). Every rank joins and
+    gets it."""
+    if isinstance(opt, LazyTableOptimizer):
+        sd = opt.state_dict()
+        return {**sd, "dense": gathered_optimizer_state(model, opt.dense),
+                "m": gathered_state_dict(model, sd["m"]), "v": gathered_state_dict(model, sd["v"])}
     sd = opt.state_dict()
     layout = model.layout
     for i, name in _table_params(model, opt).items():
@@ -154,6 +160,9 @@ def gathered_optimizer_state(model: nn.Module, opt) -> dict:
 def sharded_optimizer_state(model: nn.Module, opt, whole: dict) -> dict:
     """This rank's slice of a whole optimizer state dict, for
     ``opt.load_state_dict``."""
+    if isinstance(opt, LazyTableOptimizer):
+        return {**whole, "dense": sharded_optimizer_state(model, opt.dense, whole["dense"]),
+                "m": sharded_state_dict(model, whole["m"]), "v": sharded_state_dict(model, whole["v"])}
     layout = model.layout
     state = dict(whole["state"])
     for i, name in _table_params(model, opt).items():

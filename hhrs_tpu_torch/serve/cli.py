@@ -27,7 +27,8 @@ follow it. SIGTERM or Ctrl-C to the launching process stops every rank. A
 device call that fails part way ends rank 0 (exit code 1), and with it the
 world: the launch raises, or torchrun stops the other ranks.
 ``--mesh`` with ``--shadow``, ``--canary`` or a hot-reload poller raises
-``NotImplementedError`` (ROADMAP A11c).
+``NotImplementedError`` (ROADMAP A11c's serving half: those stacks under a
+mesh).
 """
 
 from __future__ import annotations
@@ -110,7 +111,8 @@ def _refuse_unported(args: argparse.Namespace, data_poll_s: float | None = None)
     data_poll_s = args.data_poll_s if data_poll_s is None else data_poll_s
     if args.mesh and (args.shadow or args.canary or args.reload_poll_s > 0 or (data_poll_s or 0) > 0):
         raise NotImplementedError("--mesh with --shadow, --canary, --reload-poll-s or --data-poll-s is not "
-                                  "ported yet: ROADMAP A11c (their stacks under a mesh)")
+                                  "ported yet: ROADMAP A11c, its serving half (the shadow, canary and hot-reload "
+                                  "stacks under a mesh)")
 
 
 @dataclasses.dataclass

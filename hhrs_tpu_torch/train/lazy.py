@@ -35,6 +35,11 @@ torch's operations in torch's order (decay ``p·(1 − lr·wd)``, ``lerp`` for
 m, ``mul`` + ``addcmul`` for v, ``addcdiv`` with the same bias-correction
 expressions), not the JAX formula. With ``capturable`` (a CUDA graph) the
 step count and the LR are tensors on the card.
+
+On a training mesh (``parallel/trainer.py::make_lazy_mesh_step``) each rank
+runs the step on its ``B/D`` rows; the row step takes the whole global
+batch's ids and gradient rows, gathered over the ``data`` axis, and each
+model rank steps only the rows of its table shards.
 """
 
 from __future__ import annotations
@@ -146,22 +151,44 @@ class LazyTableOptimizer:
             self.v[k].copy_(state["v"][k])
         self.count.copy_(state["count"])
 
+    def step_rows(self, ids: list, g_rows: list, layout=None) -> None:
+        """The tables' touched-row step, after the dense optimizer's: one
+        more global step, each table's ``ids [n]`` with their gradient rows
+        ``[n, D_t]`` (in ``names`` order). On a mesh (``layout``) the ids and
+        rows are the whole global batch's; a row-sharded table steps only
+        the ids its shard owns, as shard-local rows, in batch order, so its
+        rows get the single-device table's sums and no other row is
+        written."""
+        tables = dict(self.model.named_parameters())
+        self.count.add_(1)
+        step = self.count if self.capturable else self.count.item()
+        lr = self.param_groups[0]["lr"]
+        with torch.no_grad():
+            for k, i, g in zip(self.names, ids, g_rows):
+                if layout is not None and k in layout.sharded:
+                    rows = layout.rows(k)
+                    mine = (i >= rows.start) & (i < rows.stop)
+                    i, g = i[mine] - rows.start, g[mine]
+                    if i.numel() == 0:
+                        continue
+                row_adam_(tables[k].data, self.m[k], self.v[k], i, g, step, lr, self.weight_decay, self.decoupled)
+
+
+def table_ids(model: DCNR, batch: dict) -> list:
+    """The ids of ``batch`` into each table, in :func:`table_names` order."""
+    return [batch["user"], batch["item"]] + [batch["cat"][:, i] for i in range(len(model.cat_embeddings))]
+
 
 def lazy_train_step(model: DCNR, opt: LazyTableOptimizer, batch: dict,
                     generator: torch.Generator | None) -> torch.Tensor:
     """One training step with lazy table updates → the detached loss."""
     tables = dict(model.named_parameters())
-    ids = [batch["user"], batch["item"]] + [batch["cat"][:, i] for i in range(len(model.cat_embeddings))]
+    ids = table_ids(model, batch)
     rows = [tables[k].detach()[i].requires_grad_() for k, i in zip(opt.names, ids)]
     x0 = torch.cat([*rows, batch["num"]], dim=1)
     loss = bce_with_logits(apply_dcn_from_x0(model, x0, generator), batch["y"])
     opt.dense.zero_grad(set_to_none=True)
     loss.backward()
     opt.dense.step()
-    opt.count.add_(1)
-    step = opt.count if opt.capturable else opt.count.item()
-    lr = opt.param_groups[0]["lr"]
-    with torch.no_grad():
-        for k, i, r in zip(opt.names, ids, rows):
-            row_adam_(tables[k].data, opt.m[k], opt.v[k], i, r.grad, step, lr, opt.weight_decay, opt.decoupled)
+    opt.step_rows(ids, [r.grad for r in rows])
     return loss.detach()

@@ -52,7 +52,8 @@ best state by val loss, and a per-epoch prune hook for HPO. Mechanics:
 * with ``mesh`` (the JAX trainer's mesh mode) every rank trains on its
   rows of each batch through ``parallel/trainer.py``'s step: the tables
   row-sharded over ``model``, BatchNorm synced and gradients summed over
-  ``data``, the same batches and dropout masks as one device; the val
+  ``data``, the same batches and dropout masks as one device (lazy table
+  updates and slab streaming too); the val
   logits are gathered, so every rank takes the same decisions, and
   checkpoints and ``params`` are gathered, in the single-device format.
 """
@@ -69,7 +70,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from hhrs_tpu_torch.config import ModelConfig, TrainConfig, unported_mesh_train_options
+from hhrs_tpu_torch.config import ModelConfig, TrainConfig
 from hhrs_tpu_torch.data.preprocess import DatasetSplits
 from hhrs_tpu_torch.device import capture_stream, resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax, jax_from_dcnr
@@ -172,6 +173,11 @@ class SlabStream:
     out-of-core branch). :meth:`epoch` yields the slabs in order, each
     ready to read on the current stream.
 
+    On a mesh (``layout``) a slab holds this rank's rows of each of its
+    batches, ``[k, B/D, ·]``, cut as ``parallel/multiprocess.py::
+    epoch_rows`` cuts an epoch; each rank has its own staging buffers and
+    copy stream.
+
     On a card each slab is gathered on the host into one of two pinned
     staging buffers and copied on a copy stream of its own; slab ``j + 1``
     is gathered and copied after slab ``j``'s steps are enqueued, so its
@@ -183,14 +189,16 @@ class SlabStream:
     into tensors, with no streams. Either way a slab's step ``s`` holds the
     rows and dtypes the resident path gathers for that step."""
 
-    def __init__(self, splits: DatasetSplits, batch_size: int, slab_steps: int, device: torch.device):
+    def __init__(self, splits: DatasetSplits, batch_size: int, slab_steps: int, device: torch.device,
+                 layout=None):
         self.host = {name: getattr(splits, f"train_{name}") for name in SPLIT_DTYPES}
-        self.B, self.K, self.device = batch_size, slab_steps, device
+        self.B, self.K, self.device, self.layout = batch_size, slab_steps, device, layout
+        self.n = batch_size if layout is None else batch_size // layout.data_size  # a rank's rows of a batch
         self.on_card = device.type == "cuda"
         if self.on_card:
             self.copy_stream = torch.cuda.Stream(device)
             self.staging = [
-                {name: torch.empty((slab_steps * batch_size, *a.shape[1:]), dtype=SPLIT_DTYPES[name],
+                {name: torch.empty((slab_steps * self.n, *a.shape[1:]), dtype=SPLIT_DTYPES[name],
                                    pin_memory=True) for name, a in self.host.items()}
                 for _ in range(2)]
             self.copied = [None, None]  # the event of each staging buffer's last copy
@@ -198,7 +206,9 @@ class SlabStream:
     def _upload(self, perm: np.ndarray, j: int, steps: int):
         i0, i1 = j * self.K, min((j + 1) * self.K, steps)
         rows = perm[i0 * self.B:i1 * self.B]
-        shape = lambda a: (i1 - i0, self.B, *a.shape[1:])  # noqa: E731
+        if self.layout is not None:
+            rows = epoch_rows(rows, i1 - i0, self.B, self.layout).reshape(-1)
+        shape = lambda a: (i1 - i0, self.n, *a.shape[1:])  # noqa: E731
         if not self.on_card:
             return {name: torch.as_tensor(np.asarray(a[rows]), dtype=SPLIT_DTYPES[name]).reshape(shape(a))
                     for name, a in self.host.items()}, None
@@ -365,7 +375,12 @@ def train_dcn(
     ``exchange_overflow``. The best state stays on the shards; checkpoints
     and the result's ``params`` are gathered, in the single-device format,
     and only rank 0 writes. There is no fused epoch on a mesh, as in the
-    JAX trainer."""
+    JAX trainer. ``train.lazy_table_updates`` runs on a mesh through the
+    psum exchange (``parallel/trainer.py::make_lazy_mesh_step``; an explicit
+    exchange with it raises ``ValueError``, as in JAX), its row moments
+    gathered into checkpoints; ``train.stream_slab_steps`` uploads each
+    rank's rows of every slab (and wins over ``mesh_resident_data``, as the
+    JAX trainer's slab branch does)."""
     if explicit_exchange and mesh is None:
         raise ValueError("train.explicit_exchange requires --mesh")
     if explicit_exchange not in (None, "", "all_to_all", "psum", "capped"):
@@ -375,8 +390,9 @@ def train_dcn(
         raise ValueError("train.fused_epoch and train.stream_slab_steps are mutually exclusive: a fused epoch "
                          "scans a device-resident dataset, slab streaming exists so the dataset is NOT "
                          "device-resident")
-    if mesh is not None:
-        unported_mesh_train_options(train_cfg)
+    if mesh is not None and train_cfg.lazy_table_updates and explicit_exchange:
+        raise ValueError("train.lazy_table_updates and mesh.explicit_exchange are mutually exclusive (lazy "
+                         "differentiates w.r.t. gathered rows; the exchange differentiates w.r.t. sharded tables)")
     if train_cfg.rng_impl not in RNG_IMPLS:
         raise ValueError(f"unknown train.rng_impl {train_cfg.rng_impl!r}; expected 'threefry2x32' or 'rbg'")
     if train_cfg.eval_every < 1:
@@ -403,7 +419,7 @@ def train_dcn(
     dropout_gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
     slabs = train_data = None
     if train_cfg.stream_slab_steps > 0:  # the train split stays on the host
-        slabs = SlabStream(splits, B, train_cfg.stream_slab_steps, dev)
+        slabs = SlabStream(splits, B, train_cfg.stream_slab_steps, dev, layout)
     elif layout is None or train_cfg.mesh_resident_data:
         train_data = split_tensors(splits, "train", dev)
     # else a mesh streams: each epoch uploads this rank's rows of its batches

@@ -12,6 +12,7 @@ import io
 import json
 import os
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -85,34 +86,40 @@ def test_unknown_preset_and_bad_token_fail_as_jax_does():
 
 def test_mesh_fields_are_refused_naming_a11(tmp_path, monkeypatch):
     """The ``mesh.*`` fields and ``--mesh`` / ``--distributed`` are accepted
-    and reach ``train_dcn``; only the trainer options a mesh does not run
-    yet are refused, naming ROADMAP A11b2."""
+    and reach ``train_dcn``, the trainer options with them: the config
+    refuses none of them on a mesh (lazy table updates and slab streaming
+    run there) and names no ROADMAP item."""
     cfg = config.build_config(["mesh.data_axis=2", "mesh.explicit_exchange=capped",
-                               "mesh.exchange_capacity_factor=1.5"], environ={})
+                               "mesh.exchange_capacity_factor=1.5", "train.lazy_table_updates=true",
+                               "train.stream_slab_steps=4"], environ={})
     assert (cfg.mesh.data_axis, cfg.mesh.explicit_exchange, cfg.mesh.exchange_capacity_factor) == (2, "capped", 1.5)
-    config.unported_mesh_train_options(config.TrainConfig())  # the defaults pass
-    for option in ({"lazy_table_updates": True}, {"stream_slab_steps": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11b2"):
-            config.unported_mesh_train_options(config.TrainConfig(**option))
+    assert cfg.train.lazy_table_updates and cfg.train.stream_slab_steps == 4
+    assert not hasattr(config, "unported_mesh_train_options")
+    assert "A11" not in Path(config.__file__).read_text()
     seen = []
 
     class Reached(Exception):
         pass
 
+    seen_args = []
+
     def fake_train_dcn(*args, **kwargs):
         seen.append(kwargs)
+        seen_args.append(args)
         raise Reached
 
     monkeypatch.setattr(cli, "train_dcn", fake_train_dcn)
     data = str(tmp_path / "data")
     base = ["--data", data, "--synthetic", "--synth-users", "40", "--synth-items", "12", "--synth-reviews", "600",
-            "--device", "cpu", "--out", str(tmp_path / "out"), "mesh.explicit_exchange=all_to_all"]
+            "--device", "cpu", "--out", str(tmp_path / "out"), "mesh.explicit_exchange=all_to_all",
+            "train.stream_slab_steps=4"]
     with one_rank_world(str(tmp_path)):
         for flags in (["--mesh", "1x1"], ["--distributed"]):
             with pytest.raises(Reached):
                 cli.main([*base, *flags])
     assert [tuple(k["mesh"].shape) for k in seen] == [(1, 1), (1, 1)]
     assert all(k["explicit_exchange"] == "all_to_all" and k["exchange_capacity_factor"] == 1.25 for k in seen)
+    assert [a[3].stream_slab_steps for a in seen_args] == [4, 4]
 
 
 def _flags(main, argv_prefix=()) -> set:

@@ -442,11 +442,17 @@ def test_group_rejects_mixed_architectures_and_a_foreign_refill(port_data):
 
 
 def test_unported_group_options_raise(port_data):
+    """``shard_lanes`` runs: outside a world this process is the one rank, and
+    the group is the unsharded one bit for bit (the 2- and 4-rank worlds are
+    ``tests/test_torch_port_mesh_hpo.py``'s); ``lazy_table_updates`` stays
+    refused in groups, as in JAX."""
     splits, dims = port_data
     mkw, tkw = _cfgs(_trial(1e-3, 1e-5, 0.2), n_epochs=1)
-    trials = [_trial(1e-3, 1e-5, 0.2)] * 2
-    with pytest.raises(NotImplementedError, match="A11"):
-        run_group(splits, dims, ModelConfig(**mkw), TrainConfig(**tkw), trials, shard_lanes=True, device="cpu")
+    trials = [_trial(1e-3, 1e-5, 0.2), _trial(2e-3, 1e-5, 0.3)]
+    sharded = run_group(splits, dims, ModelConfig(**mkw), TrainConfig(**tkw), trials, shard_lanes=True, device="cpu")
+    whole = run_group(splits, dims, ModelConfig(**mkw), TrainConfig(**tkw), trials, device="cpu")
+    for a, b in zip(sharded, whole):
+        assert a.history == b.history and a.final_metrics == b.final_metrics
     with pytest.raises(ValueError, match="lazy_table_updates"):
         run_group(splits, dims, ModelConfig(**mkw), TrainConfig(**tkw, lazy_table_updates=True), trials,
                   device="cpu")
@@ -480,10 +486,18 @@ def test_cli_runs_on_the_cpu(data_dir, tmp_path, mode):
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "2x1"], ["--vectorize", "2", "--vectorize-shard"]])
-def test_cli_refuses_multi_device_flags_naming_a11(tmp_path, flags, capsys):
-    with pytest.raises(SystemExit):
-        hpo_cli.main(["--data", str(tmp_path), "--device", "cpu", *flags])
-    assert "A11" in capsys.readouterr().err
+def test_cli_refuses_multi_device_flags_naming_a11(data_dir, tmp_path, flags, capsys):
+    """The multi-device flags run (once refused naming ROADMAP A11c):
+    ``--mesh 2x1`` launches a world of 2 CPU ranks, ``--vectorize-shard``
+    on the CPU runs its one rank here; each writes one journal of its
+    trials, and no usage error names A11."""
+    journal = tmp_path / "j.jsonl"
+    rc = hpo_cli.main(["--data", data_dir, "--device", "cpu", "--trials", "2", "--epochs", "1", "--journal",
+                       str(journal), "--out", str(tmp_path / "best"), *flags, "train.eval_batch_size=512"])
+    assert rc == 0 and "A11" not in capsys.readouterr().err
+    records = [json.loads(line) for line in journal.read_text().splitlines()]
+    assert [r["number"] for r in records] == [0, 1]
+    assert (tmp_path / "best" / "manifest.json").exists()
 
 
 def test_cli_and_group_without_a_card_raise(port_data, data_dir, tmp_path, monkeypatch):

@@ -67,6 +67,7 @@ from hhrs_tpu_torch.models.dcn import ModelDims
 from hhrs_tpu_torch.ops.nn import BatchNorm
 from hhrs_tpu_torch.parallel import distributed
 from hhrs_tpu_torch.parallel.embedding import pad_table
+from hhrs_tpu_torch.parallel.mesh import make_mesh
 from hhrs_tpu_torch.parallel.sharding import param_shardings
 from hhrs_tpu_torch.train import cli
 from hhrs_tpu_torch.train.artifacts import export_artifacts
@@ -74,7 +75,7 @@ from hhrs_tpu_torch.train.eval_retrieval import catalog_recall_at_k
 from hhrs_tpu_torch.train.trainer import train_dcn
 from tests.test_torch_port_model import one_torch_thread  # noqa: F401 — module fixture
 from tests.test_torch_port_train import jax_splits, port_splits
-from tests.torch_port_mesh_train_world import mesh_train_checks
+from tests.torch_port_mesh_train_world import mesh_train_checks, one_rank_world
 
 REPO = Path(__file__).resolve().parents[1]
 SHAPES = ((2, 1), (1, 2), (2, 2))
@@ -412,9 +413,19 @@ def test_refusals_match_jax(problem, eight_devices):
 @pytest.mark.parametrize("option", [{"lazy_table_updates": True}, {"stream_slab_steps": 2}],
                          ids=["lazy_table_updates", "stream_slab_steps"])
 def test_a11b2_options_are_refused_on_a_mesh(problem, option):
-    tcfg = TrainConfig(**{**TCFG, **option})
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b2"):
-        train_dcn(problem.splits, problem.dims, ModelConfig(**MCFG), tcfg, mesh=_Mesh(2, 2), device="cpu")
+    """The options once refused on a mesh (ROADMAP A11b2) run there: on a
+    1x1 mesh over a world of this process, bit for bit the single-device run
+    with the same option (one epoch); the 2-rank meshes are
+    ``tests/test_torch_port_mesh_lazy.py``'s."""
+    tcfg = TrainConfig(**{**TCFG, **option, "n_epochs": 1})
+    run = lambda mesh: train_dcn(problem.splits, problem.dims, ModelConfig(**MCFG), tcfg, mesh=mesh,  # noqa: E731
+                                 init_state=problem.spec["init"], device="cpu")
+    with one_rank_world(str(problem.tmp)):
+        got = run(make_mesh(1, 1, "cpu"))
+    want = run(None)
+    assert got.history == want.history and got.final_metrics == want.final_metrics
+    for k, v in flatten_tree(want.params).items():
+        np.testing.assert_array_equal(flatten_tree(got.params)[k], v, err_msg=k)
 
 
 # ---- the CLI ------------------------------------------------------------------- #
