@@ -6,7 +6,8 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --mesh-tuning`` runs phases 14d, 14e and 15 alone,
-after the references they read.)
+after the references they read; ``--mesh-serving`` runs phases 4 and 13
+alone, after the kernels' build.)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -217,7 +218,28 @@ Phases (any failure exits non-zero and prints no result line):
    one-request batch p50 (ranks that share one card: not a multi-GPU
    speed); (d) ``python -m hhrs_tpu_torch.serve.cli --mesh 2`` boots,
    answers ``/healthz`` and one ``POST /recommendations`` equal to the
-   single-device answer, and leaves no rank after SIGTERM. Each world's
+   single-device answer, and leaves no rank after SIGTERM; (e) the serving
+   stacks over a mesh, with a canary at 0.5, a shadow and the registry's
+   second model (hpo_r5 with seeded noise): (i) the CLI's stack
+   (``build_stack``: batcher, both pollers, canary, shadow) over a world of
+   one rank on NCCL in this process, graphed: the golden sweep through it
+   under the serve-correct rule (a canary-slice body equal to the
+   candidate's single-device answer), 8 clients through a server of it
+   while a registry swap and three data swaps land, every answer 200, after
+   the registry swap bodies equal to the new model's single-device answers,
+   card memory after the data swaps within 8 MiB of that after the registry
+   swap, the shadow's and the canary's stats in ``/healthz``; (ii)
+   ``python -m hhrs_tpu_torch.serve.cli --mesh 2 --device cuda`` (2 gloo
+   ranks sharing the card) with all four flags, the batcher at 2 ms / 8 and
+   ``--warm-http-batch``: 16 clients through a registry swap and two data
+   swaps, every answer 200, bodies under the serve-correct rule against the
+   single-device engines of each arm after the swaps, ``hot_swaps`` 3, each
+   rank's memory within 8 MiB across the data swaps, a broken artifact's
+   activation refused on both ranks, SIGTERM ending every rank with exit
+   code 0 within 30 s. Per rank and engine: each build's
+   tower held to ``tower_eval_ref`` on its rows at ``TOL`` (the world's
+   COMMIT check), the tower launches of its device calls, swap seconds, the
+   longest request latency during each swap, card memory. Each world's
    backend and whether it ran graphed are printed;
 14. training over a device mesh (``train_dcn``'s ``mesh``; ``parallel/``):
    (a) a world of one rank on NCCL in this process: the golden parity run
@@ -1725,16 +1747,18 @@ def http_phase(golden: dict, trained_dir: str, dev, card: str) -> dict:
         del engine, bare
 
         # A registry hot swap and three data swaps under traffic.
-        stop, statuses = threading.Event(), []
+        stop, statuses, timed, windows = threading.Event(), [], [], []
 
         def traffic(c: int) -> None:
             cl, k = _Client(port["batched"]), 0
             while not stop.is_set():
+                t = time.perf_counter()
                 if c == 7:
                     status, _ = cl.call("GET", f"/similar_items?item_id={golden['similar'][0][0]}&n=10")
                 else:
                     status, _ = cl.call("POST", "/recommendations", _payload(reqs[(c * 17 + k) % n_req]))
                 statuses.append(status)
+                timed.append((t, time.perf_counter(), status))
                 k += 1
             cl.close()
 
@@ -1746,6 +1770,7 @@ def http_phase(golden: dict, trained_dir: str, dev, card: str) -> dict:
                 t0 = time.perf_counter()
                 if not stack.reloader.check_once():
                     raise SmokeFailure("the registry poller did not swap in the newly activated model")
+                windows.append((t0, time.perf_counter()))
                 swap_s = [time.perf_counter() - t0]
                 time.sleep(0.3)
                 new_engine = stack.engine.current._engine
@@ -1770,6 +1795,7 @@ def http_phase(golden: dict, trained_dir: str, dev, card: str) -> dict:
                     t0 = time.perf_counter()
                     if stack.data_reloader.check_once() or not stack.data_reloader.check_once():
                         raise SmokeFailure(f"data swap {n + 1} did not debounce once and then swap")
+                    windows.append((t0, time.perf_counter()))
                     swap_s.append(time.perf_counter() - t0)
                     if on_card:
                         streams.append(stack.engine.current._engine._graph_stream.cuda_stream)
@@ -1783,7 +1809,9 @@ def http_phase(golden: dict, trained_dir: str, dev, card: str) -> dict:
         bad = [s for s in statuses if s != 200]
         print(f"[http] hot swaps under 8 clients (7 POST /recommendations, 1 GET /similar_items): "
               f"{len(statuses)} requests, {len(bad)} not 200; the registry swap took {swap_s[0]:.2f} s and each "
-              f"data swap {', '.join(f'{x:.2f}' for x in swap_s[1:])} s (build, capture, swap); after the registry "
+              f"data swap {', '.join(f'{x:.2f}' for x in swap_s[1:])} s (build, capture, swap; the longest request "
+              f"latency during each {', '.join(f'{_longest_ms(timed, a, b):.1f}' for a, b in windows)} ms); after "
+              f"the registry "
               f"swap POST /recommendations equals the new engine's direct answers; live engine buckets "
               f"{sorted(live._buckets)}, serving {live.gen.universe.n_users} users")
         print(f"[http] card memory allocated: {mem0 / 2**20:.1f} MiB before the stack, {mem1 / 2**20:.1f} MiB with "
@@ -1805,7 +1833,8 @@ def http_phase(golden: dict, trained_dir: str, dev, card: str) -> dict:
               f"{time.perf_counter() - t_phase:.1f} s")
         return {"launches": launches, "timings": timings, "memory_mib": {
             "before": mem0 / 2**20, "stack": mem1 / 2**20, "after_registry_swap": mem_swap1 / 2**20,
-            "after_3_data_swaps": mem_swap4 / 2**20}, "swaps_under_traffic": len(statuses)}
+            "after_3_data_swaps": mem_swap4 / 2**20}, "swaps_under_traffic": len(statuses),
+            "in_swap_longest_ms": [_longest_ms(timed, a, b) for a, b in windows]}
     finally:
         for server in servers:
             server.shutdown()
@@ -3498,8 +3527,518 @@ def mesh_cli_phase(golden: dict, single, dev, card: str) -> dict:
     return {"boot_s": boot_s, "ranks": len(ranks), "exit": rc}
 
 
+MESH_STACK_DIR = PHASE13_DIR / "stacks"
+MESH_CANARY_FRACTION = 0.5
+MESH_NEW_USER = 91_000_000
+# A rank's log lines of its world (serve/lockstep.py): each build's kernel check, each freed engine
+_CHECK_LINE = re.compile(r"rank (\d+): (\w+) engine (\d+): tower kernel on (\d+) rows against its plain version: "
+                         r"max abs err ([\d.e+-]+), (\d+) outside")
+_FREED_LINE = re.compile(r"rank (\d+): freed (\w+) engine (\d+); its device calls launched the tower kernel (\d+) "
+                         r"times(?:; card memory allocated (\d+) bytes)?")
+
+
+def perturbed_artifact(out: Path, seed: int, scale: float = 0.05) -> str:
+    """hpo_r5 with seeded noise on every parameter, written by the port: another
+    model of the same shapes and vocabulary (the CPU tests' construction,
+    ``tests/test_torch_port_serve_stack.py::perturbed_artifact``)."""
+    import numpy as np
+
+    from hhrs_tpu_torch.train.artifacts import export_artifacts, load_artifact_bundle
+
+    b = load_artifact_bundle(str(REPO / ARTIFACT))
+    rng = np.random.default_rng(seed)
+
+    def noisy(tree):
+        if isinstance(tree, dict):
+            return {k: noisy(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(noisy(v) for v in tree)
+        x = np.asarray(tree)
+        return x + scale * rng.standard_normal(x.shape).astype(np.float32)
+
+    export_artifacts(str(out), noisy(b.params), b.bn_state, b.model_cfg, b.dims, b.preproc, b.metrics)
+    return str(out)
+
+
+def _stack_dir(name: str) -> tuple:
+    """A copy of data/ and a registry whose active model is hpo_r5 → (data dir, registry)."""
+    import shutil
+
+    from hhrs_tpu_torch.db.registry import ModelRegistry
+
+    work = MESH_STACK_DIR / name
+    (work / "data").mkdir(parents=True)
+    for f in ("hackathon_augmented_data.csv", "friendships.csv"):
+        shutil.copy2(REPO / "data" / f, work / "data" / f)
+    db = str(work / "registry.sqlite")
+    ModelRegistry(db, create=True).register("shipped", str(REPO / ARTIFACT))
+    return work / "data", db
+
+
+def _stack_flags(registry: str, data: Path, arts: dict, poll_s: str) -> list:
+    return ["--artifacts", f"registry:{registry}", "--data", str(data), "--batch-window-ms", "2", "--max-batch", "8",
+            "--warm-http-batch", "--canary", arts["canary"], "--canary-fraction", str(MESH_CANARY_FRACTION),
+            "--shadow", arts["shadow"], "--reload-poll-s", poll_s, "--data-poll-s", poll_s]
+
+
+class _Traffic:
+    """Keep-alive clients that send the golden requests (and, from one, the
+    new user's) in a loop until stopped, each answer timed and kept."""
+
+    def __init__(self, port: int, reqs: list, clients: int):
+        self.port, self.reqs, self.stop = port, reqs, threading.Event()
+        self.log = []  # (start, end, status) on the host clock
+        self.pool = ThreadPoolExecutor(max_workers=clients)
+        self.futures = [self.pool.submit(self._run, c) for c in range(clients)]
+
+    def _run(self, c: int) -> None:
+        cl, k = _Client(self.port), 0
+        while not self.stop.is_set():
+            t0 = time.perf_counter()
+            status, _ = cl.call("POST", "/recommendations", _payload(self.reqs[(c * 17 + k) % len(self.reqs)]))
+            self.log.append((t0, time.perf_counter(), status))
+            k += 1
+        cl.close()
+
+    def end(self) -> list:
+        self.stop.set()
+        for f in self.futures:
+            f.result()
+        self.pool.shutdown()
+        return self.log
+
+
+def _arm_bodies(reqs: list, arms: dict, what: str, bodies: list) -> tuple:
+    """Each body against the single-device engine of its request's arm (the
+    canary's slice: ``arms[True]``) under the serve-correct rule → (equal
+    JSON, tie swaps)."""
+    from hhrs_tpu_torch.serve.canary import routes_to_canary
+
+    equal = swaps = 0
+    for i, (req, got) in enumerate(zip(reqs, bodies)):
+        single = arms[routes_to_canary(req[0], MESH_CANARY_FRACTION)]
+        want = json.loads(json.dumps(single.recommend(*req)))
+        s = compare_response(json.loads(json.dumps(got)), want, _engine_logits(single, req, want))
+        if s is None:
+            raise SmokeFailure(f"{what}: response {i} {req} breaks the serve-correct rule against the single-device "
+                               f"engine of its arm")
+        equal += json.loads(json.dumps(got)) == want
+        swaps += s
+    return equal, swaps
+
+
+def _slice_requests(engine, n: int) -> list:
+    """``n`` requests of users in the canary's slice (the golden sweep's
+    users all route to the primary at 0.5)."""
+    from hhrs_tpu_torch.serve.canary import routes_to_canary
+
+    uni = engine.gen.universe
+    users = [int(u) for u in uni.user_ids if routes_to_canary(int(u), MESH_CANARY_FRACTION)][:n]
+    return [[u, uni.cities[k % len(uni.cities)], ("friends", "personal")[k % 2], (0.7, 1.0)[k % 2]]
+            for k, u in enumerate(users)]
+
+
+def _mixed(reqs: list, in_slice: list) -> list:
+    """The golden requests with one of the canary's slice after every 6, so
+    that each client reaches both arms within its first requests: rank 0
+    runs MMR (cuBLAS) for the canary's slice on the request's own thread,
+    and a thread's first cuBLAS call takes card memory for its workspace,
+    which must not land between two memory readings."""
+    out = []
+    for i, r in enumerate(reqs):
+        out.append(r)
+        if i % 6 == 5:
+            out.append(in_slice[(i // 6) % len(in_slice)])
+    return out
+
+
+def _wait_log(path: Path, pattern: str, count: int, timeout_s: float) -> bool:
+    """Wait until ``pattern`` matches ``count`` times in the log at ``path``."""
+    deadline = time.monotonic() + timeout_s
+    while len(re.findall(pattern, path.read_text())) < count:
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.2)
+    return True
+
+
+def _print_engines(label: str, rows: list, card: str) -> None:
+    for r in rows:
+        print(f"[mesh] {label} rank {r['rank']} {r['label']} engine {r['engine']}: tower kernel on its {r['rows']} rows "
+              f"against tower_eval_ref: max abs err {r['max_abs_err']:.3e}, outside rtol=atol={TOL}: {r['outside']}; "
+              f"tower launches in its device calls {r['launches']}"
+              + (f"; card memory allocated when freed {r['freed_mib']:.1f} MiB" if r.get("freed_mib") is not None
+                 else "") + f" on {card}")
+        if r["outside"] is None or r["outside"]:
+            raise SmokeFailure(f"{label}: the tower of rank {r['rank']}'s {r['label']} engine {r['engine']} "
+                               f"disagrees with its plain version")
+
+
+def mesh_stack_nccl(golden: dict, arts: dict, dev, card: str) -> dict:
+    """Phase 13e (i): the CLI's stack over a world of one rank on NCCL in this
+    process, graphed (gloo on the CPU, to rehearse): the registry and data
+    pollers, a canary at 0.5 and a shadow. The golden sweep through it under
+    the serve-correct rule (a canary-slice body equal to the candidate's
+    single-device answer); 8 keep-alive clients through a server of it while
+    a registry swap and three data swaps land, every answer 200; after the
+    registry swap, bodies equal the new model's single-device answers; card
+    memory after the data swaps within 8 MiB of that after the registry
+    swap; the shadow's and the canary's stats in /healthz; each engine's
+    kernel check and tower launches."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.db.registry import ModelRegistry
+    from hhrs_tpu_torch.ops import tower
+    from hhrs_tpu_torch.parallel.distributed import init_world
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.serve import cli, reload
+    from hhrs_tpu_torch.serve.canary import routes_to_canary
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+    from hhrs_tpu_torch.serve.http import make_server
+    from hhrs_tpu_torch.serve.lockstep import world_of
+
+    t_phase = time.perf_counter()
+    data, db = _stack_dir("nccl")
+    reqs = golden["requests"]
+    on_card = dev.type == "cuda"
+
+    def memory() -> int:
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    # the single-device engines of each arm and model, warmed before any traffic
+    singles = {name: RecommendationEngine.from_dirs(arts[name] if name != "primary" else str(REPO / ARTIFACT),
+                                                    str(data), device=dev) for name in ("primary", "canary", "second")}
+    in_slice = _slice_requests(singles["primary"], 24)
+    after_reqs = reqs[:16] + in_slice[:8]
+    want_second = [singles["second"].recommend(*r) for r in after_reqs]
+    reload.OLD_STACK_CLOSE_GRACE_S = 0.5
+    store = PHASE13_DIR / "stack_store"
+    store.unlink(missing_ok=True)
+    init_world(0, 1, f"file://{store}", dev)
+    server = stack = traffic = None
+    try:
+        mesh = make_mesh(1, 1, dev)
+        world = world_of(mesh, dev)
+        _sync(dev)
+        tower.tower_eval.launches = 0
+        t0 = time.perf_counter()
+        args = cli.build_parser().parse_args(_stack_flags(db, data, arts, "3600") + ["--device", str(dev)])
+        stack = cli.build_stack(args, mesh=mesh)
+        build_s = time.perf_counter() - t0
+        holder = stack.reloader.holder
+        served = stack.engine  # shadow -> canary -> holder -> batcher -> engine
+        graphed = holder.current._engine.graphs
+
+        # the golden sweep and requests of the canary's slice, one at a time, under the serve-correct rule
+        sweep = [served.recommend(*r) for r in reqs + in_slice]
+        served.drain()
+        equal, swaps = _arm_bodies(reqs + in_slice, {False: singles["primary"], True: singles["canary"]},
+                                   "13e (i) sweep", sweep)
+        for i, (req, got) in enumerate(zip(reqs, sweep)):
+            if not routes_to_canary(req[0], MESH_CANARY_FRACTION) and \
+                    compare_response(json.loads(json.dumps(got)), golden["responses"][i], golden["logits"][i]) is None:
+                raise SmokeFailure(f"13e (i): request {i} breaks the golden file's tie rule")
+
+        # a registry swap and three data swaps under 8 clients, through a server of the stack
+        server = make_server(served, "127.0.0.1", 0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        port = server.server_address[1]
+        traffic = _Traffic(port, _mixed(reqs, in_slice), 8)
+        time.sleep(0.3)
+        ModelRegistry(db).register("second", arts["second"])
+        t0 = time.perf_counter()
+        if not stack.reloader.check_once():
+            raise SmokeFailure("13e (i): the registry poller did not swap in the newly activated model")
+        windows = [(t0, time.perf_counter())]
+        client = _Client(port)
+        bodies = []
+        for req in after_reqs:
+            status, body = client.call("POST", "/recommendations", _payload(req))
+            if status != 200:
+                raise SmokeFailure(f"13e (i): {status} after the registry swap")
+            bodies.append(json.loads(body))
+        for req, got, want in zip(after_reqs, bodies, want_second):
+            if not routes_to_canary(req[0], MESH_CANARY_FRACTION) and got != json.loads(json.dumps(want)):
+                raise SmokeFailure(f"13e (i): after the registry swap, {req} differs from the new model's "
+                                   f"single-device answer")
+        time.sleep(reload.OLD_STACK_CLOSE_GRACE_S + 0.5)
+        mem_registry = memory()
+        for n in range(3):
+            _append_review(data / "hackathon_augmented_data.csv", MESH_NEW_USER + n)
+            t0 = time.perf_counter()
+            if stack.data_reloader.check_once() or not stack.data_reloader.check_once():
+                raise SmokeFailure(f"13e (i): data swap {n + 1} did not debounce once and then swap")
+            windows.append((t0, time.perf_counter()))
+            time.sleep(reload.OLD_STACK_CLOSE_GRACE_S + 0.2)
+        mem_data = memory()
+        log = traffic.end()
+        traffic = None
+        longest = [_longest_ms(log, a, b) for a, b in windows]
+        bad = [s for _, _, s in log if s != 200]
+        status, body = client.call("GET", "/healthz")
+        health = json.loads(body)
+        client.close()
+        if bad or not log:
+            raise SmokeFailure(f"13e (i): {len(bad)} of {len(log)} requests under the swaps were not answered 200")
+        if health.get("hot_swaps") != 4 or "shadow" not in health or "canary" not in health:
+            raise SmokeFailure(f"13e (i): /healthz after the swaps: {health}")
+        if MESH_NEW_USER + 2 not in {int(u) for u in holder.gen.universe.user_ids}:
+            raise SmokeFailure("13e (i): the data swaps did not reach the live engine")
+        if on_card and mem_data > mem_registry + 8 * 2**20:
+            raise SmokeFailure(f"13e (i): card memory grew with the data swaps: {mem_registry} -> {mem_data} bytes")
+        backend = dist.get_backend()
+        served.close()
+        engines = [{"rank": 0, "engine": i, "label": world.labels.get(i, "engine"),
+                    "launches": world.tower_launches.get(i, 0), **(world.checks.get(i) or
+                                                                  {"rows": 0, "max_abs_err": 0.0, "outside": None})}
+                   for i in sorted(world.labels)]
+        world.shutdown()
+    finally:
+        if traffic is not None:
+            traffic.end()
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if stack is not None:
+            for poller in (stack.reloader, stack.data_reloader):
+                poller.stop()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    _print_engines("13e (i)", engines, card)
+    if on_card and not all(e["launches"] > 0 for e in engines):
+        raise SmokeFailure(f"13e (i): an engine of the stack never launched the tower kernel: {engines}")
+    swap_s = [b - a for a, b in windows]
+    print(f"[mesh] 13e (i): the CLI stack over a world of 1 rank on {backend}, "
+          f"{'graphed' if graphed else 'eager (no graphs)'}, built in {build_s:.2f} s (primary, canary at "
+          f"{MESH_CANARY_FRACTION}, shadow; both pollers); the golden sweep of {len(reqs)} and {len(in_slice)} requests "
+          f"of the canary's slice through it: {equal} equal JSON, {swaps} tie swaps; {len(log)} requests from 8 clients under a "
+          f"registry swap and 3 data swaps, all 200; swap s {', '.join(f'{x:.2f}' for x in swap_s)}; the longest "
+          f"request latency during each swap {', '.join(f'{x:.1f}' for x in longest)} ms; card memory "
+          f"{mem_registry / 2**20:.1f} MiB after the registry swap, {mem_data / 2**20:.1f} MiB after 3 data swaps; "
+          f"/healthz shadow {health['shadow']}, canary {health['canary']}; {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}")
+    return {"swap_s": swap_s, "longest_ms": longest, "memory_mib": [mem_registry / 2**20, mem_data / 2**20],
+            "engines": engines, "requests": len(log), "equal": equal, "swaps": swaps,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _longest_ms(log: list, start: float, end: float) -> float:
+    """The longest latency (ms) of a logged request that overlapped ``[start, end]``."""
+    lat = [b - a for a, b, _ in log if b >= start and a <= end]
+    return max(lat) * 1e3 if lat else 0.0
+
+
+def _wait_health(port: int, proc, done, timeout_s: float) -> dict | None:
+    """Poll ``/healthz`` until ``done(health)`` (None when the server exits
+    or the time runs out)."""
+    import urllib.request
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline and proc.poll() is None:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                health = json.loads(r.read())
+            if done(health):
+                return health
+        except OSError:
+            pass
+        time.sleep(0.2)
+    return None
+
+
+def _rank_engines(text: str) -> list:
+    """Each rank's engines from a ``--mesh`` server's log: the kernel check of
+    each build, its tower launches and the card memory when it was freed."""
+    rows = {}
+    for m in _CHECK_LINE.finditer(text):
+        rank, label, engine, n, err, outside = m.groups()
+        rows[(int(rank), int(engine))] = {"rank": int(rank), "engine": int(engine), "label": label, "rows": int(n),
+                                          "max_abs_err": float(err), "outside": int(outside), "launches": None,
+                                          "freed_mib": None}
+    for m in _FREED_LINE.finditer(text):
+        rank, label, engine, launches, mem = m.groups()
+        row = rows.setdefault((int(rank), int(engine)), {"rank": int(rank), "engine": int(engine), "label": label,
+                                                          "rows": 0, "max_abs_err": 0.0, "outside": None})
+        row.update(launches=int(launches), freed_mib=int(mem) / 2**20 if mem else None)
+    return [rows[k] for k in sorted(rows)]
+
+
+def mesh_stack_cli(golden: dict, arts: dict, dev, card: str) -> dict:
+    """Phase 13e (ii): ``python -m hhrs_tpu_torch.serve.cli --mesh 2`` as a
+    subprocess (2 gloo ranks sharing the card) with the canary, the shadow,
+    both pollers (0.5 s), the batcher at 2 ms / 8 and ``--warm-http-batch``:
+    16 keep-alive clients through a registry swap and two data swaps, every
+    answer 200 and bodies under the serve-correct rule against the
+    single-device engines of each arm after the swaps; ``/healthz`` counts 3
+    hot swaps; a registry activation of a broken artifact dir is refused on
+    both ranks while serving goes on; SIGTERM ends every rank with exit code
+    0 within 30 s. Each rank's engines from its log: kernel checks, tower
+    launches, card memory when freed, within 8 MiB across the two data
+    swaps. (Each poller's thread takes its cuBLAS workspace, 32 MiB on the
+    card, at its first swap, so only two swaps of one poller see the same
+    threads.)"""
+    import os
+    import signal
+    import socket
+
+    from hhrs_tpu_torch.db.registry import ModelRegistry
+    from hhrs_tpu_torch.serve.canary import routes_to_canary
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    t_phase = time.perf_counter()
+    data, db = _stack_dir("cli")
+    reqs = golden["requests"]
+    new_users = [u for u in range(MESH_NEW_USER + 10, MESH_NEW_USER + 1000)
+                 if not routes_to_canary(u, MESH_CANARY_FRACTION)][:2]
+    singles = {name: RecommendationEngine.from_dirs(arts[name] if name != "primary" else str(REPO / ARTIFACT),
+                                                    str(data), device=dev) for name in ("primary", "canary", "second")}
+    in_slice = _slice_requests(singles["primary"], 24)
+    check = reqs[:16] + in_slice[:8]
+    broken = MESH_STACK_DIR / "broken"
+    broken.mkdir()
+    (broken / "manifest.json").write_text((REPO / ARTIFACT / "manifest.json").read_text())  # no weights
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log_path = OUT_DIR / "phase13e_cli.log"
+    cmd = [sys.executable, "-m", "hhrs_tpu_torch.serve.cli", *_stack_flags(db, data, arts, "0.5"), "--mesh", "2",
+           "--device", str(dev.type), "--host", "127.0.0.1", "--port", str(port)]
+    traffic, ranks, rc = None, [], None
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            health = _wait_health(port, proc, lambda h: h.get("status") == "ok", 240)
+            if health is None:
+                raise SmokeFailure(f"13e (ii): the --mesh 2 CLI did not answer /healthz (see {log_path})")
+            boot_s = time.perf_counter() - t_phase
+            ranks = _ranks_of(proc.pid)
+            traffic = _Traffic(port, _mixed(reqs, in_slice), 16)
+            client = _Client(port)
+
+            def bodies(rs: list) -> list:
+                out = []
+                for r in rs:
+                    status, body = client.call("POST", "/recommendations", _payload(r))
+                    if status != 200:
+                        raise SmokeFailure(f"13e (ii): POST /recommendations {r} gave {status}")
+                    out.append(json.loads(body))
+                return out
+
+            held = [_arm_bodies(check, {False: singles["primary"], True: singles["canary"]}, "13e (ii) startup",
+                                bodies(check))]
+            windows = []
+            for n, trigger in enumerate((lambda: ModelRegistry(db).register("second", arts["second"]),
+                                         lambda: append_new_user(data, new_users[0]),
+                                         lambda: append_new_user(data, new_users[1]))):
+                t0 = time.perf_counter()
+                trigger()
+                if _wait_health(port, proc, lambda h, n=n: h.get("hot_swaps") == n + 1, 120) is None:
+                    raise SmokeFailure(f"13e (ii): swap {n + 1} never showed in /healthz (see {log_path})")
+                windows.append((t0, time.perf_counter()))
+                if n == 0:
+                    held.append(_arm_bodies(check, {False: singles["second"], True: singles["canary"]},
+                                            "13e (ii) after the registry swap", bodies(check)))
+                # the swapped-out primary is freed on both ranks after the grace (10 s), before the next
+                # step: each memory reading then sees the same engines alive
+                for rank in (0, 1):
+                    if not _wait_log(log_path, rf"rank {rank}: freed primary engine", n + 1, 60):
+                        raise SmokeFailure(f"13e (ii): rank {rank} did not free the swapped-out primary of swap "
+                                           f"{n + 1} (see {log_path})")
+            refreshed = RecommendationEngine.from_dirs(arts["second"], str(data), device=dev)
+            user_reqs = [[u, c, m, 1.0] for u in new_users for c in refreshed.gen.universe.cities[:2]
+                         for m in ("friends", "personal")]
+            held.append(_arm_bodies(check + user_reqs, {False: refreshed, True: singles["canary"]},
+                                    "13e (ii) after the data swaps", bodies(check + user_reqs)))
+            if not all(any(b.get("ranked_hotels") for b in bodies(user_reqs[k:k + 4])) for k in (0, 4)):
+                raise SmokeFailure("13e (ii): a data swap's new user is not served")
+            ModelRegistry(db).register("broken", str(broken))
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and not (
+                    re.search(r"rank 1: building engine \d+ \(primary\) failed", log_path.read_text())
+                    and re.search(r"hot reload of .*broken FAILED", log_path.read_text())):
+                time.sleep(0.2)
+            health = json.loads(client.call("GET", "/healthz")[1])
+            refused = health["hot_swaps"] == 3 and health["model"] == arts["second"] and time.monotonic() < deadline
+            bodies(check[:4])
+            client.close()
+            log = traffic.end()
+            traffic = None
+            if not refused:
+                raise SmokeFailure(f"13e (ii): the broken artifact's activation was not refused on both ranks: "
+                                   f"{health} (see {log_path})")
+            bad = [s for _, _, s in log if s != 200]
+            if bad or not log:
+                raise SmokeFailure(f"13e (ii): {len(bad)} of {len(log)} requests under the swaps were not 200")
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+            term_s = time.perf_counter() - t_term
+        finally:
+            if traffic is not None:
+                traffic.end()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=20)
+    deadline = time.monotonic() + 20
+    while any(map(_alive, ranks)) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = [p for p in ranks if _alive(p)]
+    if rc != 0 or len(ranks) != 2 or left:
+        raise SmokeFailure(f"13e (ii): exit code {rc}, ranks {ranks}, left after SIGTERM {left} (see {log_path})")
+    engines = _rank_engines(log_path.read_text())
+    _print_engines("13e (ii)", engines, card)
+    memory = {}
+    for rank in (0, 1):
+        primaries = [e for e in engines if e["rank"] == rank and e["label"] == "primary" and e["launches"] is not None]
+        freed = [e["freed_mib"] for e in primaries]
+        unlaunched = [e for e in engines if e["rank"] == rank and not e["launches"]]
+        if len(primaries) != 4 or (dev.type == "cuda" and unlaunched):
+            raise SmokeFailure(f"13e (ii): rank {rank}'s engines: {primaries}")
+        memory[rank] = freed
+        if dev.type == "cuda" and freed[2] > freed[1] + 8:
+            raise SmokeFailure(f"13e (ii): rank {rank}'s card memory grew across the data swaps: "
+                               f"{freed[1]:.1f} -> {freed[2]:.1f} MiB")
+    longest = [_longest_ms(log, a, b) for a, b in windows]
+    swap_s = [b - a for a, b in windows]
+    print(f"[mesh] 13e (ii): serve.cli --mesh 2 (2 gloo ranks sharing the card) with the canary, the shadow and both "
+          f"pollers answered /healthz {boot_s:.1f} s after the start; {len(log)} requests from 16 clients, all 200, "
+          f"through a registry swap and two data swaps (trigger to /healthz: {', '.join(f'{x:.2f}' for x in swap_s)} s; "
+          f"the longest request latency during each {', '.join(f'{x:.1f}' for x in longest)} ms); bodies against the "
+          f"single-device engine of each arm (equal JSON, tie swaps) at startup and after each swap: {held}; the "
+          f"broken artifact's activation refused on both ranks; card memory when the swapped-out primaries (and at "
+          f"the exit the live one) were freed, by rank: {memory} MiB; SIGTERM: exit {rc} in {term_s:.1f} s, no rank left; "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"swap_s": swap_s, "longest_ms": longest, "boot_s": boot_s, "engines": engines, "memory_mib": memory,
+            "requests": len(log), "held": held, "seconds": time.perf_counter() - t_phase}
+
+
+def append_new_user(data: Path, user_id: int) -> None:
+    _append_review(data / "hackathon_augmented_data.csv", user_id)
+
+
+def mesh_stack_phase(golden: dict, dev, card: str) -> dict:
+    """Phase 13e: the serving stacks over a mesh, (i) in process on one NCCL
+    rank and (ii) through ``serve.cli --mesh 2``; the canary, the shadow and
+    the registry's second model are hpo_r5 with seeded noise."""
+    t0 = time.perf_counter()
+    MESH_STACK_DIR.mkdir(parents=True)
+    arts = {name: perturbed_artifact(MESH_STACK_DIR / name, seed) for name, seed in
+            (("canary", 1), ("second", 2), ("shadow", 3))}
+    out = {"nccl": mesh_stack_nccl(golden, arts, dev, card), "cli": mesh_stack_cli(golden, arts, dev, card)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[mesh] phase 13e took {out['seconds']:.1f} s")
+    return out
+
+
 def mesh_phase(golden: dict, single, dev, card: str) -> dict:
-    """Phase 13: serving over a device mesh (13a–13d). ``single`` is phase
+    """Phase 13: serving over a device mesh (13a–13e). ``single`` is phase
     4's single-device engine; it runs on the CPU too, to rehearse."""
     import shutil
 
@@ -3509,7 +4048,8 @@ def mesh_phase(golden: dict, single, dev, card: str) -> dict:
     out = {"nccl": mesh_nccl_phase(golden, single, dev, card),
            "gloo": mesh_gloo_phase(golden, single, dev, card),
            "padded": mesh_padded_phase(dev, card),
-           "cli": mesh_cli_phase(golden, single, dev, card)}
+           "cli": mesh_cli_phase(golden, single, dev, card),
+           "stacks": mesh_stack_phase(golden, dev, card)}
     print(f"[mesh] phase 13 took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4445,6 +4985,84 @@ def mesh_tuning_main(device: str = "cuda", data: str | None = None) -> int:
     return 0
 
 
+def serving_phase(golden: dict):
+    """Phase 4: the engine on the card over the golden sweep, graphed per
+    bucket, then the same requests eagerly → (engine, tower launches)."""
+    from hhrs_tpu_torch.ops import tower
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine
+
+    tower.tower_eval.launches = 0
+    t0 = time.perf_counter()
+    engine = RecommendationEngine.from_dirs(str(REPO / ARTIFACT), str(REPO / "data"))
+    build_s = time.perf_counter() - t0
+    if engine.device.type != "cuda" or engine._folded is None:
+        raise SmokeFailure("the engine is not serving dcnr through the tower kernel on cuda")
+    swaps = 0
+    for req, want, logits in zip(golden["requests"], golden["responses"], golden["logits"]):
+        got = json.loads(json.dumps(engine.recommend(*req)))
+        s = compare_response(got, want, logits)
+        if s is None:
+            raise SmokeFailure(f"recommend{tuple(req)} differs from the golden response")
+        swaps += s
+    many = [golden["requests"][i] for i in golden["many"]]
+    for batch, pad_to in ((many, None), (many[:5], 8)):
+        for i, got in zip(golden["many"], engine.recommend_many(batch, pad_to=pad_to)):
+            s = compare_response(json.loads(json.dumps(got)), golden["responses"][i], golden["logits"][i])
+            if s is None:
+                raise SmokeFailure(f"recommend_many(K={len(batch)}, pad_to={pad_to}) differs from the golden response {i}")
+            swaps += s
+    for item, n, want in golden["similar"]:
+        if engine.similar_items(item, n) != want:
+            raise SmokeFailure(f"similar_items({item}, {n}) differs from the golden answer")
+    _sync(engine.device)
+    path_launches = tower.tower_eval.launches
+    n_req = len(golden["requests"])
+    buckets = sorted(engine._buckets)
+    print(f"[serve] engine built in {build_s:.2f} s; {n_req} recommend + recommend_many(K={len(many)}) + "
+          f"recommend_many(K=5, pad_to=8) + {len(golden['similar'])} similar_items match the golden file; "
+          f"tie swaps: {swaps}")
+    print(f"[serve] tower_eval launches on the serving path: {path_launches} (an eager run and a capture for each "
+          f"batch bucket {buckets}; the {n_req + 2} requests and batches ran as graph replays)")
+    if path_launches <= 0 or buckets != [(1, False), (8, False)]:
+        raise SmokeFailure("the serving path did not run the tower kernel through a graph per bucket")
+    # The graphed path against the same launches run eagerly, request by request.
+    differ = [req for req in golden["requests"] if engine._recommend_eager([req]) != [engine.recommend(*req)]]
+    differ += [b for b in (many, many[:5])
+               if engine._recommend_eager(b, pad_to=8) != engine.recommend_many(b, pad_to=8)]
+    if differ:
+        raise SmokeFailure(f"the graphed serving path differs from the eager one for {differ[:3]}")
+    print(f"[serve] graphed JSON equals the eager path's for all {n_req} requests and 2 padded batches")
+
+    return engine, path_launches
+
+
+def mesh_serving_main() -> int:
+    """``chip_smoke.py --mesh-serving``: phases 4 and 13 (13a–13e) alone,
+    after the tower and cross libraries' build."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: --mesh-serving needs a CUDA card")
+    sys.path.insert(0, str(REPO))
+    from hhrs_tpu_torch.ops import cross, cuda_build, tower
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    OUT_DIR.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, together
+        list(pool.map(lambda lib: cuda_build.build(*lib), [(tower._LIB_NAME, tower._LIB_SOURCES),
+                                                           (cross._LIB_NAME, cross._LIB_SOURCES)]))
+    print(f"[build] the tower and cross libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+    golden = json.loads((REPO / GOLDEN).read_text())
+    engine, _ = serving_phase(golden)
+    mesh_phase(golden, engine, dev, card)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4569,47 +5187,7 @@ def main() -> int:
 
     # ---- phase 4: the serving path --------------------------------------
     golden = json.loads((REPO / GOLDEN).read_text())
-    tower.tower_eval.launches = 0
-    t0 = time.perf_counter()
-    engine = RecommendationEngine.from_dirs(str(REPO / ARTIFACT), str(REPO / "data"))
-    build_s = time.perf_counter() - t0
-    if engine.device.type != "cuda" or engine._folded is None:
-        return fail("the engine is not serving dcnr through the tower kernel on cuda")
-    swaps = 0
-    for req, want, logits in zip(golden["requests"], golden["responses"], golden["logits"]):
-        got = json.loads(json.dumps(engine.recommend(*req)))
-        s = compare_response(got, want, logits)
-        if s is None:
-            return fail(f"recommend{tuple(req)} differs from the golden response")
-        swaps += s
-    many = [golden["requests"][i] for i in golden["many"]]
-    for batch, pad_to in ((many, None), (many[:5], 8)):
-        for i, got in zip(golden["many"], engine.recommend_many(batch, pad_to=pad_to)):
-            s = compare_response(json.loads(json.dumps(got)), golden["responses"][i], golden["logits"][i])
-            if s is None:
-                return fail(f"recommend_many(K={len(batch)}, pad_to={pad_to}) differs from the golden response {i}")
-            swaps += s
-    for item, n, want in golden["similar"]:
-        if engine.similar_items(item, n) != want:
-            return fail(f"similar_items({item}, {n}) differs from the golden answer")
-    torch.cuda.synchronize()
-    path_launches = tower.tower_eval.launches
-    n_req = len(golden["requests"])
-    buckets = sorted(engine._buckets)
-    print(f"[serve] engine built in {build_s:.2f} s; {n_req} recommend + recommend_many(K={len(many)}) + "
-          f"recommend_many(K=5, pad_to=8) + {len(golden['similar'])} similar_items match the golden file; "
-          f"tie swaps: {swaps}")
-    print(f"[serve] tower_eval launches on the serving path: {path_launches} (an eager run and a capture for each "
-          f"batch bucket {buckets}; the {n_req + 2} requests and batches ran as graph replays)")
-    if path_launches <= 0 or buckets != [(1, False), (8, False)]:
-        return fail("the serving path did not run the tower kernel through a graph per bucket")
-    # The graphed path against the same launches run eagerly, request by request.
-    differ = [req for req in golden["requests"] if engine._recommend_eager([req]) != [engine.recommend(*req)]]
-    differ += [b for b in (many, many[:5])
-               if engine._recommend_eager(b, pad_to=8) != engine.recommend_many(b, pad_to=8)]
-    if differ:
-        return fail(f"the graphed serving path differs from the eager one for {differ[:3]}")
-    print(f"[serve] graphed JSON equals the eager path's for all {n_req} requests and 2 padded batches")
+    engine, path_launches = serving_phase(golden)
 
     # ---- phase 5: timings -------------------------------------------------
     kernels = []
@@ -4713,7 +5291,11 @@ def main() -> int:
         "two_tower_serve_launches": phase12["serve"]["launches"],
         "export_all_launches": phase12["export"]["launches"]["tower"],
         "mesh_launches": {"13a_eager": mesh["nccl"]["eager_launches"], "13a_graphed": mesh["nccl"]["graphed_launches"],
-                          "13b_per_rank": mesh["gloo"]["launches"], "13c_per_rank": mesh["padded"]["launches"]},
+                          "13b_per_rank": mesh["gloo"]["launches"], "13c_per_rank": mesh["padded"]["launches"],
+                          **{f"13e_{part}": {f"rank {e['rank']} {e['label']} engine {e['engine']}": e["launches"]
+                                             for e in mesh["stacks"][part]["engines"]} for part in ("nccl", "cli")}},
+        "mesh_stack_max_abs_err": max(e["max_abs_err"] for part in ("nccl", "cli")
+                                      for e in mesh["stacks"][part]["engines"]),
         "mesh_max_dlogit": {"13b": mesh["gloo"]["max_dlogit"], "13c": mesh["padded"]["max_dlogit"]},
     })
     for kind, replaces in (("fwd", "hhrs_tpu/ops/pallas/cross_kernel.py:56"),
@@ -4795,6 +5377,8 @@ if __name__ == "__main__":
             sys.exit(http_client_main(sys.argv[2:]))
         if sys.argv[1:2] == ["--mesh-tuning"]:
             sys.exit(mesh_tuning_main())
+        if sys.argv[1:2] == ["--mesh-serving"]:
+            sys.exit(mesh_serving_main())
         sys.exit(export_check_main(sys.argv[2:]) if sys.argv[1:2] == ["--export-check"] else main())
     except SmokeFailure as e:
         sys.exit(fail(str(e)))

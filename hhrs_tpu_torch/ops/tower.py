@@ -35,6 +35,7 @@ from hhrs_tpu_torch.ops.cross import CROSS_VARIANTS, cross_stack_apply
 
 _FOLDED_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "cross_w", "cross_b", "final_w", "final_b")
 _LIB_NAME, _LIB_SOURCES = "tower_eval", ["tower_eval.cu"]
+TOWER_TOL = 2e-5  # kernel against the plain version, rtol and atol: the JAX kernel's parity bar
 
 
 def uses_tower(cfg) -> bool:

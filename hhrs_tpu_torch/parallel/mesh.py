@@ -188,6 +188,15 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     return out.view(W, *t.shape)
 
 
+def broadcast_object(obj, device: torch.device | None = None, src: int = 0):
+    """Rank ``src``'s picklable ``obj`` on every rank of the world
+    (``broadcast_object_list`` through ``device``, the backend's wire: the
+    card on NCCL, the host on gloo); the other ranks pass anything."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, device=device)
+    return box[0]
+
+
 def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` reduced in place over ``group`` (``op``, a sum by default) → ``t``."""
     dist.all_reduce(t, op=op, group=group)

@@ -5,7 +5,9 @@ candidate model on the request path (counterpart of
 Routing: ``crc32(str(user_id)) < fraction · 2³²`` (with a salt,
 ``crc32(f"{salt}:{user_id}")``), so a user always hits the same arm.
 Requests without a user (``/similar_items``) stay on the primary. A canary
-failure falls back to the primary and counts in ``errors``.
+failure falls back to the primary and counts in ``errors``. Over a mesh both
+arms are engines of one world (``serve/lockstep.py``): :meth:`close` frees
+them on every rank.
 """
 
 from __future__ import annotations

@@ -22,13 +22,17 @@ each hot-reload rebuild.
 world (torchrun's ``MASTER_ADDR``…, or ``COORDINATOR_ADDRESS``…;
 ``parallel/distributed.py``) this process is one of its ranks; otherwise
 it builds the kernels, launches the ranks on this node and waits for them.
-Rank 0 binds the port and serves through the batcher; the other ranks
-follow it. SIGTERM or Ctrl-C to the launching process stops every rank. A
-device call that fails part way ends rank 0 (exit code 1), and with it the
-world: the launch raises, or torchrun stops the other ranks.
-``--mesh`` with ``--shadow``, ``--canary`` or a hot-reload poller raises
-``NotImplementedError`` (ROADMAP A11c's serving half: those stacks under a
-mesh).
+Rank 0 parses the data, builds the stack and serves it; the other ranks
+run the world's follower loop (``serve/lockstep.py``), which builds every
+engine rank 0 builds (the primary, the canary, the shadow and each
+hot-reload rebuild) from rank 0's parse and runs each device call rank 0
+announces. The batcher, the cache, the pollers and the shadow's worker run
+on rank 0 only. A rebuild that fails on any rank is discarded on every
+rank, and rank 0 keeps serving the old stack. SIGTERM or Ctrl-C to the
+launching process stops every rank: rank 0 drains, closes its stack, then
+stops the followers. A device call that fails part way ends rank 0 (exit
+code 1), and with it the world: the launch raises, or torchrun stops the
+other ranks.
 """
 
 from __future__ import annotations
@@ -107,14 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args: argparse.Namespace, data_poll_s: float | None = None) -> None:
-    data_poll_s = args.data_poll_s if data_poll_s is None else data_poll_s
-    if args.mesh and (args.shadow or args.canary or args.reload_poll_s > 0 or (data_poll_s or 0) > 0):
-        raise NotImplementedError("--mesh with --shadow, --canary, --reload-poll-s or --data-poll-s is not "
-                                  "ported yet: ROADMAP A11c, its serving half (the shadow, canary and hot-reload "
-                                  "stacks under a mesh)")
-
-
 @dataclasses.dataclass
 class ServeStack:
     """What :func:`build_stack` built: the outermost engine to serve, where
@@ -131,10 +127,12 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
                 mesh=None) -> ServeStack:
     """Build the serving stack of parsed flags (:func:`build_parser`), every
     bucket it serves captured unless ``--no-warmup``; raises on a startup
-    failure. With ``mesh`` (a rank of a ``--mesh`` world), ranks other than
-    0 get the bare engine, to :meth:`follow`."""
+    failure. With ``mesh`` (rank 0 of a ``--mesh`` world), every engine is
+    a world build (``serve/lockstep.py``): the other ranks build it in
+    their follower loop from this rank's parse."""
     parser = parser or build_parser()
-    _refuse_unported(args)
+    if mesh is not None and torch.distributed.get_rank() != 0:
+        raise RuntimeError("rank 0 builds a mesh world's stack; the other ranks run its follower loop")
     bad = [t for t in args.overrides if "=" not in t]
     if bad:
         parser.error(f"invalid config override(s) {bad}: use section.field=value")
@@ -142,6 +140,7 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
 
     from hhrs_tpu_torch.db.registry import resolve_artifacts_dir
     from hhrs_tpu_torch.serve.engine import RecommendationEngine, load_frames
+    from hhrs_tpu_torch.serve.lockstep import world_of
     from hhrs_tpu_torch.serve.reload import data_fingerprint
     from hhrs_tpu_torch.serve.schemas import HTTP_BATCH_PAD
 
@@ -152,8 +151,7 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
     window_ms = args.batch_window_ms if args.batch_window_ms is not None else cfg.batch_window_ms
     max_batch = args.max_batch if args.max_batch is not None else cfg.max_batch
     cap = args.candidate_cap if args.candidate_cap is not None else cfg.candidate_cap
-    _refuse_unported(args, args.data_poll_s if args.data_poll_s is not None else cfg.data_poll_s)
-    leader = mesh is None or torch.distributed.get_rank() == 0
+    world = world_of(mesh, device) if mesh is not None else None
     quantize = args.quantize_tables or cfg.quantize_tables
     stack = ServeStack(None, args.host if args.host is not None else cfg.host,
                        args.port if args.port is not None else cfg.port)
@@ -163,21 +161,25 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
 
     # Fingerprint before the parse: the data reloader's baseline must
     # describe the files this startup read. The tables are parsed once and
-    # shared by the primary, canary and shadow engines.
+    # shared by the primary, canary and shadow engines (and, on a mesh, sent
+    # to every rank).
     fp0 = data_fingerprint(data_dir)
     frames = load_frames(data_dir)
 
-    def new_engine(adir: str, frames: tuple | None, batch_pad: int | None, http_batch: bool = True):
+    def new_engine(adir: str, frames: tuple | None, batch_pad: int | None, http_batch: bool = True,
+                   label: str = "primary"):
         """An engine with every bucket it will serve captured: 1, and
         ``batch_pad`` and (with ``--warm-http-batch``) ``HTTP_BATCH_PAD``
-        where asked."""
-        eng = RecommendationEngine.from_dirs(
-            adir, data_dir, retrieval_cfg=cfg_all.retrieval, device=device,
-            city_bounded=cfg.city_bounded, bf16=args.bf16, quantize_tables=quantize,
-            candidate_cap=cap, use_pallas=cfg.use_pallas, frames=frames,
-            retrieval_embeddings_path=args.retrieval_embeddings, mesh=mesh)
-        if not leader:
-            return eng
+        where asked. On a mesh a world build from this rank's frames (a
+        registry reload without a snapshot parses the live files here)."""
+        options = dict(retrieval_cfg=cfg_all.retrieval, city_bounded=cfg.city_bounded, bf16=args.bf16,
+                       quantize_tables=quantize, candidate_cap=cap, use_pallas=cfg.use_pallas,
+                       retrieval_embeddings_path=args.retrieval_embeddings)
+        if world is None:
+            eng = RecommendationEngine.from_dirs(adir, data_dir, device=device, frames=frames, **options)
+        else:
+            eng = world.build(adir, frames if frames is not None else load_frames(data_dir), label=label,
+                              **options)
         if not args.no_warmup:
             log.info("warming up: capturing the serving buckets...")
             eng.warmup(batch_pad=batch_pad)
@@ -193,7 +195,7 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
         """The primary stack for one artifact dir, at startup and verbatim on
         every hot reload."""
         eng = new_engine(adir, frames, max_batch if want_batching else None)
-        if want_batching and leader:
+        if want_batching:
             from hhrs_tpu_torch.serve.batcher import BatchingEngine
 
             eng = BatchingEngine(eng, max_batch=max_batch, window_ms=window_ms)
@@ -201,9 +203,6 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
         return eng
 
     engine = build_primary(artifacts_dir, frames=frames)
-    if not leader:
-        stack.engine = engine
-        return stack
     data_poll_s = args.data_poll_s if args.data_poll_s is not None else cfg.data_poll_s
     registry_reload = args.reload_poll_s > 0
     if registry_reload and not artifacts.startswith("registry:"):
@@ -247,7 +246,7 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
             parser.error("--canary is the same artifact dir as the primary")
         # a bare engine: it answers its slice one request at a time, and its
         # part of a /recommendations/batch call in bucket HTTP_BATCH_PAD
-        canary_eng = new_engine(canary_dir, frames, None)
+        canary_eng = new_engine(canary_dir, frames, None, label="canary")
         try:
             engine = CanaryEngine(engine, canary_eng, args.canary_fraction,
                                   canary_dir=canary_dir, salt=args.canary_salt)
@@ -270,7 +269,7 @@ def build_stack(args: argparse.Namespace, parser: argparse.ArgumentParser | None
         if shadow_dir == artifacts_dir:
             parser.error("--shadow is the same artifact dir as the primary")
         # a bare engine that replays one request at a time on the shadow's worker
-        shadow_eng = new_engine(shadow_dir, frames, None, http_batch=False)
+        shadow_eng = new_engine(shadow_dir, frames, None, http_batch=False, label="shadow")
         engine = ShadowEngine(engine, shadow_eng, shadow_dir=shadow_dir)
         log.info("shadow serving on: mirroring traffic to %s", shadow_dir)
     stack.engine = engine
@@ -291,28 +290,37 @@ def _build_kernels() -> None:
 
 
 def serve_rank(argv: list) -> int:
-    """One rank of a ``--mesh`` world (joined already): build the stack over
-    the mesh, then serve (rank 0) or follow it (the others)."""
+    """One rank of a ``--mesh`` world (joined already): rank 0 builds the
+    stack over the mesh and serves it, the others run the world's follower
+    loop, which builds every engine rank 0 builds and runs its device calls."""
     setup_logging()
     from hhrs_tpu_torch.parallel.mesh import mesh_from_spec
     from hhrs_tpu_torch.serve.http import serve_forever
+    from hhrs_tpu_torch.serve.lockstep import world_of
 
     parser = build_parser()
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     mesh = mesh_from_spec(args.mesh, device)
-    stack = build_stack(args, parser, mesh=mesh)
+    world = world_of(mesh, device)
     if torch.distributed.get_rank() != 0:
         # a launcher that signals every rank (torchrun) must not stop a
         # follower under rank 0: rank 0 drains, then stops the followers
         for sig in (signal.SIGTERM, signal.SIGINT):
             signal.signal(sig, signal.SIG_IGN)
-        stack.engine.follow()
+        world.follow()
         return 0
+    stack = None
     try:
+        stack = build_stack(args, parser, mesh=mesh)
         serve_forever(stack.engine, stack.host, stack.port)
     finally:
-        stack.engine.close()  # ends every follower (serve_forever closes it too once it has started)
+        if stack is not None:
+            for poller in (stack.reloader, stack.data_reloader):
+                if poller is not None:
+                    poller.stop()
+            stack.engine.close()  # CLOSE of every engine (serve_forever closes the stack too once it has started)
+        world.shutdown()  # STOP: the followers' loops end
     return 0
 
 
@@ -337,7 +345,6 @@ def main(argv=None) -> int:
     parser = build_parser()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     resolve_device(args.device)  # no card and no --device: raises, never falls back to the CPU
     if args.mesh:
         from hhrs_tpu_torch.parallel.mesh import parse_mesh_spec

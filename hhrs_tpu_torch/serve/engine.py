@@ -69,18 +69,20 @@ Options, with the JAX engine's meaning:
   0 then takes the stable order and runs the single-device MMR over the
   whole item axis, with no collective of its own. ``similar_items`` runs
   ``retrieval/sharded.py``. ``candidate_cap`` and ``city_bounded`` are
-  switched off, as in the JAX engine. Rank 0 leads: it does the host work
-  and every device call starts with a broadcast of an op header (and a
-  batch's packed inputs) from it, under one lock, so every rank makes
-  its collectives in the same order; the other ranks run :meth:`follow`
-  until rank 0's :meth:`shutdown` (or :meth:`close`). An idle leader sends
-  a keep-alive header every ``KEEPALIVE_S``, inside the world's collective
-  timeout. A device call that fails part way leaves the ranks out of step
-  for good: rank 0's process then exits (code 1) and its launcher (the
-  port's ``launch`` or torchrun) stops every rank; a follower's failure
-  raises out of :meth:`follow`. On an NCCL world each bucket is a CUDA
-  graph with its collectives inside (the input broadcast stays before the
-  replay); a gloo world cannot capture its collectives and runs the same
+  switched off, as in the JAX engine. The engine joins its world's
+  lockstep (``serve/lockstep.py``), which every mesh engine of the world
+  shares: rank 0 leads, does the host work and starts every device call
+  with a header naming the engine (and a batch's packed inputs) under the
+  world's one lock, so every rank makes its collectives in one order; the
+  other ranks run the world's one follower loop (:meth:`follow`), which
+  dispatches each call to the engine it names, builds the engines rank 0
+  builds (``World.build``) and ends at the world's :meth:`shutdown`.
+  :meth:`close` frees the engine on every rank and leaves the world up. A
+  device call that fails part way ends rank 0's process (code 1), and its
+  launcher (the port's ``launch`` or torchrun) stops every rank. On an
+  NCCL world each bucket is a CUDA graph with its collectives inside (the
+  input broadcast stays before the replay), replayed only under the world
+  lock; a gloo world cannot capture its collectives and runs the same
   launches eagerly. The engine logs which (``self.graphs``). Responses
   equal the single-device engine's.
 
@@ -92,7 +94,6 @@ top-20.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import os
@@ -114,20 +115,18 @@ from hhrs_tpu_torch.device import capture_stream, resolve_device
 from hhrs_tpu_torch.models.convert import dcnr_from_jax
 from hhrs_tpu_torch.ops.mmr import NEG_INF, mmr_rerank
 from hhrs_tpu_torch.ops.quant import quantize_embedding_params
-from hhrs_tpu_torch.ops.tower import fold_eval_params, score_rows, uses_tower
+from hhrs_tpu_torch.ops.tower import (TOWER_TOL, build_x0, fold_eval_params, score_rows, tower_eval,
+                                      tower_eval_ref, uses_tower)
 from hhrs_tpu_torch.retrieval.candidates import CandidateGenerator, ServeUniverse
 from hhrs_tpu_torch.parallel.mesh import all_gather, mesh_size, row_shardings
 from hhrs_tpu_torch.retrieval.graph import FriendGraph
 from hhrs_tpu_torch.retrieval.sharded import shard_k, sharded_cosine_topk
 from hhrs_tpu_torch.retrieval.similarity import cosine_topk, normalize_rows, require_full_f32_matmul
+from hhrs_tpu_torch.serve.lockstep import OP_BATCH, OP_SIMILAR, world_of
 from hhrs_tpu_torch.train.artifacts import ArtifactBundle, load_artifact_bundle
 from hhrs_tpu_torch.utils.logging import LatencyHistogram
 
 log = logging.getLogger(__name__)
-
-# The op header of a mesh engine's device calls: [op, a, b] int64.
-_OP_STOP, _OP_BATCH, _OP_SIMILAR, _OP_NOOP = 0, 1, 2, 3
-KEEPALIVE_S = 60.0  # an idle leader's keep-alive period (the world's timeout is 600 s)
 
 # Held by every CUDA-graph capture of the process: torch.cuda.graph
 # synchronizes the card and empties the allocator's cache as it starts,
@@ -282,17 +281,15 @@ class RecommendationEngine:
         # gloo's collectives cannot be captured.
         self.graphs = dev.type == "cuda" and (mesh is None or dist.get_backend() == "nccl")
         if mesh is not None:
-            self._leader = dist.get_rank() == 0
-            # headers and gloo's input broadcast travel on the host; NCCL's on the card
-            self._wire = dev if dist.get_backend() == "nccl" else torch.device("cpu")
-            self._mesh_lock = threading.RLock()  # rank 0: one device call at a time, in one order
-            self._stopped = threading.Event()
-            self._last_send = time.monotonic()
-            log.info("mesh %s (%s, %d ranks): rank %d holds item rows [%d, %d) of %d; %s", tuple(mesh.shape),
-                     dist.get_backend(), mesh_size(mesh), dist.get_rank(), rows.start, rows.stop, rows.padded,
+            self._world = world_of(mesh, dev)
+            self._leader = self._world.leader
+            self._wire = self._world.wire
+            self._closed = False
+            self._engine_id = self._world.attach(self)  # last: a failed construction joins no world
+            log.info("mesh %s (%s, %d ranks): rank %d holds item rows [%d, %d) of %d as engine %d; %s",
+                     tuple(mesh.shape), dist.get_backend(), mesh_size(mesh), dist.get_rank(), rows.start, rows.stop,
+                     rows.padded, self._engine_id,
                      "CUDA graphs with the collectives inside" if self.graphs else "eager launches (no graphs)")
-            if self._leader and mesh_size(mesh) > 1:
-                threading.Thread(target=self._keepalive, name="mesh-keepalive", daemon=True).start()
 
     # ------------------------------------------------------------------ #
 
@@ -518,42 +515,17 @@ class RecommendationEngine:
                  inputs.shape[0])
         return b
 
-    # ---- the mesh lockstep ------------------------------------------------ #
+    # ---- the mesh lockstep (serve/lockstep.py) ----------------------------- #
 
-    @contextlib.contextmanager
     def _lockstep(self):
-        """One device call of a mesh engine, under the mesh lock; on rank 0
-        it raises once the engine is shut down. A call that fails part way
-        leaves the ranks out of step for good: rank 0 logs the fault and its
-        process exits (code 1), so that its launcher (``launch`` or
-        torchrun) stops every rank at once instead of a server that answers
-        every later request with an error while its followers wait for the
-        world's timeout. A follower's fault raises out of :meth:`follow`,
-        which ends its process the same way."""
-        with self._mesh_lock:
-            if self._leader and self._stopped.is_set():
-                raise RuntimeError("the mesh engine is shut down")
-            try:
-                yield
-            except Exception:
-                if self._leader:
-                    self._stopped.set()
-                    log.critical("a device call of the mesh engine failed part way; the ranks are out of "
-                                 "step: ending rank 0 so that the launcher stops the world", exc_info=True)
-                    os._exit(1)
-                raise
+        """One device call of this mesh engine under its world's lock (rank
+        0 raises first when the engine is closed or the world stopped; a
+        call that fails part way ends rank 0)."""
+        return self._world.lockstep(self)
 
     def _send(self, op: int, a: int = 0, b: int = 0) -> None:
-        """Rank 0: the header of the next device call (under the mesh lock)."""
-        dist.broadcast(torch.tensor([op, a, b], dtype=torch.int64, device=self._wire), 0)
-        self._last_send = time.monotonic()
-
-    def _keepalive(self) -> None:
-        while not self._stopped.wait(KEEPALIVE_S / 4):
-            with self._mesh_lock:
-                if not self._stopped.is_set() and time.monotonic() - self._last_send >= KEEPALIVE_S:
-                    with self._lockstep():
-                        self._send(_OP_NOOP)
+        """Rank 0: the header of this engine's next device call."""
+        self._world.send(op, self._engine_id, a, b)
 
     def _mesh_batch(self, host: np.ndarray | None, graphed: bool, Kp: int = 0) -> torch.Tensor | None:
         """Every rank's part of one batch: rank 0 sends the header and its
@@ -562,7 +534,7 @@ class RecommendationEngine:
         with self._lockstep():
             if self._leader:
                 Kp = host.shape[0]
-                self._send(_OP_BATCH, Kp, int(graphed))
+                self._send(OP_BATCH, Kp, int(graphed))
             shape = (Kp, self.gen.max_sources + 3)
             b = self._buckets.get((Kp, False)) if graphed else None
             if self._wire.type == "cpu":  # gloo: the inputs travel on the host
@@ -585,41 +557,28 @@ class RecommendationEngine:
             return out.cpu() if self._leader else None
 
     def follow(self) -> None:
-        """The loop of every rank but 0 of a mesh engine: run each device
-        call rank 0 announces, until it shuts the engine down."""
+        """Every rank of a mesh engine's world but 0: the world's follower
+        loop (every engine of the world), until its :meth:`shutdown`."""
         if self.mesh is None or self._leader:
             raise RuntimeError("follow() is for the ranks of a mesh engine other than 0")
-        try:
-            while True:
-                header = torch.empty(3, dtype=torch.int64, device=self._wire)
-                dist.broadcast(header, 0)
-                op, a, b = header.tolist()
-                if op == _OP_STOP:
-                    return
-                if op == _OP_BATCH:
-                    self._mesh_batch(None, bool(b), a)
-                elif op == _OP_SIMILAR:
-                    self._similar_sharded(a, b)
-        finally:
-            self._free_graphs()
+        self._world.follow()
 
     def shutdown(self) -> None:
-        """Rank 0 of a mesh engine: end every other rank's :meth:`follow`
-        (idempotent); later device calls raise."""
+        """Rank 0 of a mesh engine: shut its world down, ending every other
+        rank's :meth:`follow` (idempotent); later device calls of the
+        world's engines raise."""
         if self.mesh is None or not self._leader:
             return
-        with self._mesh_lock:
-            if not self._stopped.is_set():
-                self._send(_OP_STOP)
-                self._stopped.set()
+        self._world.shutdown()
 
     def close(self) -> None:
         """Free the card memory of the engine's CUDA graphs and their
         buffers (a hot reload closes the engine it swapped out once its
         last requests are done); a later request captures its bucket
-        again. A mesh engine's rank 0 shuts the mesh down first: its
-        followers keep their graphs until then."""
-        self.shutdown()
+        again. A mesh engine is closed on every rank of its world (CLOSE),
+        and its later requests raise; the world stays up."""
+        if self.mesh is not None:
+            self._world.close(self)
         self._free_graphs()
 
     def _free_graphs(self) -> None:
@@ -642,10 +601,28 @@ class RecommendationEngine:
         else:
             shard_k(n + 1, self._train_rows.padded, mesh_size(self.mesh))  # raises here, before any rank starts
             with self._lockstep():
-                self._send(_OP_SIMILAR, internal, n)
+                self._send(OP_SIMILAR, internal, n)
                 idx = self._similar_sharded(internal, n)
         neighbours = idx[0, 1:].cpu().tolist()  # drop the first hit (self)
         return [int(self._reverse_item_map[t]) for t in neighbours if t in self._reverse_item_map]
+
+    @torch.no_grad()
+    def tower_check(self, user: int = 0) -> dict | None:
+        """The tower kernel on the engine's item rows (a rank's rows under a
+        mesh) for one model user, against its plain version on the same x0
+        → rows, the largest |kernel − plain| and the logits outside
+        ``TOWER_TOL`` (rtol and atol); None when the engine does not score
+        through the tower. A world build runs it on every rank (COMMIT)."""
+        if self._folded is None:
+            return None
+        d = self._dev
+        users = torch.full(d["item_internal"].shape, user, dtype=torch.int64, device=self.device)
+        x0 = build_x0(self.model, users, d["item_internal"], d["x_cat"], d["x_num"]).contiguous()
+        variant = self.model.cfg.cross_variant
+        out, ref = tower_eval(self._folded, x0, variant), tower_eval_ref(self._folded, x0, variant)
+        err = (out - ref).abs()
+        return {"rows": int(x0.shape[0]), "max_abs_err": float(err.max()) if err.numel() else 0.0,
+                "outside": int((err > TOWER_TOL + TOWER_TOL * ref.abs()).sum())}
 
     def _similar_sharded(self, internal: int, n: int) -> torch.Tensor:
         _, idx = sharded_cosine_topk(self.mesh, self._table_norm_train, self._emb_train[internal][None, :], n + 1,

@@ -11,6 +11,12 @@ one sees the new stack. The old stack is closed after a grace period
 card memory goes with its last reference. A failed load logs and keeps the
 current model serving: a running server never kills itself over a bad
 swap.
+
+Over a mesh (``serve.cli --mesh``) the pollers run on rank 0, and the CLI's
+``build`` is a world build (``serve/lockstep.py``): every rank builds from
+the frames rank 0 parsed from its snapshot, a build that fails on any rank
+raises here on rank 0 after every rank discarded it, and closing an old or
+discarded stack frees its engine on every rank (CLOSE).
 """
 
 from __future__ import annotations

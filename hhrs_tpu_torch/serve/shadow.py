@@ -6,7 +6,10 @@ request path, with agreement statistics (counterpart of
 primary; each request also goes into a bounded queue (dropped and counted
 when full) that one worker replays against the shadow model, recording the
 Jaccard overlap of the two ranked id sets, top-1 agreement, drops and
-errors (``/healthz`` ``"shadow"``, ``/metrics``).
+errors (``/healthz`` ``"shadow"``, ``/metrics``). Over a mesh the shadow
+engine is an engine of the primary's world (``serve/lockstep.py``): the
+worker's replays take the world's lock like every other caller, and
+:meth:`close` frees the shadow on every rank.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a mesh engine's request time goes, on one CUDA card.
 
-    python3 mesh_profile.py [--tree DIR] [--label NAME] [--out FILE]
+    python3 mesh_profile.py [--tree DIR] [--label NAME] [--out FILE] [--parts 13a,13c]
 
 Two of ``chip_smoke.py``'s phase-13 worlds, profiled:
 
@@ -307,6 +307,7 @@ def main() -> int:
     ap.add_argument("--tree", default=None, help="import hhrs_tpu_torch from this tree")
     ap.add_argument("--label", default="profile")
     ap.add_argument("--out", default=None, help="write the readings as JSON here")
+    ap.add_argument("--parts", default="13a,13c", help="the worlds to profile, comma-separated")
     args = ap.parse_args()
     import torch
 
@@ -319,7 +320,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke.card_line()
     print(f"[{args.label}] hhrs_tpu_torch from {Path(hhrs_tpu_torch.__file__).parent}; card: {card}", flush=True)
-    out = {"label": args.label, "card": card, "13a": part_13a(args.label, card), "13c": part_13c(args.label, card)}
+    parts = {"13a": part_13a, "13c": part_13c}
+    out = {"label": args.label, "card": card,
+           **{name: parts[name](args.label, card) for name in args.parts.split(",")}}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))

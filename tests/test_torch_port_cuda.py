@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import perturbed_artifact
 from hhrs_tpu_torch import device as device_module
 from hhrs_tpu_torch.config import ModelConfig, TrainConfig
 from hhrs_tpu_torch.device import capture_stream
@@ -1270,6 +1271,95 @@ def test_cuda_mesh_engine_on_one_nccl_rank_equals_single_device(tmp_path):
         engine.close()
         with pytest.raises(RuntimeError, match="shut down"):
             engine.recommend(*golden["requests"][0])
+    finally:
+        dist.destroy_process_group()
+
+
+def _allocated() -> int:
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+@pytest.mark.cuda
+def test_cuda_two_mesh_engines_share_one_nccl_world(tmp_path):
+    """Two engines of one 1-rank NCCL world, built through the world's BUILD
+    and COMMIT: each engine's buckets are CUDA graphs with collectives
+    inside, and replaying the two engines' graphs in turns gives each
+    engine's own answers, bit for bit (and the single-device engines')."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.parallel.distributed import init_world
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.serve.engine import RecommendationEngine, load_frames
+    from hhrs_tpu_torch.serve.lockstep import world_of
+
+    golden = json.loads(GOLDEN_SERVE.read_text())
+    reqs = golden["requests"][:32]
+    other = perturbed_artifact(tmp_path / "other", seed=1)
+    frames = load_frames(str(REPO / "data"))
+    singles = [RecommendationEngine.from_dirs(d, None, frames=frames, device="cuda") for d in (str(ARTIFACT), other)]
+    want = [[e.recommend(*r) for r in reqs] for e in singles]
+    init_world(0, 1, f"file://{tmp_path / 'store'}", "cuda")
+    try:
+        world = world_of(make_mesh(1, 1, "cuda"), "cuda")
+        engines = [world.build(d, frames, label=f"engine {i}") for i, d in enumerate((str(ARTIFACT), other))]
+        assert all(e.graphs for e in engines) and world.engine_ids() == [0, 1]
+        assert all(world.checks[i]["outside"] == 0 for i in (0, 1))  # COMMIT's kernel check on each engine
+        alone = [[e.recommend(*r) for r in reqs] for e in engines]  # each engine's bucket 1, captured
+        in_turns = [[], []]
+        for r in reqs:
+            for i, e in enumerate(engines):
+                in_turns[i].append(e.recommend(*r))
+        assert in_turns == alone == want
+        assert alone[0] != alone[1]
+        assert all(set(e._buckets) == {(1, False)} for e in engines)
+        assert all(world.tower_launches[i] == 2 for i in (0, 1))  # an eager run and a capture; then replays
+        for e in engines:
+            e.close()
+        assert world.engine_ids() == [] and world.counts["CLOSE"] == 2
+        world.shutdown()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_close_frees_a_mesh_engines_graph_pool(tmp_path):
+    """CLOSE of one engine of a 1-rank NCCL world frees its graphs and its
+    buffers: card memory comes back within 8 MiB, and the world's other
+    engine serves on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import torch.distributed as dist
+
+    from hhrs_tpu_torch.parallel.distributed import init_world
+    from hhrs_tpu_torch.parallel.mesh import make_mesh
+    from hhrs_tpu_torch.serve.engine import load_frames
+    from hhrs_tpu_torch.serve.lockstep import world_of
+
+    golden = json.loads(GOLDEN_SERVE.read_text())
+    many = [golden["requests"][i] for i in golden["many"]]
+    frames = load_frames(str(REPO / "data"))
+    init_world(0, 1, f"file://{tmp_path / 'store'}", "cuda")
+    try:
+        world = world_of(make_mesh(1, 1, "cuda"), "cuda")
+        keep = world.build(str(ARTIFACT), frames, label="kept")
+        before = keep.recommend_many(many, pad_to=8)
+        base = _allocated()
+        closed = world.build(perturbed_artifact(tmp_path / "closed", seed=2), frames, label="closed")
+        closed.warmup(batch_pad=8)
+        closed.recommend_many(many, pad_to=64)
+        grown = _allocated()
+        assert sorted(closed._buckets) == [(1, False), (8, False), (64, False)]
+        closed.close()
+        del closed
+        after = _allocated()
+        assert after <= base + 8 * 2**20 and grown > after, (base, grown, after)
+        assert world.engine_ids() == [keep._engine_id]
+        assert keep.recommend_many(many, pad_to=8) == before
+        world.shutdown()
     finally:
         dist.destroy_process_group()
 

@@ -379,13 +379,6 @@ def test_mesh_engine_fault_ends_the_world(fixture):
 # ---- the CLI ------------------------------------------------------------------ #
 
 
-@pytest.mark.parametrize("flags", [["--shadow", "x"], ["--canary", "x"], ["--reload-poll-s", "5"],
-                                   ["--data-poll-s", "5"]])
-def test_cli_refuses_mesh_with_unported_stacks(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
-        cli.main(["--mesh", "2", "--device", "cpu", *flags])
-
-
 def test_cli_mesh_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

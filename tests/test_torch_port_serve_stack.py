@@ -45,10 +45,10 @@ ARTIFACT = str(REPO / "benchmarks/results/hpo_r5/best")
 DATA = str(REPO / "data")
 
 
-def perturbed_artifact(out: str, seed: int = 1, scale: float = 0.05) -> str:
-    """hpo_r5 with seeded noise on every parameter: another model of the
-    same shapes and vocabulary."""
-    b = load_artifact_bundle(ARTIFACT)
+def perturbed_artifact(out: str, seed: int = 1, scale: float = 0.05, source: str = ARTIFACT) -> str:
+    """``source`` (hpo_r5 by default) with seeded noise on every parameter:
+    another model of the same shapes and vocabulary."""
+    b = load_artifact_bundle(source)
     rng = np.random.default_rng(seed)
     params = jax.tree.map(lambda x: np.asarray(x) + scale * rng.standard_normal(np.shape(x)).astype(np.float32),
                           b.params)
@@ -337,8 +337,11 @@ def test_cli_flags_equal_jax_plus_device():
 
 
 def test_cli_refuses_unported_flags_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A11c"):  # --mesh serves; with a canary it is A11c
-        cli.main(["--mesh", "4x2", "--device", "cpu", "--canary", "x"])
+    # --mesh composes with every stack flag: nothing refuses the combination any more
+    assert not hasattr(cli, "_refuse_unported")
+    for flags in (["--shadow", "x"], ["--canary", "x"], ["--reload-poll-s", "5"], ["--data-poll-s", "5"]):
+        args = cli.build_parser().parse_args(["--mesh", "4x2", "--device", "cpu", *flags])
+        assert args.mesh == "4x2" and (args.shadow or args.canary or args.reload_poll_s or args.data_poll_s)
     # --retrieval-embeddings (A10) is served: the stack's engine holds the table
     table = REPO / "hhrs_tpu_torch/testdata/retrieval_embeddings_hpo_r5.npy"
     args = cli.build_parser().parse_args(["--artifacts", ARTIFACT, "--data", DATA, "--device", "cpu",
