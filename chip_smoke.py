@@ -1456,19 +1456,29 @@ def bf16_training(splits, preproc, model_cfg, train_cfg, dev, card: str) -> dict
 
 
 class _Client:
-    """One keep-alive HTTP/1.1 connection to a server on 127.0.0.1."""
+    """One keep-alive HTTP/1.1 connection to a server on 127.0.0.1. The
+    server reaps a connection idle for 30 s (``serve/http.py``), so, as a
+    pooling client does, a connection idle for longer than ``IDLE_REOPEN_S``
+    is closed and opened anew before the next request."""
+
+    IDLE_REOPEN_S = 20.0
 
     def __init__(self, port: int):
         import http.client
 
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        self.last = time.monotonic()
 
     def call(self, method: str, path: str, payload=None) -> tuple[int, bytes]:
+        if time.monotonic() - self.last > self.IDLE_REOPEN_S:
+            self.conn.close()  # the next request connects again
         body = None if payload is None else json.dumps(payload)
         self.conn.request(method, path, body=body,
                           headers={"Content-Type": "application/json"} if body is not None else {})
         r = self.conn.getresponse()
-        return r.status, r.read()
+        out = r.status, r.read()
+        self.last = time.monotonic()
+        return out
 
     def close(self) -> None:
         self.conn.close()
