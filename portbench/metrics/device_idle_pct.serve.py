@@ -1,0 +1,3 @@
+"""Share of the traced serving window in which nothing ran on the device."""
+
+from portbench.metrics_common import idle_pct as read  # noqa: F401
