@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from hhrs_tpu_torch.utils import profiling
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "hhrs_tpu_torch"
@@ -55,6 +57,7 @@ def build(name: str, sources: list) -> Path:
     out = library_path(name, sources)
     if out.exists():
         return out
+    profiling.count("build.kernel_library")
     log = compile_into(out, [find_nvcc(), *NVCC_FLAGS], [CSRC_DIR / s for s in sources])
     out.with_suffix(".log").write_text(log)
     return out

@@ -32,6 +32,7 @@ import torch
 
 from hhrs_tpu_torch.ops import cuda_build
 from hhrs_tpu_torch.ops.cross import CROSS_VARIANTS, cross_stack_apply
+from hhrs_tpu_torch.utils import profiling
 
 _FOLDED_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "cross_w", "cross_b", "final_w", "final_b")
 _LIB_NAME, _LIB_SOURCES = "tower_eval", ["tower_eval.cu"]
@@ -256,6 +257,7 @@ def _wave_ms(device_index: int, d: int, H: int, R: int, L: int) -> dict:
     events over 3 launches after a warm-up; the best of three passes over
     the plans, as the first also brings the card's clocks up). These
     launches count in ``tower_eval.launches``."""
+    profiling.count("build.tower_plan")
     smem_optin, resident = _device_limits(device_index)
     dev = torch.device("cuda", device_index)
     folded = {k: torch.zeros(shape, device=dev) for k, shape in _folded_shapes(d, H, R, L).items()}

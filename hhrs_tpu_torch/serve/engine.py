@@ -26,6 +26,14 @@ The CPU runs the same code without a graph.
 request, of every ``recommend_many`` batch (``/metrics``); ``warmup``
 leaves it empty.
 
+While a ``torch.profiler`` session records, a batch marks its host
+stages as spans (``utils/profiling.py``): ``serve.batch`` over
+``serve.host_inputs``, ``serve.replay``, ``serve.copy_back`` (which holds
+the host's wait for the device) and ``serve.assemble``. A replay records
+no span, so each bucket's graph holds four timing events at the device
+stages' boundaries, and a replay under a profiler books their times
+(``serve.device.*_ms``).
+
 Ranking covers only the request city's item rows by default (exact:
 candidates are a subset of the city's items by construction); with
 ``city_bounded=False`` every serve item is ranked. ``dcnr`` artifacts at
@@ -124,7 +132,9 @@ from hhrs_tpu_torch.retrieval.sharded import shard_k, sharded_cosine_topk
 from hhrs_tpu_torch.retrieval.similarity import cosine_topk, normalize_rows, require_full_f32_matmul
 from hhrs_tpu_torch.serve.lockstep import OP_BATCH, OP_SIMILAR, world_of
 from hhrs_tpu_torch.train.artifacts import ArtifactBundle, load_artifact_bundle
+from hhrs_tpu_torch.utils import profiling
 from hhrs_tpu_torch.utils.logging import LatencyHistogram
+from hhrs_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -141,6 +151,17 @@ class _Bucket(NamedTuple):
     host: torch.Tensor  # pinned int32 [Kp, S + 3], the upload's source
     inputs: torch.Tensor  # int32 [Kp, S + 3] on the card, the graph's input
     out: torch.Tensor  # int64 [Kp, W + top_k + 1] on the card, the graph's output
+    marks: tuple | None  # timing events captured at the stage boundaries (None under a mesh)
+
+
+STAGES = ("retrieval", "ranking", "mmr")  # the device stages between a bucket's marks
+
+
+def _record(marks: tuple | None, i: int) -> None:
+    """Record stage boundary ``i`` of :data:`STAGES` (0 before retrieval,
+    3 after MMR) into the graph being captured; nothing outside a capture."""
+    if marks is not None:
+        marks[i].record()
 
 
 def bucket_size(K: int, pad_to: int | None = None) -> int:
@@ -297,7 +318,7 @@ class RecommendationEngine:
         return score_rows(self.model, self._folded, users, items, x_cat, x_num)
 
     @torch.no_grad()
-    def _rank_rows(self, cand, count, user_internal, lam, idx) -> torch.Tensor:
+    def _rank_rows(self, cand, count, user_internal, lam, idx, marks=None) -> torch.Tensor:
         """Ranking + MMR restricted to the rows ``idx`` ``[K, W]`` (ascending
         serve indices, padded with M). Exact when every candidate is in
         ``idx``: the request city's rows, or all M rows (``_rank_full``).
@@ -312,6 +333,7 @@ class RecommendationEngine:
         users = user_internal[:, None].expand(K, W).reshape(-1)
         logits = self._logits(users, d["item_internal"][flat], d["x_cat"][flat], d["x_num"][flat])
         scores = torch.where(valid, logits.reshape(K, W), torch.full((), NEG_INF, device=idx.device))
+        _record(marks, 2)
         return self._order_and_mmr(scores, valid, count, lam, idx, safe)
 
     def _order_and_mmr(self, scores, valid, count, lam, idx, safe) -> torch.Tensor:
@@ -326,10 +348,10 @@ class RecommendationEngine:
         mmr_idx = torch.where(mmr >= 0, torch.gather(idx, 1, torch.clamp(mmr, min=0)), -1)
         return torch.cat([order, mmr_idx, count[:, None]], dim=1)
 
-    def _rank_full(self, cand, count, user_internal, lam) -> torch.Tensor:
+    def _rank_full(self, cand, count, user_internal, lam, marks=None) -> torch.Tensor:
         """Every serve item ranked (``city_bounded=False``)."""
         idx = self._all_rows.expand(cand.shape[0], -1)
-        return self._rank_rows(cand, count, user_internal, lam, idx)
+        return self._rank_rows(cand, count, user_internal, lam, idx, marks)
 
     def _rank_sharded(self, cand, count, user_internal, lam) -> torch.Tensor:
         """Under a mesh: score this rank's ``[K, Mp/W]`` rows (one scoring
@@ -349,7 +371,7 @@ class RecommendationEngine:
         idx = torch.arange(self.gen.Mp, device=cand.device).expand(K, -1)
         return self._order_and_mmr(every[0], every[1] > 0, count, lam, idx, torch.clamp(idx, max=self.gen.M - 1))
 
-    def _rank_capped(self, cand, count, user_internal, lam) -> torch.Tensor:
+    def _rank_capped(self, cand, count, user_internal, lam, marks=None) -> torch.Tensor:
         """The JAX engine's ``_rank_capped``: rank only the first ``cap``
         candidate rows in ascending serve order (all of them when ``count <=
         cap``, the only case whose output is read), padded with M, then pad
@@ -362,7 +384,7 @@ class RecommendationEngine:
         slot = torch.where(cand & (slot < cap), slot, cap)
         idx = torch.full((K, cap + 1), M, dtype=torch.int64, device=cand.device)
         idx.scatter_(1, slot, self._all_rows.expand(K, -1))
-        packed = self._rank_rows(cand, count, user_internal, lam, idx[:, :cap])
+        packed = self._rank_rows(cand, count, user_internal, lam, idx[:, :cap], marks)
         pad = torch.zeros((K, self._order_width - cap), dtype=packed.dtype, device=packed.device)
         return torch.cat([packed[:, :cap], pad, packed[:, cap:]], dim=1)
 
@@ -439,57 +461,78 @@ class RecommendationEngine:
             return []
         if self.mesh is not None and not self._leader:
             raise RuntimeError("rank 0 leads a mesh engine; the other ranks run follow()")
-        S = self.gen.max_sources
-        host = np.empty((bucket_size(K, pad_to), S + 3), np.int32)
-        for k, (u, c, mode, _l) in enumerate(requests):
-            host[k, :S], host[k, S], host[k, S + 1] = self._host_inputs(u, c, mode)
-        host[:K, S + 2] = np.asarray([r[3] for r in requests], np.float32).view(np.int32)
-        host[K:] = host[K - 1]  # pad rows copy the last real row
+        with span("serve.batch"):
+            S = self.gen.max_sources
+            with span("serve.host_inputs"):
+                host = np.empty((bucket_size(K, pad_to), S + 3), np.int32)
+                for k, (u, c, mode, _l) in enumerate(requests):
+                    host[k, :S], host[k, S], host[k, S + 1] = self._host_inputs(u, c, mode)
+                host[:K, S + 2] = np.asarray([r[3] for r in requests], np.float32).view(np.int32)
+                host[K:] = host[K - 1]  # pad rows copy the last real row
 
-        def run(capped: bool) -> np.ndarray:
-            if self.mesh is not None:
-                return self._mesh_batch(host, graphed).numpy()
-            if graphed:
-                return self._replay(host, capped).numpy()
-            return self._device_rank(torch.from_numpy(host).to(self.device), capped).cpu().numpy()  # the copy back
+            def run(capped: bool) -> np.ndarray:
+                if self.mesh is not None:
+                    return self._mesh_batch(host, graphed).numpy()
+                if graphed:
+                    return self._replay(host, capped).numpy()
+                out = self._device_rank(torch.from_numpy(host).to(self.device), capped)
+                with span("serve.copy_back"):
+                    return out.cpu().numpy()
 
-        packed = run(capped)
-        if capped:
-            fits = packed[0, -1] <= self._cap
-            with self._count_lock:
-                self.cap_branches["capped" if fits else "full"] += 1
-            if not fits:
-                packed = run(False)
-        return [self._assemble(u, l, packed[k]) for k, (u, _c, _m, l) in enumerate(requests)]
+            packed = run(capped)
+            if capped:
+                fits = packed[0, -1] <= self._cap
+                with self._count_lock:
+                    self.cap_branches["capped" if fits else "full"] += 1
+                if not fits:
+                    packed = run(False)
+            with span("serve.assemble"):
+                return [self._assemble(u, l, packed[k]) for k, (u, _c, _m, l) in enumerate(requests)]
 
     @torch.no_grad()
-    def _device_rank(self, inputs: torch.Tensor, capped: bool = False) -> torch.Tensor:
+    def _device_rank(self, inputs: torch.Tensor, capped: bool = False, marks: tuple | None = None) -> torch.Tensor:
         """The device work of a batch: the packed int32 ``[Kp, S + 3]``
         inputs → the packed int64 ``[Kp, W + top_k + 1]`` output; with
-        ``capped``, ranked on the compacted candidate rows."""
+        ``capped``, ranked on the compacted candidate rows. ``marks``: the
+        four timing events of a capture, recorded at the stage boundaries
+        (single device only)."""
+        _record(marks, 0)
         S = self.gen.max_sources
         sources, city, user = inputs[:, :S].long(), inputs[:, S].long(), inputs[:, S + 1].long()
         lam = inputs.view(torch.float32)[:, S + 2]
         cand, _neg, count = self.gen.generate_batch(sources, city)
+        _record(marks, 1)
         if self.mesh is not None:
             return self._rank_sharded(cand, count, user, lam)
         if capped:
-            return self._rank_capped(cand, count, user, lam)
-        if self._city_bounded:
+            out = self._rank_capped(cand, count, user, lam, marks)
+        elif self._city_bounded:
             rows = self.gen.dev["city_rows"][torch.clamp(city, max=len(self.gen.universe.cities))]
-            return self._rank_rows(cand, count, user, lam, rows)
-        return self._rank_full(cand, count, user, lam)
+            out = self._rank_rows(cand, count, user, lam, rows, marks)
+        else:
+            out = self._rank_full(cand, count, user, lam, marks)
+        _record(marks, 3)
+        return out
 
     def _replay(self, host: np.ndarray, capped: bool) -> torch.Tensor:
         """Run ``host`` through its bucket's CUDA graph, full or capped
-        (captured on first use) → the packed output on the host."""
+        (captured on first use) → the packed output on the host. While a
+        profiler records, books each stage's device time from the marks
+        the replay recorded (``serve.device.<stage>_ms``): the copy back
+        has waited for them, and the lock keeps the next replay off them."""
         with self._graph_lock:
             b = (self._buckets.get((host.shape[0], capped))
                  or self._capture(torch.from_numpy(host).to(self.device), capped))
-            b.host.numpy()[...] = host
-            b.inputs.copy_(b.host, non_blocking=True)
-            b.graph.replay()
-            return b.out.cpu()  # the one device→host copy; it waits for the replay
+            with span("serve.replay"):
+                b.host.numpy()[...] = host
+                b.inputs.copy_(b.host, non_blocking=True)
+                b.graph.replay()
+            with span("serve.copy_back"):
+                out = b.out.cpu()  # the one device→host copy; it waits for the replay
+            if profiling.recording():
+                for stage, start, end in zip(STAGES, b.marks, b.marks[1:]):
+                    profiling.book(f"serve.device.{stage}_ms", start.elapsed_time(end))
+            return out
 
     def _capture(self, inputs: torch.Tensor, capped: bool) -> _Bucket:
         """Capture the bucket of ``inputs``' row count (full or capped) with
@@ -497,8 +540,13 @@ class RecommendationEngine:
         capture stream first sets up what a capture cannot: the tower
         kernel's launch plan for Kp·W rows (timed with events and a
         synchronize at its first use), the kernels' libraries, cuBLAS's
-        workspace."""
+        workspace. On a single device the graph also records the four
+        timing events of :data:`STAGES` (``external``: event nodes that each
+        replay records); the eager run records none."""
+        profiling.count("build.graph_capture")
         stream, current = self._graph_stream, torch.cuda.current_stream(self.device)
+        marks = None if self.mesh is not None else tuple(
+            torch.cuda.Event(enable_timing=True, external=True) for _ in range(len(STAGES) + 1))
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             self._device_rank(inputs, capped)
@@ -508,8 +556,8 @@ class RecommendationEngine:
         graph = torch.cuda.CUDAGraph()
         with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
                                              capture_error_mode="thread_local"):
-            out = self._device_rank(inputs, capped)
-        b = _Bucket(graph, torch.empty(inputs.shape, dtype=torch.int32, pin_memory=True), inputs, out)
+            out = self._device_rank(inputs, capped, marks)
+        b = _Bucket(graph, torch.empty(inputs.shape, dtype=torch.int32, pin_memory=True), inputs, out, marks)
         self._buckets[(inputs.shape[0], capped)] = b
         log.info("captured the %s serving graph of a %d-request bucket", "capped" if capped else "full",
                  inputs.shape[0])

@@ -132,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--promote-metric", default="val_logloss",
                    help="metric for --promote (direction inferred from its name)")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of the run into this dir")
+                   help="write a torch.profiler trace of the run (trace.json) and the program's "
+                        "counters (counters.json) into this dir")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                    help="train over a device mesh, e.g. 2 or 2x2 (data-parallel batch, row-sharded tables): "
                         "joins the world the environment configures, else launches that many ranks here")

@@ -46,6 +46,13 @@ best state by val loss, and a per-epoch prune hook for HPO. Mechanics:
   best state stay host decisions between epochs;
 * ``checkpoint_dir`` saves the whole loop state after every epoch
   (``train/checkpoint.py``) and a rerun resumes from the last one;
+* under a ``torch.profiler`` session each epoch is a ``train.epoch`` span
+  over ``train.shuffle``, ``train.replay``, ``train.eval`` (up to its
+  blocking read, which also waits for the asynchronous steps) and
+  ``train.bookkeeping`` (with ``train.checkpoint``); on a card, CUDA
+  events just around each fused epoch's graph replay and around the val
+  eval book their device times (``train.device.replay_ms``,
+  ``train.device.eval_ms``). ``utils/profiling.py`` holds both;
 * the best state is a copy on the device; the final metrics are computed
   on it. ``examples_per_s`` is the median per-epoch rate after the first
   epoch this process ran;
@@ -85,6 +92,7 @@ from hhrs_tpu_torch.train.checkpoint import TrainCheckpointer
 from hhrs_tpu_torch.train.lazy import LazyTableOptimizer, dense_parameters, lazy_train_step
 from hhrs_tpu_torch.train.metrics import auc_score, bce_with_logits, recall_at_k, rmse_of_probs
 from hhrs_tpu_torch.train.optimizers import PlateauScheduler, make_optimizer, set_learning_rate
+from hhrs_tpu_torch.utils.profiling import book_elapsed, count, device_event, span
 
 RNG_IMPLS = ("threefry2x32", "rbg")
 SPLIT_DTYPES = {"user": torch.int64, "item": torch.int64, "cat": torch.int64, "num": torch.float32,
@@ -257,7 +265,8 @@ class FusedEpoch:
     which the graph advances on every replay; the optimizer's LR is a
     tensor the graph reads, so a plateau decay between epochs reaches it.
     With ``debug_nans`` every step ORs :func:`nan_flag` into ``self.nan``,
-    which the caller reads after the run."""
+    which the caller reads after the run. While a profiler records, a
+    replay keeps the timing events just around it in ``self.replayed``."""
 
     def __init__(self, model: DCNR, opt, data: dict, batch_size: int,
                  steps: int, generator: torch.Generator, debug_nans: bool = False):
@@ -268,6 +277,7 @@ class FusedEpoch:
         self.losses = torch.zeros(steps, device=dev)
         self.nan = torch.zeros((), dtype=torch.bool, device=dev)
         self.graph = None
+        self.replayed = (None, None)  # the last replay's device_event pair
         if dev.type == "cuda":
             self.stream = capture_stream(self, dev)
 
@@ -291,7 +301,9 @@ class FusedEpoch:
         if self.perm.device.type != "cuda":
             self._epoch()
         elif self.graph is not None:
+            start = device_event(self.perm.device)
             self.graph.replay()
+            self.replayed = (start, device_event(self.perm.device))
         else:
             side = self.stream
             side.wait_stream(torch.cuda.current_stream())
@@ -302,6 +314,7 @@ class FusedEpoch:
         return self.losses.mean()
 
     def _capture(self) -> None:
+        count("build.graph_capture")
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)  # each replay draws new dropout masks
         # Recording runs nothing: the state the last epoch left stays as it is.
@@ -506,109 +519,122 @@ def train_dcn(
         return bce_with_logits(logits, val_y)
 
     for epoch in range(start_epoch, train_cfg.n_epochs):
-        t_epoch = time.perf_counter()
-        epochs_run += 1
-        perm_host = shuffle_rng.permutation(n_train)
-        if perm_len > n_train:
-            perm_host = np.resize(perm_host, perm_len)  # wrap-pad the ragged tail
-        perm_host = perm_host[:perm_len]
-        marks = []  # timestamps: CUDA events on a card, host seconds on the CPU
-        overflows = []  # the capped exchange's (dropped, total) of each step
-        if fused is not None:
-            marks.append(_mark(timed))
-            mean_loss = fused.run(perm_host)
-            marks.append(_mark(timed))
-            if debug_nans:
-                _raise_on_nan(fused.nan, f"during epoch {epoch} (checked once a fused epoch)")
-        else:
-            model.train()
-            losses = []
+        with span("train.epoch"):
+            t_epoch = time.perf_counter()
+            epochs_run += 1
+            with span("train.shuffle"):
+                perm_host = shuffle_rng.permutation(n_train)
+                if perm_len > n_train:
+                    perm_host = np.resize(perm_host, perm_len)  # wrap-pad the ragged tail
+                perm_host = perm_host[:perm_len]
+            marks = []  # timestamps: CUDA events on a card, host seconds on the CPU
+            overflows = []  # the capped exchange's (dropped, total) of each step
+            with span("train.replay"):
+                if fused is not None:
+                    marks.append(_mark(timed))
+                    mean_loss = fused.run(perm_host)
+                    marks.append(_mark(timed))
+                    if debug_nans:
+                        _raise_on_nan(fused.nan, f"during epoch {epoch} (checked once a fused epoch)")
+                else:
+                    model.train()
+                    losses = []
 
-            def run(batch: dict) -> None:
-                marks.append(_mark(timed))
-                loss, overflow = step(batch, f"after step {len(losses)} of epoch {epoch}")
-                losses.append(loss)
-                if overflow is not None:
-                    overflows.append(overflow)
+                    def run(batch: dict) -> None:
+                        marks.append(_mark(timed))
+                        loss, overflow = step(batch, f"after step {len(losses)} of epoch {epoch}")
+                        losses.append(loss)
+                        if overflow is not None:
+                            overflows.append(overflow)
 
-            if slabs is not None:
-                for slab in slabs.epoch(perm_host, steps_per_epoch):
-                    for k in range(slab["y"].shape[0]):
-                        run({name: t[k] for name, t in slab.items()})
-            elif train_data is None:  # a mesh's streamed epoch: this rank's rows only
-                rows = epoch_rows(perm_host, steps_per_epoch, B, layout).reshape(-1)
-                epoch_data = host_rows(splits, "train", rows, SPLIT_DTYPES, dev)
-                for s in range(steps_per_epoch):
-                    run({k: v[s * n_local:(s + 1) * n_local] for k, v in epoch_data.items()})
-            else:
-                perm = torch.as_tensor(perm_host, dtype=torch.int64, device=dev)
-                for s in range(steps_per_epoch):
-                    idx = perm[s * B + start:s * B + start + n_local]
-                    run({k: v[idx] for k, v in train_data.items()})
-            marks.append(_mark(timed))
-            mean_loss = torch.stack(losses).mean()
+                    if slabs is not None:
+                        for slab in slabs.epoch(perm_host, steps_per_epoch):
+                            for k in range(slab["y"].shape[0]):
+                                run({name: t[k] for name, t in slab.items()})
+                    elif train_data is None:  # a mesh's streamed epoch: this rank's rows only
+                        rows = epoch_rows(perm_host, steps_per_epoch, B, layout).reshape(-1)
+                        epoch_data = host_rows(splits, "train", rows, SPLIT_DTYPES, dev)
+                        for s in range(steps_per_epoch):
+                            run({k: v[s * n_local:(s + 1) * n_local] for k, v in epoch_data.items()})
+                    else:
+                        perm = torch.as_tensor(perm_host, dtype=torch.int64, device=dev)
+                        for s in range(steps_per_epoch):
+                            idx = perm[s * B + start:s * B + start + n_local]
+                            run({k: v[idx] for k, v in train_data.items()})
+                    marks.append(_mark(timed))
+                    mean_loss = torch.stack(losses).mean()
 
-        is_eval = (epoch + 1) % train_cfg.eval_every == 0 or epoch + 1 == train_cfg.n_epochs
-        pruned_now = False
-        if is_eval:
-            val_loss, train_loss = (float(v) for v in torch.stack([eval_loss(), mean_loss]).tolist())
-            lr = plateau.step(val_loss)
-            if lr != cur_lr:
-                set_learning_rate(opt, lr)
-                cur_lr = lr
-            rec = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss, "lr": lr}
-            if overflows:
-                dropped, total = (int(v) for v in torch.stack(overflows).sum(dim=0).tolist())
-                rec["exchange_overflow"] = dropped / total if total else 0.0
-                log.info("capped exchange: %.4f%% of lookups dropped this epoch (%d of %d)",
-                         100 * rec["exchange_overflow"], dropped, total)
-            result.history.append(rec)
-            if metrics_logger is not None:
-                metrics_logger.log(**rec)
-            log.info("epoch %d: train_loss %.4f val_loss %.4f lr %.2e", epoch, train_loss, val_loss, lr)
-            if val_loss < result.best_val_loss:
-                result.best_val_loss = val_loss
-                result.best_epoch = epoch
-                epochs_no_improve = 0
-                best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-            else:
-                epochs_no_improve += 1
-            # before the save: a run resumed after a prune must see it and train no further
-            pruned_now = report_fn is not None and report_fn(epoch, val_loss)
-            result.pruned = result.pruned or pruned_now
+            is_eval = (epoch + 1) % train_cfg.eval_every == 0 or epoch + 1 == train_cfg.n_epochs
+            pruned_now = False
+            if is_eval:
+                with span("train.eval"):
+                    before = device_event(dev)
+                    val = eval_loss()
+                    after = device_event(dev)
+                    val_loss, train_loss = (float(v) for v in torch.stack([val, mean_loss]).tolist())
+                    book_elapsed("train.device.eval_ms", before, after)
+            with span("train.bookkeeping"):
+                if is_eval:
+                    lr = plateau.step(val_loss)
+                    if lr != cur_lr:
+                        set_learning_rate(opt, lr)
+                        cur_lr = lr
+                    rec = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss, "lr": lr}
+                    if overflows:
+                        dropped, total = (int(v) for v in torch.stack(overflows).sum(dim=0).tolist())
+                        rec["exchange_overflow"] = dropped / total if total else 0.0
+                        log.info("capped exchange: %.4f%% of lookups dropped this epoch (%d of %d)",
+                                 100 * rec["exchange_overflow"], dropped, total)
+                    result.history.append(rec)
+                    if metrics_logger is not None:
+                        metrics_logger.log(**rec)
+                    log.info("epoch %d: train_loss %.4f val_loss %.4f lr %.2e", epoch, train_loss, val_loss, lr)
+                    if val_loss < result.best_val_loss:
+                        result.best_val_loss = val_loss
+                        result.best_epoch = epoch
+                        epochs_no_improve = 0
+                        best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                    else:
+                        epochs_no_improve += 1
+                    # before the save: a run resumed after a prune must see it and train no further
+                    pruned_now = report_fn is not None and report_fn(epoch, val_loss)
+                    result.pruned = result.pruned or pruned_now
 
-        if ckpt is not None:
-            model_state, opt_state, best = model.state_dict(), opt.state_dict(), best_state
-            if layout is not None:  # every rank joins the gathers; rank 0 writes the whole state
-                model_state, opt_state = gathered_state_dict(model), gathered_optimizer_state(model, opt)
-                best = None if best is None else gathered_state_dict(model, best)
-            if writer:
-                ckpt.save(epoch, {
-                    "model": model_state,
-                    "optimizer": opt_state,
-                    "best": best,
-                    "dropout_generator": dropout_gen.get_state(),
-                }, {
-                    "epoch": epoch,
-                    "history": result.history,
-                    "best_val_loss": result.best_val_loss,
-                    "best_epoch": result.best_epoch,
-                    "pruned": result.pruned,
-                    "epochs_no_improve": epochs_no_improve,
-                    "plateau": {"lr": plateau.lr, "best": plateau.best, "num_bad": plateau.num_bad},
-                    "shuffle_rng_state": shuffle_rng.bit_generator.state,
-                })
-            if layout is not None:
-                dist.barrier()  # the file is whole before any rank goes on
+                if ckpt is not None:
+                    with span("train.checkpoint"):
+                        model_state, opt_state, best = model.state_dict(), opt.state_dict(), best_state
+                        if layout is not None:  # every rank joins the gathers; rank 0 writes the whole state
+                            model_state, opt_state = gathered_state_dict(model), gathered_optimizer_state(model, opt)
+                            best = None if best is None else gathered_state_dict(model, best)
+                        if writer:
+                            ckpt.save(epoch, {
+                                "model": model_state,
+                                "optimizer": opt_state,
+                                "best": best,
+                                "dropout_generator": dropout_gen.get_state(),
+                            }, {
+                                "epoch": epoch,
+                                "history": result.history,
+                                "best_val_loss": result.best_val_loss,
+                                "best_epoch": result.best_epoch,
+                                "pruned": result.pruned,
+                                "epochs_no_improve": epochs_no_improve,
+                                "plateau": {"lr": plateau.lr, "best": plateau.best, "num_bad": plateau.num_bad},
+                                "shuffle_rng_state": shuffle_rng.bit_generator.state,
+                            })
+                        if layout is not None:
+                            dist.barrier()  # the file is whole before any rank goes on
 
-        if epochs_run > 1:  # the first epoch a process runs warms up (and captures)
-            if timed:
-                torch.cuda.synchronize(dev)
-                ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-            else:
-                ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-            result.step_ms += [ms[0] / steps_per_epoch] if fused is not None else ms
-            epoch_times.append(time.perf_counter() - t_epoch)
+                if epochs_run > 1:  # the first epoch a process runs warms up (and captures)
+                    if timed:
+                        torch.cuda.synchronize(dev)
+                        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+                    else:
+                        ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+                    result.step_ms += [ms[0] / steps_per_epoch] if fused is not None else ms
+                    if fused is not None:
+                        book_elapsed("train.device.replay_ms", *fused.replayed)
+                    epoch_times.append(time.perf_counter() - t_epoch)
         if pruned_now:
             log.info("trial pruned at epoch %d", epoch)
             break
